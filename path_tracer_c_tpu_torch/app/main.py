@@ -1,0 +1,166 @@
+"""Command-line interface: offline render to BMP.
+
+The ``render`` subcommand of the JAX package's ``app/main.py`` on PyTorch:
+a built-in scene or scene JSON, rendered by the hand CUDA kernel
+(``--engine cuda``, the default) or by the eager integrator
+(``--engine core``), written as a 24-bit BMP.
+
+``--device cuda`` (the default) needs a CUDA device and raises without
+one; it never carries on on the CPU. ``--device cpu`` runs the same
+engines on the CPU, where ``--engine cuda`` takes the kernel's plain
+twin. The kernel has no tile-divisibility rule, so ``--engine cuda``
+renders every image size through it.
+
+Usage:
+    python -m path_tracer_c_tpu_torch.app.main render --scene glossy \
+        --width 1024 --height 1024 --spp 64 --max-bounces 8 --out out.bmp
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import torch
+
+
+def _scenes():
+    from ..scene import demo
+
+    return {
+        "demo": demo.demo_scene,
+        "diffuse": demo.diffuse_sphere_scene,
+        "cornell": demo.cornell_spheres_scene,
+        "glossy": demo.glossy_scene,
+        "spheres32": demo.random_spheres_scene,
+    }
+
+
+def get_scene(name: str, device):
+    """Resolve a scene by built-in name or JSON file path."""
+    scenes = _scenes()
+    if name in scenes:
+        return scenes[name](device)
+    if name.endswith(".json") and Path(name).exists():
+        from ..scene.io import load_scene
+
+        return load_scene(name, device)
+    raise SystemExit(
+        f"unknown scene '{name}'; available: {', '.join(sorted(scenes))} "
+        "or a scene .json path"
+    )
+
+
+# Engines and settings of the JAX CLI that this package has not ported
+# yet, with the ROADMAP.md item that ports them.
+_NOT_PORTED_ENGINES = {
+    "physical": "A9 (physical tier)",
+    "physical_pallas": "A9 (physical tier)",
+    "split": "A10 (split tier)",
+}
+
+
+def _check_ported(cfg):
+    if cfg.engine in _NOT_PORTED_ENGINES:
+        raise SystemExit(
+            f"engine '{cfg.engine}' is not ported to PyTorch yet: see "
+            f"ROADMAP.md {_NOT_PORTED_ENGINES[cfg.engine]}"
+        )
+    if cfg.engine not in ("cuda", "core"):
+        raise SystemExit(f"unknown engine '{cfg.engine}'; available: cuda, core")
+    if cfg.mesh.tile * cfg.mesh.spp > 1:
+        raise SystemExit(
+            "a multi-device mesh is not ported yet: see ROADMAP.md A11 "
+            "(parallel layer)"
+        )
+    if cfg.tri_nee:
+        raise SystemExit("tri_nee is not ported yet: see ROADMAP.md A9 (physical tier)")
+    for name in ("checkpoint_every", "checkpoint_path", "progressive", "debug_nans"):
+        if getattr(cfg, name):
+            raise SystemExit(
+                f"{name} is not ported yet: see ROADMAP.md A12 "
+                "(checkpoint and the rest of the CLI)"
+            )
+
+
+def _device(name: str) -> torch.device:
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda: no CUDA device is available")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def cmd_render(args):
+    from ..models.integrator import render_image_u8, render_radiance
+    from ..ops import render_kernel as rk
+    from ..ops.camera import Camera
+    from ..utils import bitmap
+    from ..utils.config import RenderConfig, load
+    from ..utils.metrics import MetricsLogger, Timer, throughput
+
+    cfg = load(args.config) if args.config else RenderConfig()
+    for name in ("width", "height", "spp", "max_bounces", "seed", "scene", "engine"):
+        v = getattr(args, name)
+        if v is not None:
+            setattr(cfg, name, v)
+    if cfg.engine == "pallas":
+        cfg.engine = "cuda"
+    if args.out:
+        cfg.output = args.out
+    _check_ported(cfg)
+    device = _device(args.device)
+
+    scene = get_scene(cfg.scene, device)
+    camera = Camera.reference(device, cfg.fov_deg)
+    metrics = MetricsLogger(args.metrics)
+    render = rk.render_kernel if cfg.engine == "cuda" else render_radiance
+    with Timer() as t:
+        rad = render(
+            scene, camera, cfg.height, cfg.width, cfg.spp, cfg.max_bounces,
+            cfg.seed, jitter=cfg.jitter,
+        )
+        u8 = render_image_u8(rad).cpu().numpy()  # waits for the device
+    rps = throughput(cfg.height, cfg.width, cfg.spp, cfg.max_bounces, t.seconds)
+    metrics.log("render", engine=cfg.engine, device=str(device),
+                seconds=t.seconds, rays_per_sec=rps)
+    print(f"spp {cfg.spp}  {t.seconds:.2f}s  {rps:.3e} rays/s  "
+          f"({cfg.engine} on {device})")
+    bitmap.write_bitmap(cfg.output, u8, y_inverted=True)
+    print(f"wrote {cfg.output} ({cfg.width}x{cfg.height}, {cfg.spp} spp)")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="path_tracer_c_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("render", help="offline render to BMP")
+    r.add_argument("--config", help="JSON config file")
+    r.add_argument("--scene")
+    r.add_argument("--width", type=int)
+    r.add_argument("--height", type=int)
+    r.add_argument("--spp", type=int)
+    r.add_argument("--max-bounces", type=int, dest="max_bounces")
+    r.add_argument("--seed", type=int)
+    r.add_argument("--out", help="output BMP path")
+    r.add_argument("--metrics", help="metrics JSONL output path")
+    r.add_argument(
+        "--engine", choices=["cuda", "core"],
+        help="cuda: the hand kernel (its plain twin on --device cpu); "
+             "core: the eager integrator (default: the config's, else cuda)",
+    )
+    r.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    r.set_defaults(fn=cmd_render)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

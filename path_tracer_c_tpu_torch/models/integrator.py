@@ -1,0 +1,176 @@
+"""Wavefront path-tracing integrator (eager PyTorch, reference tier).
+
+Counterpart of ``path_tracer_c_tpu/models/integrator.py`` with its "gpu"
+variant: every pixel-sample advances one bounce per loop iteration, and
+terminated rays are masked lanes. Per bounce: closest hit; sky on a miss;
+emission, then albedo; a roughness-perturbed normal; refraction chosen
+with probability ``transparency`` (single-path selection, unbiased for the
+reference's two-branch estimator), reflection otherwise; a refracted ray
+that meets total internal reflection dies. The sky is added again when
+the bounce budget runs out, after ``max_bounces + 1`` trace rounds.
+
+Exactly 3 PCG draws per ray per bounce (2 for the unit sphere, 1 for the
+branch), drawn unconditionally, so this path, the JAX package and the
+CUDA kernel (``ops/render_kernel.py``) consume the same streams.
+
+This is the eager spec; the main path's speed comes from the hand kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import rng as _rng
+from ..ops.camera import Camera, pixel_indices, primary_rays
+from ..ops.intersect import trace
+from ..ops.rng import _f32, sqrt_rn
+from ..ops.sampling import perturb_normal, reflect, refract
+from ..scene.scene import Scene
+
+__all__ = [
+    "trace_paths",
+    "render_tile",
+    "render_radiance",
+    "render_image_u8",
+    "DEFAULT_EPS_OFFSET",
+    "EPS_OFFSET_SCALE",
+]
+
+DEFAULT_EPS_OFFSET = _f32(1e-4)
+EPS_OFFSET_SCALE = _f32(4e-6)  # extra offset per unit |hit point|
+
+
+def trace_paths(scene: Scene, origins, directions, state, max_bounces: int):
+    """Incident radiance for a batch of rays.
+
+    ``origins``/``directions`` are (N, 3) (unit directions), ``state`` the
+    (N,) uint32 RNG state (see ``ops.rng``). Returns ``(radiance (N, 3),
+    final state)``.
+    """
+    n = origins.shape[0]
+    sky = scene.sky_color[None, :]
+    mats = scene.materials
+    o, d, st = origins, directions, state
+    thr = torch.ones_like(origins)
+    total = torch.zeros_like(origins)
+    alive = torch.ones((n,), dtype=torch.bool, device=origins.device)
+
+    for _ in range(max_bounces + 1):
+        hit = trace(o, d, scene)
+        miss_now = alive & ~hit.mask
+        total = total + torch.where(miss_now[:, None], thr * sky, 0.0)
+        alive = alive & hit.mask
+        live = alive[:, None]
+
+        m = hit.material.long()
+        albedo = mats.albedo[m]
+        emission = mats.emission_color[m] * mats.emission_strength[m][:, None]
+        rough = mats.roughness[m]
+        transp = mats.transparency[m]
+        ior = mats.refractive_index[m]
+
+        total = total + torch.where(live, thr * emission, 0.0)
+        thr = torch.where(live, thr * albedo, thr)
+
+        st, sph = _rng.unit_sphere(st)
+        st, u_branch = _rng.uniform(st)
+
+        nrm = perturb_normal(hit.normal, sph, rough)
+        refl_dir = reflect(d, nrm)
+
+        ndot = torch.sum(d * nrm, dim=-1, keepdim=True)
+        entering = ndot < 0.0
+        eta = torch.where(entering[..., 0], 1.0 / ior, ior)[:, None]
+        refr_normal = torch.where(entering, nrm, -nrm)
+        refr_dir, tir = refract(d, refr_normal, eta)
+
+        choose_refr = u_branch < transp
+        # The branch weight of the JAX package's ratio form: 1 wherever the
+        # chosen branch has probability >= 1e-6 (there it also carries the
+        # transparency derivative, which the gradient slice will need).
+        ratio = torch.where(
+            choose_refr,
+            transp / torch.clamp_min(transp, _f32(1e-6)),
+            (1.0 - transp) / torch.clamp_min(1.0 - transp, _f32(1e-6)),
+        )
+        thr = torch.where(live, thr * ratio[:, None], thr)
+
+        new_d = torch.where(choose_refr[:, None], refr_dir, refl_dir)
+        died = choose_refr & tir
+        alive = alive & ~died
+        live = alive[:, None]
+        new_d = torch.where(died[:, None], d, new_d)
+        # Step off the surface along the geometric normal, towards the side
+        # the ray leaves on, by an amount that grows with |p|: a fixed 1e-4
+        # is below float32 round-off for large or distant geometry.
+        p = hit.point
+        offs = DEFAULT_EPS_OFFSET + EPS_OFFSET_SCALE * sqrt_rn(
+            torch.clamp_min(torch.sum(p * p, dim=-1, keepdim=True), _f32(1e-20))
+        )
+        side = torch.where(
+            torch.sum(new_d * hit.normal, dim=-1, keepdim=True) >= 0.0, 1.0, -1.0
+        )
+        new_o = p + offs * side * hit.normal
+        o = torch.where(live, new_o, o)
+        d = torch.where(live, new_d, d)
+
+    total = total + torch.where(alive[:, None], thr * sky, 0.0)
+    return total, st
+
+
+def render_tile(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed,
+    jitter: bool = False,
+    sample_offset: int = 0,
+):
+    """Monte-Carlo radiance, (H, W, 3) float32 mean over ``spp`` samples.
+
+    Samples run one after another, each a batch over all pixels. RNG
+    streams key on global pixel and sample indices; ``sample_offset``
+    shifts the sample indices, so a render split into sample ranges sums
+    to the unsplit one.
+    """
+    device = scene.device
+    if camera.device != device:
+        raise ValueError(f"camera on {camera.device}, scene on {device}")
+    pix = pixel_indices(height, width, device)
+    rays = primary_rays(camera, height, width)
+    accum = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
+    for s in range(spp):
+        st = _rng.seed_state(pix, s + sample_offset, seed)
+        if jitter:
+            o, d, st = primary_rays(camera, height, width, st)
+        else:
+            o, d = rays
+        radiance, _ = trace_paths(scene, o, d, st, max_bounces)
+        accum = accum + radiance
+    return (accum / spp).reshape(height, width, 3)
+
+
+def render_radiance(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed,
+    jitter: bool = False,
+    sample_offset: int = 0,
+):
+    """Full-image radiance, (H, W, 3) float32, on the scene's device."""
+    return render_tile(
+        scene, camera, height, width, spp, max_bounces, seed,
+        jitter=jitter, sample_offset=sample_offset,
+    )
+
+
+def render_image_u8(radiance: torch.Tensor) -> torch.Tensor:
+    """Radiance -> RGB8: clamp to [0, 1], scale by 255, round half to even."""
+    return torch.round(torch.clamp(radiance, 0.0, 1.0) * 255.0).to(torch.uint8)

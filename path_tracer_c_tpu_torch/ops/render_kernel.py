@@ -1,0 +1,395 @@
+"""The forward render kernel: hand-written CUDA, and its plain PyTorch twin.
+
+``render_kernel`` is the main path's renderer. On CUDA tensors it launches
+``csrc/render_fwd.cu``, which replaces the Pallas TPU kernel ``_kernel``
+of ``path_tracer_c_tpu/ops/pallas_kernels.py``; on CPU tensors it runs
+``render_kernel_reference``, the plain PyTorch transcription of the same
+math, which the tests hold against the JAX package.
+
+The estimator is the reference tier's (see ``models/integrator.py``);
+what differs from the eager integrator is only the arithmetic's shape,
+chosen as the TPU kernel chose it: the half-b sphere quadratic, sphere
+normals normalized once after the closest-hit selection, triangle face
+normals precomputed, and termination as zero throughput (no alive mask).
+The twin works on (H*W,) planes, one per ray component.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import rng as _rng
+from .camera import Camera, pixel_indices
+from .rng import _f32, sqrt_rn
+from ..scene.scene import Scene
+
+__all__ = ["render_kernel", "render_kernel_reference", "SOURCE", "REPLACES"]
+
+SOURCE = "path_tracer_c_tpu_torch/csrc/render_fwd.cu"
+REPLACES = "path_tracer_c_tpu/ops/pallas_kernels.py:453"
+
+_INF = float("inf")
+_TRI_EPS = _f32(1e-6)
+_EPS_OFFSET = _f32(1e-4)
+_EPS_SCALE = _f32(4e-6)
+_K_FLOOR = _f32(1e-12)
+_N_FLOOR = _f32(1e-20)
+
+_FLOAT_FIELDS = {
+    "materials": ("albedo", "roughness", "metallicity", "emission_color",
+                  "emission_strength", "transparency", "refractive_index"),
+    "spheres": ("center", "radius"),
+    "triangles": ("v0", "v1", "v2"),
+}
+
+
+def _check_inputs(scene: Scene, camera: Camera, height, width, spp,
+                  max_bounces, seed, sample_offset):
+    device = scene.device
+    tensors = [("sky_color", scene.sky_color, torch.float32)]
+    for table, names in _FLOAT_FIELDS.items():
+        for name in names:
+            t = getattr(getattr(scene, table), name)
+            tensors.append((f"{table}.{name}", t, torch.float32))
+    for table in ("spheres", "triangles"):
+        tensors.append((f"{table}.material", getattr(scene, table).material, torch.int32))
+        tensors.append((f"{table}.active", getattr(scene, table).active, torch.bool))
+    for name in ("origin", "right", "up", "forward", "fov"):
+        tensors.append((f"camera.{name}", getattr(camera, name), torch.float32))
+    for name, t, dtype in tensors:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the scene on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not (height >= 1 and width >= 1 and height * width < 2**31):
+        raise ValueError(f"image {height}x{width} out of range")
+    if spp < 1 or max_bounces < 0:
+        raise ValueError(f"spp {spp} < 1 or max_bounces {max_bounces} < 0")
+    if not 0 <= int(seed) < 2**32:
+        raise ValueError(f"seed {seed} is not a uint32")
+    if not 0 <= int(sample_offset) < 2**31 - spp:
+        raise ValueError(f"sample_offset {sample_offset} out of range")
+
+
+def _face_normals(v0, v1, v2):
+    """Unit face normals of cross(v0 - v1, v0 - v2), with the TPU
+    wrapper's 1e-20 floor."""
+    e1 = v0 - v1
+    e2 = v0 - v2
+    n = torch.stack(
+        [e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+         e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+         e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]],
+        dim=-1,
+    )
+    return n * torch.rsqrt(torch.clamp_min(torch.sum(n * n, -1, keepdim=True), _N_FLOOR))
+
+
+def _scene_operands(scene: Scene):
+    """Pack the scene into the kernel's row-major tables.
+
+    spheres (S, 5): center, radius, active; triangles (T, 13): v0, v1, v2,
+    unit face normal, active; materials (M, 9): albedo, emission colour x
+    strength, roughness, transparency, ior; plus the int32 material index
+    of every sphere and triangle. An empty object table becomes one
+    inactive row.
+    """
+    sp, tr, m = scene.spheres, scene.triangles, scene.materials
+    sph = torch.cat(
+        [sp.center, sp.radius[:, None], sp.active.to(torch.float32)[:, None]], 1
+    )
+    tri = torch.cat(
+        [tr.v0, tr.v1, tr.v2, _face_normals(tr.v0, tr.v1, tr.v2),
+         tr.active.to(torch.float32)[:, None]], 1,
+    )
+    mat = torch.cat(
+        [m.albedo, m.emission_color * m.emission_strength[:, None],
+         m.roughness[:, None], m.transparency[:, None],
+         m.refractive_index[:, None]], 1,
+    )
+    sph_m, tri_m = sp.material, tr.material
+    if sph.shape[0] == 0:
+        sph, sph_m = sph.new_zeros(1, 5), sph_m.new_zeros(1)
+    if tri.shape[0] == 0:
+        tri, tri_m = tri.new_zeros(1, 13), tri_m.new_zeros(1)
+    return (
+        sph.contiguous(), sph_m.contiguous(),
+        tri.contiguous(), tri_m.contiguous(),
+        mat.contiguous(),
+    )
+
+
+def _camera_params(camera: Camera, scene: Scene, height: int, width: int):
+    """(17,) float32: tan(fov/2), aspect, sky rgb, camera origin, right,
+    up, forward. Built on the scene's device, without a host sync."""
+    device = scene.device
+    tan2 = torch.tan(camera.fov * 0.5).reshape(1)
+    aspect = torch.tensor([_f32(width / height)], dtype=torch.float32, device=device)
+    return torch.cat(
+        [tan2, aspect, scene.sky_color, camera.origin, camera.right,
+         camera.up, camera.forward]
+    ).contiguous()
+
+
+def render_kernel(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    sample_offset: int = 0,
+    jitter: bool = False,
+) -> torch.Tensor:
+    """Radiance image (H, W, 3) float32, on the scene's device.
+
+    CUDA tensors go to the hand kernel, built on first use (``ops.build``);
+    ``render_kernel.launches`` counts its launches. CPU tensors go to
+    ``render_kernel_reference``. Any other device raises.
+    """
+    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    device = scene.device
+    if device.type == "cpu":
+        return render_kernel_reference(
+            scene, camera, height, width, spp, max_bounces, seed,
+            sample_offset=sample_offset, jitter=jitter,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
+    from .build import load_library
+
+    lib = load_library()
+    sph, sph_m, tri, tri_m, mat = _scene_operands(scene)
+    par = _camera_params(camera, scene, height, width)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.render_fwd(
+        ptr(sph), ptr(sph_m), sph.shape[0],
+        ptr(tri), ptr(tri_m), tri.shape[0],
+        ptr(mat), mat.shape[0],
+        ptr(par), ptr(out),
+        height, width, spp, max_bounces,
+        int(seed), int(sample_offset), int(bool(jitter)),
+        device.index,
+        ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"render_fwd kernel launch failed: CUDA error {err}")
+    render_kernel.launches += 1
+    return out
+
+
+render_kernel.launches = 0
+
+
+# -- the plain twin --------------------------------------------------------
+
+
+def _camera_dir(par, px, py, fw, fh):
+    # fw, fh are tensors on the device: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, which rounds differently.
+    x = px / fw * 2.0 - 1.0
+    y = -(py / fh * 2.0 - 1.0)
+    cx = x * par[0]
+    cy = y * par[0] / par[1]
+    dx = cx * par[8] + cy * par[11] + par[14]
+    dy = cx * par[9] + cy * par[12] + par[15]
+    dz = cx * par[10] + cy * par[13] + par[16]
+    n = torch.rsqrt(dx * dx + dy * dy + dz * dz)
+    return dx * n, dy * n, dz * n
+
+
+def _closest_hit(sph, sph_m, tri, tri_m, o, d):
+    """Closest hit over all spheres, then all triangles; on a tie the first
+    object wins (the kernel's sequential strict-< scan). Returns (t, normal,
+    material index); t is +inf on a miss."""
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    dd = dx * dx + dy * dy + dz * dz
+    invdd = 1.0 / dd
+    # spheres: (N, S) half-b quadratic
+    cx, cy, cz, r, act = sph.unbind(1)
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    h = ocx * dx + ocy * dy + ocz * dz
+    cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    det = h * h - dd * cq
+    sq = sqrt_rn(torch.clamp_min(det, 0.0))
+    t1 = (-h - sq) * invdd
+    t2 = (-h + sq) * invdd
+    t = torch.where(t1 >= 0.0, t1, torch.where(t2 >= 0.0, t2, _INF))
+    t = torch.where((det >= 0.0) & (act > 0.0), t, _INF)
+    best, si = torch.min(t, dim=1)  # first minimum
+    hit = best < _INF
+    # Select, then normalize: the winning sphere's normal, computed once.
+    # Without a sphere hit the kernel keeps a zero centre and material 0.
+    ts = torch.where(hit, best, 0.0)
+    nx = o[0] + ts * d[0] - torch.where(hit, cx[si], 0.0)
+    ny = o[1] + ts * d[1] - torch.where(hit, cy[si], 0.0)
+    nz = o[2] + ts * d[2] - torch.where(hit, cz[si], 0.0)
+    hn = torch.rsqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _N_FLOOR))
+    nx, ny, nz = nx * hn, ny * hn, nz * hn
+    mat = torch.where(hit, sph_m[si], 0)
+
+    # triangles: (N, T) Moller-Trumbore
+    v0x, v0y, v0z = tri[:, 0], tri[:, 1], tri[:, 2]
+    e1x, e1y, e1z = tri[:, 3] - v0x, tri[:, 4] - v0y, tri[:, 5] - v0z
+    e2x, e2y, e2z = tri[:, 6] - v0x, tri[:, 7] - v0y, tri[:, 8] - v0z
+    rcx = dy * e2z - dz * e2y
+    rcy = dz * e2x - dx * e2z
+    rcz = dx * e2y - dy * e2x
+    tdet = e1x * rcx + e1y * rcy + e1z * rcz
+    nonpar = torch.abs(tdet) >= _TRI_EPS
+    inv = 1.0 / torch.where(nonpar, tdet, 1.0)
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u = inv * (sx * rcx + sy * rcy + sz * rcz)
+    scx = sy * e1z - sz * e1y
+    scy = sz * e1x - sx * e1z
+    scz = sx * e1y - sy * e1x
+    v = inv * (dx * scx + dy * scy + dz * scz)
+    tt = inv * (e2x * scx + e2y * scy + e2z * scz)
+    ok = (nonpar & (u >= _TRI_EPS) & (u <= 1.0) & (v >= _TRI_EPS)
+          & (u + v <= 1.0) & (tt >= _TRI_EPS) & (tri[:, 12] > 0.0))
+    tt = torch.where(ok, tt, _INF)
+    tbest, ti = torch.min(tt, dim=1)
+    upd = tbest < best  # strict: a sphere wins a tie
+    fnx, fny, fnz = tri[ti, 9], tri[ti, 10], tri[ti, 11]
+    # Face normal flipped to oppose the ray.
+    sgn = torch.where(fnx * d[0] + fny * d[1] + fnz * d[2] < 0.0, 1.0, -1.0)
+    best = torch.where(upd, tbest, best)
+    nx = torch.where(upd, sgn * fnx, nx)
+    ny = torch.where(upd, sgn * fny, ny)
+    nz = torch.where(upd, sgn * fnz, nz)
+    mat = torch.where(upd, tri_m[ti], mat)
+    return best, (nx, ny, nz), mat
+
+
+def _fetch_materials(mat_tab, m):
+    """Material rows by index; an index outside the table reads as zeros
+    with ior 1."""
+    n_mat = mat_tab.shape[0]
+    valid = (m >= 0) & (m < n_mat)
+    rows = mat_tab[m.clamp(0, n_mat - 1).long()]
+    default = torch.zeros(9, dtype=rows.dtype, device=rows.device)
+    default[8] = 1.0
+    return torch.where(valid[:, None], rows, default).unbind(1)
+
+
+def _shade(hit, mats, o, d, thr, rad, st, sky):
+    """One bounce: sky on a miss, emission, albedo, the 3 draws, perturbed
+    normal, reflect or refract, offset origin. Dead rays (zero
+    throughput) are updated like live ones; all they add is exact zeros."""
+    best, (nx, ny, nz), _ = hit
+    dx, dy, dz = d
+    tr, tg, tb = thr
+    ar, ag, ab = rad
+    hitmask = best < _INF
+    ar = ar + torch.where(hitmask, 0.0, tr * sky[0])
+    ag = ag + torch.where(hitmask, 0.0, tg * sky[1])
+    ab = ab + torch.where(hitmask, 0.0, tb * sky[2])
+    ts = torch.where(hitmask, best, 0.0)
+    px = o[0] + ts * dx
+    py = o[1] + ts * dy
+    pz = o[2] + ts * dz
+
+    alb_r, alb_g, alb_b, em_r, em_g, em_b, rgh, trn, ior = mats
+    ar = ar + torch.where(hitmask, tr * em_r, 0.0)
+    ag = ag + torch.where(hitmask, tg * em_g, 0.0)
+    ab = ab + torch.where(hitmask, tb * em_b, 0.0)
+    tr = torch.where(hitmask, tr * alb_r, 0.0)
+    tg = torch.where(hitmask, tg * alb_g, 0.0)
+    tb = torch.where(hitmask, tb * alb_b, 0.0)
+
+    st, sph = _rng.unit_sphere(st)
+    st, u_branch = _rng.uniform(st)
+    sx, sy, sz = sph.unbind(-1)
+
+    wnx = nx + rgh * sx
+    wny = ny + rgh * sy
+    wnz = nz + rgh * sz
+    wn = torch.rsqrt(torch.clamp_min(wnx * wnx + wny * wny + wnz * wnz, _N_FLOOR))
+    wnx, wny, wnz = wnx * wn, wny * wn, wnz * wn
+
+    ndot = dx * wnx + dy * wny + dz * wnz
+    rfx = dx - 2.0 * ndot * wnx
+    rfy = dy - 2.0 * ndot * wny
+    rfz = dz - 2.0 * ndot * wnz
+    entering = ndot < 0.0
+    eta = torch.where(entering, 1.0 / ior, ior)
+    rnx = torch.where(entering, wnx, -wnx)
+    rny = torch.where(entering, wny, -wny)
+    rnz = torch.where(entering, wnz, -wnz)
+    ni = rnx * dx + rny * dy + rnz * dz
+    k = 1.0 - eta * eta * (1.0 - ni * ni)
+    tirm = k < 0.0
+    coef = eta * ni + sqrt_rn(torch.where(tirm, 1.0, torch.clamp_min(k, _K_FLOOR)))
+    txx = torch.where(tirm, 0.0, eta * dx - coef * rnx)
+    txy = torch.where(tirm, 0.0, eta * dy - coef * rny)
+    txz = torch.where(tirm, 0.0, eta * dz - coef * rnz)
+
+    choose_refr = u_branch < trn
+    ndx = torch.where(choose_refr, txx, rfx)
+    ndy = torch.where(choose_refr, txy, rfy)
+    ndz = torch.where(choose_refr, txz, rfz)
+    # TIR on the refracted branch: the path dies and keeps its direction.
+    died = choose_refr & tirm
+    tr = torch.where(died, 0.0, tr)
+    tg = torch.where(died, 0.0, tg)
+    tb = torch.where(died, 0.0, tb)
+    ndx = torch.where(died, dx, ndx)
+    ndy = torch.where(died, dy, ndy)
+    ndz = torch.where(died, dz, ndz)
+
+    offs = _EPS_OFFSET + _EPS_SCALE * sqrt_rn(px * px + py * py + pz * pz)
+    side = torch.where(ndx * nx + ndy * ny + ndz * nz >= 0.0, 1.0, -1.0)
+    o = (px + offs * side * nx, py + offs * side * ny, pz + offs * side * nz)
+    return o, (ndx, ndy, ndz), (tr, tg, tb), (ar, ag, ab), st
+
+
+def render_kernel_reference(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    sample_offset: int = 0,
+    jitter: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch twin of the hand kernel, on the scene's device: the
+    same math on (H*W,) planes, every round run (no early exit)."""
+    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    device = scene.device
+    sph, sph_m, tri, tri_m, mat_tab = _scene_operands(scene)
+    par = _camera_params(camera, scene, height, width)
+    sky = (par[2], par[3], par[4])
+    n = height * width
+    pix = pixel_indices(height, width, device)
+    rows = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
+    cols = (pix % width).to(torch.float32)
+    fw, fh = (torch.tensor(float(v), device=device) for v in (width, height))
+    pd = _camera_dir(par, cols + 0.5, rows + 0.5, fw, fh)
+    origin = tuple(par[i].expand(n) for i in (5, 6, 7))
+    zero = torch.zeros(n, dtype=torch.float32, device=device)
+    one = torch.ones(n, dtype=torch.float32, device=device)
+
+    acc = (zero, zero, zero)
+    for s in range(spp):
+        st = _rng.seed_state(pix, s + sample_offset, seed)
+        d = pd
+        if jitter:
+            st, jx = _rng.uniform(st)
+            st, jy = _rng.uniform(st)
+            d = _camera_dir(par, cols + jx, rows + jy, fw, fh)
+        o, thr, rad = origin, (one, one, one), (zero, zero, zero)
+        for _ in range(max_bounces + 1):
+            hit = _closest_hit(sph, sph_m, tri, tri_m, o, d)
+            mats = _fetch_materials(mat_tab, hit[2])
+            o, d, thr, rad, st = _shade(hit, mats, o, d, thr, rad, st, sky)
+        acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
+    inv = _f32(1.0 / spp)
+    return torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)

@@ -1,0 +1,61 @@
+"""Metrics: rays/s counters and structured JSONL run logs.
+
+The same throughput math as the JAX package's ``utils/metrics.py``: a
+"ray" is one trace round of one pixel-sample, ``H * W * spp *
+(max_bounces + 1)`` per render, counted whether or not the round ran.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+
+__all__ = ["rays_per_render", "Timer", "MetricsLogger", "throughput"]
+
+
+def rays_per_render(height: int, width: int, spp: int, max_bounces: int) -> int:
+    """Nominal trace rounds of one render: ``max_bounces + 1`` per
+    pixel-sample. The CUDA kernel stops a path once its throughput is
+    zero, so it executes at most this many."""
+    return height * width * spp * (max_bounces + 1)
+
+
+def throughput(height, width, spp, max_bounces, seconds: float) -> float:
+    """rays/sec for one timed render."""
+    return rays_per_render(height, width, spp, max_bounces) / max(seconds, 1e-12)
+
+
+@dataclass
+class Timer:
+    """Wall-clock block timer: ``with Timer() as t: ...; t.seconds``."""
+
+    seconds: float = 0.0
+    _t0: float = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        return False
+
+
+@dataclass
+class MetricsLogger:
+    """Append-only JSONL metrics stream (loss curves, rays/s, bounce stats).
+
+    ``path=None`` keeps records in memory only (tests).
+    """
+
+    path: str | None = None
+    records: list = field(default_factory=list)
+
+    def log(self, kind: str, **fields) -> dict:
+        rec = {"ts": time.time(), "kind": kind, **fields}
+        self.records.append(rec)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        return rec
