@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
 Run from the repository root, with no arguments:
 
@@ -10,15 +10,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), and PyTorch's name
    for it. No CUDA device is a failure.
 2. build: compile the CUDA sources of ``path_tracer_c_tpu_torch/csrc`` with
-   nvcc (``ops/build.py``) and print the build time.
-3. kernel against its plain twin: ``render_kernel`` on the card against
-   ``render_kernel_reference`` on the card, for three scenes at a size with
-   a ragged edge, with jitter off and on and a nonzero sample offset, at the
-   main path's shape, and once against the twin on the CPU.
-4. main path: the CLI ``render`` at 1024x1024, 64 spp, 8 bounces on the
-   glossy scene. The kernel's launch count must grow; the BMP is decoded
-   and checked.
-5. times: the kernel and the plain twin at that shape, with CUDA events.
+   nvcc (``ops/build.py``); print the build time and what ptxas says of
+   every kernel (registers, stack frame, spills).
+3. forward kernel against its plain twin: ``render_kernel`` on the card
+   against ``render_kernel_reference`` on the card, for three scenes at a
+   size with a ragged edge, with jitter off and on and a nonzero sample
+   offset, at the main path's shape, and once against the twin on the CPU.
+4. the forward main path: the CLI ``render`` at 1024x1024, 64 spp, 8
+   bounces on the glossy scene. The kernel's launch count must grow; the
+   BMP is decoded and checked.
+5. fused kernel against its plain twin: ``render_fused``'s image must equal
+   ``render_kernel``'s bit for bit and its Jacobian must equal
+   ``render_fused_reference``'s, value for value, on the three scenes, a
+   mixed scene (emission, glass, diffuse) and a scene whose only material
+   is exactly black, and at the shapes of both gradient main paths (glossy
+   at 1024x1024; the 33 materials of the fit's configuration at its own
+   size). ``count_rounds`` of both kernels must equal their twins'.
+6. the gradient against autograd: ``render_kernel_vjp`` + ``backward`` on
+   the card against ``torch.autograd`` through the eager integrator.
+7. the gradient main path: ``loss_and_grad(engine="cuda")`` on the glossy
+   scene at 1024x1024, 64 spp, 8 bounces, then the CLI ``fit`` on
+   ``configs/config4_inverse_spheres32.json``; every step must go through
+   the fused kernel and the loss must fall.
+8. times: both kernels, the contraction, the twins and one fit step, with
+   CUDA events, and each kernel's bound from this run's executed rounds.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -26,7 +41,10 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import statistics
 import struct
 import subprocess
@@ -43,9 +61,32 @@ from pathlib import Path
 # path at a silhouette.
 Q999_TOL = 1e-4
 MEAN_TOL = 1e-5
-# The main path's shape: the glossy scene at 1024^2, 64 spp, 8 bounces.
+# The fused kernel's image and Jacobian against its twin's: tolerance 0.
+# Both call one definition of the arithmetic, are built without FMA
+# contraction and add in the same order (samples ascending, the path's end
+# first, bounces descending), so every value of every plane must be equal.
+# The gradient against autograd through the eager integrator: the JAX
+# suite's tolerance for the same comparison (tests/test_pallas_grad.py).
+# The eager integrator takes other roots and normalisations than the
+# kernel, so a grazing path may flip.
+GRAD_RTOL, GRAD_ATOL = 5e-3, 2e-5
+# The main paths' shape: the glossy scene at 1024^2, 64 spp, 8 bounces.
 H = W = 1024
 SPP, BOUNCES = 64, 8
+FIT_CONFIG = "configs/config4_inverse_spheres32.json"
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): 67 TFLOP/s float32
+# outside the tensor cores, counting a fused multiply-add as two, and
+# 3.35 TB/s of device memory. The kernels are built with -fmad=false, so a
+# multiply and an add issue separately and half that rate is their ceiling;
+# the bound below is still stated against the published figure.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Float32 operations counted from csrc/pt_common.cuh and
+# csrc/render_fused.cu, each add, multiply, compare, max, divide, root as
+# one (integer RNG work is left out): one sphere test, one triangle test,
+# the rest of closest_hit, one call of shade(), one swept hit.
+OPS_SPHERE, OPS_TRIANGLE, OPS_HIT_REST, OPS_SHADE, OPS_SWEEP = 29, 61, 25, 138, 24
 
 
 def log(msg: str) -> None:
@@ -61,14 +102,18 @@ def card_line() -> str:
 
 
 def compare(a, b, what: str) -> dict:
-    """|a - b| statistics; raises unless within the stated tolerance."""
+    """|a - b| statistics; raises unless within Q999_TOL and MEAN_TOL."""
     import torch
 
-    err = (a.detach().double().cpu() - b.detach().double().cpu()).abs().flatten()
-    if a.shape != b.shape or not torch.isfinite(err).all():
-        raise AssertionError(f"{what}: shapes {a.shape}/{b.shape} or non-finite values")
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {a.shape}/{b.shape}")
+    err = (a.detach().double() - b.detach().double()).abs().flatten()
+    if not torch.isfinite(err).all():
+        raise AssertionError(f"{what}: non-finite values")
+    # torch.quantile takes at most 2^24 values: the 0.999-quantile by rank.
+    k = max(int(0.999 * (err.numel() - 1)), 0)
     stats = {
-        "q999": float(torch.quantile(err, 0.999)),
+        "q999": float(torch.kthvalue(err, k + 1).values),
         "mean": float(err.mean()),
         "max": float(err.max()),
         "exact": float((err == 0).double().mean()),
@@ -80,6 +125,21 @@ def compare(a, b, what: str) -> dict:
             f"{what}: outside tolerance (q999 < {Q999_TOL}, mean < {MEAN_TOL})"
         )
     return stats
+
+
+def compare_exact(a, b, what: str) -> float:
+    """The largest |a - b|, logged with the share of equal values; raises
+    unless every value is equal."""
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {a.shape}/{b.shape}")
+    err = (a - b).abs()
+    worst, exact = float(err.max()), float((err == 0).double().mean())
+    log(f"  {what}: max |delta| {worst:.3g} exact {exact:.6f}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: differs from the plain twin's")
+    return worst
 
 
 def time_cuda(fn, seeds) -> list[float]:
@@ -94,10 +154,58 @@ def time_cuda(fn, seeds) -> list[float]:
         out = fn(seed)
         end.record()
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError("non-finite radiance in a timed run")
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise AssertionError("non-finite values in a timed run")
+        del out, outs
         times.append(start.elapsed_time(end))
     return times
+
+
+def median_ms(fn, warm=(100,), seeds=(1, 2, 3)) -> float:
+    time_cuda(fn, warm)
+    return statistics.median(time_cuda(fn, seeds))
+
+
+def test_scenes(pt, dev):
+    """The mixed scene (emission, partial transparency with total internal
+    reflection, diffuse bounces, sky misses) and the scene whose camera
+    sits inside an exactly black sphere."""
+    b = pt.SceneBuilder(sky_color=(0.2, 0.3, 0.5))
+    b.add_material(albedo=(0.9, 0.8, 0.7), roughness=0.4,
+                   emission_color=(1.0, 0.8, 0.6), emission_strength=3.0)
+    glassy = b.add_material(albedo=(0.9, 0.95, 1.0), roughness=0.1,
+                            transparency=0.5, refractive_index=1.4)
+    diffuse = b.add_material(albedo=(0.6, 0.3, 0.2), roughness=1.0)
+    b.add_sphere(center=(0, 2.5, 6), radius=1.5, material=0)
+    b.add_sphere(center=(0.5, -0.2, 4), radius=1.0, material=glassy)
+    b.add_triangle(v0=(-50, -1, -50), v1=(50, -1, -50), v2=(50, -1, 50), material=diffuse)
+    b.add_triangle(v0=(-50, -1, -50), v1=(-50, -1, 50), v2=(50, -1, 50), material=diffuse)
+    mixed = b.build(dev)
+    b = pt.SceneBuilder(sky_color=(0.8, 0.6, 0.4))
+    black = b.add_material(albedo=(0.0, 0.0, 0.0), roughness=0.7,
+                           emission_color=(1.0, 0.9, 0.8), emission_strength=0.5)
+    b.add_sphere(center=(0.0, 0.0, 0.0), radius=5.0, material=black)
+    return {"mixed_scene": mixed, "black_albedo_scene": b.build(dev)}
+
+
+def bound_ms(scene, height, width, spp, rounds, fused: bool):
+    """The least time the card could take: the larger of bytes over the
+    memory rate (inputs read once, outputs written once) and float32
+    operations over the peak rate, for the rounds this run executed. Every
+    sample has at most one miss round, so at least ``rounds - H W spp``
+    rounds shade (and, in the fused kernel, are swept as hits)."""
+    hit_rounds = max(rounds - height * width * spp, 0)
+    ops = rounds * (scene.num_spheres * OPS_SPHERE + scene.num_triangles * OPS_TRIANGLE
+                    + OPS_HIT_REST) + hit_rounds * OPS_SHADE
+    tables = 4 * (6 * scene.num_spheres + 14 * scene.num_triangles
+                  + 9 * scene.num_materials + 17)
+    nbytes = tables + 12 * height * width
+    if fused:
+        ops += hit_rounds * OPS_SWEEP
+        nbytes += 4 * (9 * scene.num_materials + 3) * height * width
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> int:
@@ -105,12 +213,16 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
     import path_tracer_c_tpu_torch as pt
     from path_tracer_c_tpu_torch.app.main import main as cli_main
+    from path_tracer_c_tpu_torch.grad import diff
     from path_tracer_c_tpu_torch.ops import build
+    from path_tracer_c_tpu_torch.ops import render_grad as rg
     from path_tracer_c_tpu_torch.ops import render_kernel as rk
     from path_tracer_c_tpu_torch.utils.bitmap import bitmap_bytes
+    from path_tracer_c_tpu_torch.utils.config import FitConfig, load
     from path_tracer_c_tpu_torch.utils.metrics import rays_per_render
 
     if "jax" in sys.modules:
@@ -120,22 +232,28 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"card (nvidia-smi name, power limit): {card}")
+    log("card (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader):")
+    log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}")
 
     # -- 2. build --
     t0 = time.perf_counter()
     build.load_library()
     log(f"build: {time.perf_counter() - t0:.1f} s ({build.build_dir()})")
+    for line in build.resource_usage().splitlines():
+        if "Compiling entry function" in line or "registers" in line or "stack frame" in line:
+            log("  ptxas: " + line.split("ptxas info    :")[-1].strip())
 
-    # -- 3. kernel against its plain twin --
-    log("kernel vs plain twin (both on the card unless named):")
+    # -- 3. forward kernel against its plain twin --
+    log("forward kernel vs plain twin (both on the card unless named):")
     cam = pt.Camera.reference(dev)
     launches0 = rk.render_kernel.launches
     max_err = 0.0
-    for name in ("demo_scene", "glossy_scene", "cornell_spheres_scene"):
+    demo_names = ("demo_scene", "glossy_scene", "cornell_spheres_scene")
+    small_cases = ((False, 0, 4), (True, 3, 8))  # jitter, sample offset, bounces
+    for name in demo_names:
         scene = getattr(pt.demo, name)(dev)
-        for jitter, offset, bounces in ((False, 0, 4), (True, 3, 8)):
+        for jitter, offset, bounces in small_cases:
             args = (scene, cam, 100, 160, 4, bounces, 7)
             kw = dict(sample_offset=offset, jitter=jitter)
             k = rk.render_kernel(*args, **kw)
@@ -159,15 +277,15 @@ def main() -> int:
     if rk.render_kernel.launches <= launches0:
         raise AssertionError("render_kernel did not launch its kernel")
 
-    # -- 4. the main path, through the CLI --
+    # -- 4. the forward main path, through the CLI --
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "glossy.bmp"
         rk.render_kernel.launches = 0
         cli_main(["render", "--scene", "glossy", "--width", str(W), "--height", str(H),
                   "--spp", str(SPP), "--max-bounces", str(BOUNCES), "--out", str(out)])
-        launches = rk.render_kernel.launches
-        log(f"main path: render_kernel launched {launches} time(s)")
-        if launches < 1:
+        fwd_launches = rk.render_kernel.launches
+        log(f"forward main path: render_kernel launched {fwd_launches} time(s)")
+        if fwd_launches < 1:
             raise AssertionError("the CLI render did not go through the kernel")
         data = out.read_bytes()
     if data[:2] != b"BM" or len(data) != 54 + 3 * W * H:
@@ -183,25 +301,171 @@ def main() -> int:
     rad = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 0)
     if bitmap_bytes(pt.render_image_u8(rad).cpu().numpy()) != data:
         raise AssertionError("CLI BMP differs from the encoded kernel image")
-    log(f"main path: BMP {len(data)} bytes, {W}x{H}, decoded and checked")
+    log(f"forward main path: BMP {len(data)} bytes, {W}x{H}, decoded and checked")
+    del rad
 
-    # -- 5. times --
+    # -- 5. fused kernel against its plain twin --
+    log("fused kernel: image vs render_kernel and Jacobian vs plain twin (all must be equal):")
+    fcfg = load(root / FIT_CONFIG, FitConfig)
+    cfg = fcfg.render
+    spheres = pt.demo.random_spheres_scene(dev)
+    scenes = {name: getattr(pt.demo, name)(dev) for name in demo_names}
+    scenes.update(test_scenes(pt, dev))
+    cases = [(f"{name} 100x160 4spp {bounces}b jitter={jitter} offset={offset}",
+              (scene, cam, 100, 160, 4, bounces, 7), dict(sample_offset=offset, jitter=jitter))
+             for name, scene in scenes.items() for jitter, offset, bounces in small_cases]
+    # The shapes the two gradient main paths give the kernel.
+    cases.append((f"spheres32 {cfg.height}x{cfg.width} {cfg.spp}spp {cfg.max_bounces}b "
+                  f"{spheres.num_materials} materials (the fit's shape)",
+                  (spheres, cam, cfg.height, cfg.width, cfg.spp, cfg.max_bounces, 1), {}))
+    cases.append((f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b (main shape)",
+                  (glossy, cam, H, W, SPP, BOUNCES, 1), {}))
+    jac_err = 0.0
+    for what, args, kw in cases:
+        img, jac = rg.render_fused(*args, **kw)
+        if not torch.equal(img, rk.render_kernel(*args, **kw)):
+            raise AssertionError(f"{what}: fused image differs from render_kernel's")
+        r_img, r_jac = rg.render_fused_reference(*args, **kw)
+        torch.cuda.synchronize()
+        compare_exact(img, r_img, what + " image")
+        jac_err = max(jac_err, compare_exact(jac, r_jac, what + " Jacobian"))
+        del img, jac, r_img, r_jac
+    for name in ("glossy_scene", "black_albedo_scene"):
+        args = (scenes[name], cam, 100, 160, 4, 8, 7)
+        kw = dict(sample_offset=3, jitter=True, count_rounds=True)
+        n_fwd, n_fwd_twin = rk.render_kernel(*args, **kw)[-1], rk.render_kernel_reference(*args, **kw)[-1]
+        n_fus, n_fus_twin = rg.render_fused(*args, **kw)[-1], rg.render_fused_reference(*args, **kw)[-1]
+        log(f"  {name} 100x160 thread-rounds: forward {n_fwd} (twin {n_fwd_twin}), "
+            f"fused {n_fus} (twin {n_fus_twin}), nominal {100 * 160 * 4 * 9}")
+        if not (n_fwd == n_fwd_twin and n_fus == n_fus_twin and 0 < n_fwd <= n_fus):
+            raise AssertionError(f"{name}: executed rounds disagree")
+
+    # -- 6. the gradient against autograd --
+    log("gradient: render_kernel_vjp + backward vs autograd through the eager integrator:")
+    g = torch.randn((32, 64, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    for name in ("mixed_scene", "black_albedo_scene"):
+        grads = []
+        for render in (rg.render_kernel_vjp, pt.render_radiance):
+            leaves = [t.clone().requires_grad_() for t in rg._grad_leaves(scenes[name])]
+            out = render(rg._with_leaves(scenes[name], leaves), cam, 32, 64, 3, 4, 7)
+            grads.append(torch.autograd.grad(out, leaves, g))
+        for (_, leaf), a, b in zip(rg._GRAD_LEAVES, *grads):
+            torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                       msg=lambda m: f"{name} d_{leaf}: {m}")
+        log(f"  {name} 32x64 3spp 4b: five cotangents within rtol {GRAD_RTOL}, atol {GRAD_ATOL}")
+
+    # -- 7. the gradient main path --
+    target = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 12345)
+    rg.render_fused.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    loss, d_scene = diff.loss_and_grad(glossy, target, cam, H, W, SPP, BOUNCES, 1, engine="cuda")
+    torch.cuda.synchronize()
+    lg_launches = rg.render_fused.launches
+    peak = torch.cuda.max_memory_allocated()
+    dm = d_scene.materials
+    log(f"gradient main path: loss_and_grad launched render_fused {lg_launches} time(s), "
+        f"loss {float(loss):.4e}, |d_albedo| {float(dm.albedo.abs().sum()):.4e}, "
+        f"|d_emission_strength| {float(dm.emission_strength.abs().sum()):.4e}, "
+        f"|d_sky| {float(d_scene.sky_color.abs().sum()):.4e}, "
+        f"peak memory {peak / 2**20:.0f} MiB")
+    if lg_launches != 1:
+        raise AssertionError("loss_and_grad did not go through the fused kernel once")
+    for name, t in (("albedo", dm.albedo), ("emission_color", dm.emission_color),
+                    ("emission_strength", dm.emission_strength),
+                    ("sky_color", d_scene.sky_color)):
+        if not (bool(torch.isfinite(t).all()) and bool(t.any())):
+            raise AssertionError(f"d_{name} is not finite and nonzero")
+    if not bool(torch.isfinite(dm.transparency).all()):
+        raise AssertionError("d_transparency is not finite")
+    zero_by_contract = [dm.roughness, dm.metallicity, dm.refractive_index,
+                        d_scene.spheres.center, d_scene.spheres.radius,
+                        d_scene.triangles.v0, d_scene.triangles.v1, d_scene.triangles.v2]
+    if any(bool(t.any()) for t in zero_by_contract):
+        raise AssertionError("a cotangent that is zero by contract is not zero")
+    del target, d_scene, dm
+
+    steps = fcfg.steps
+    buf = io.StringIO()
+    rg.render_fused.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["fit", "--config", str(root / FIT_CONFIG)])
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - t0
+    fit_launches = rg.render_fused.launches
+    fit_line = buf.getvalue().strip().splitlines()[-1]
+    log(f"gradient main path: CLI `fit --config {FIT_CONFIG}` ({steps} steps, "
+        f"{fit_seconds:.1f} s): {fit_line}")
+    m = re.search(r"loss ([\d.e+-]+) -> ([\d.e+-]+), max albedo err ([\d.]+)", fit_line)
+    if m is None:
+        raise AssertionError("the fit's line did not parse")
+    first, last, albedo_err = (float(x) for x in m.groups())
+    if fit_launches != steps:
+        raise AssertionError(f"fit: render_fused launched {fit_launches} times in {steps} steps")
+    if not (last < first and albedo_err == albedo_err and albedo_err < float("inf")):
+        raise AssertionError(f"fit: loss {first} -> {last}, albedo error {albedo_err}")
+
+    # -- 8. times and bounds --
     rays = rays_per_render(H, W, SPP, BOUNCES)
-    kern = lambda seed: rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, seed)
-    plain = lambda seed: rk.render_kernel_reference(glossy, cam, H, W, SPP, BOUNCES, seed)
-    time_cuda(kern, [100])  # warm-up
-    k_ms = statistics.median(time_cuda(kern, [1, 2, 3]))
-    time_cuda(plain, [100])
-    p_ms = statistics.median(time_cuda(plain, [1, 2, 3]))
-    for what, ms in (("kernel", k_ms), ("plain twin", p_ms)):
-        log(f"time {what}: glossy {H}x{W} {SPP}spp {BOUNCES}b: {ms / 1e3:.4f} s, "
-            f"{rays / (ms / 1e3):.4e} nominal rays/s [{card}]")
+    _, fwd_rounds = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 1, count_rounds=True)
+    _, _, fus_rounds = rg.render_fused(glossy, cam, H, W, SPP, BOUNCES, 1, count_rounds=True)
+    log(f"executed thread-rounds at the main shape (seed 1): forward {fwd_rounds}, "
+        f"fused {fus_rounds}, nominal {rays}")
+    fwd = lambda seed: rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, seed)
+    fus = lambda seed: rg.render_fused(glossy, cam, H, W, SPP, BOUNCES, seed)
+    fwd_ms = median_ms(fwd)
+    fus_ms = median_ms(fus)
+    fwd_ms2 = median_ms(fwd)
+    fwd_twin_ms = median_ms(
+        lambda seed: rk.render_kernel_reference(glossy, cam, H, W, SPP, BOUNCES, seed))
+    fus_twin_ms = time_cuda(
+        lambda seed: rg.render_fused_reference(glossy, cam, H, W, SPP, BOUNCES, seed), [1])[0]
+    _, jac = fus(1)
+    g_main = torch.randn((H, W, 3), device=dev)
+    con_ms = median_ms(lambda seed: rg._grad_leaves(rg.contract_jacobian(glossy, jac, g_main, SPP)))
+    del jac, g_main
 
-    log(json.dumps({"kernels": [{
-        "name": "render_fwd", "route": "cuda", "source": rk.SOURCE,
-        "replaces": rk.REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+    fit_target = rk.render_kernel(spheres, cam, cfg.height, cfg.width, cfg.spp, cfg.max_bounces, 12345)
+    fit_step = lambda seed: torch.tensor(diff.fit_materials(
+        spheres, fit_target, cam, cfg.height, cfg.width, cfg.spp, cfg.max_bounces,
+        steps=1, lr=fcfg.lr, seed0=seed)[1], device=dev)
+    step_ms = median_ms(fit_step)
+    fit_fus_ms = median_ms(lambda seed: rg.render_fused(
+        spheres, cam, cfg.height, cfg.width, cfg.spp, cfg.max_bounces, seed))
+
+    fwd_bound, fwd_by = bound_ms(glossy, H, W, SPP, fwd_rounds, fused=False)
+    fus_bound, fus_by = bound_ms(glossy, H, W, SPP, fus_rounds, fused=True)
+    where = f"glossy {H}x{W} {SPP}spp {BOUNCES}b"
+    for what, ms in (("forward kernel", fwd_ms), ("forward kernel, again after the fused",
+                                                   fwd_ms2),
+                     ("forward plain twin", fwd_twin_ms), ("fused kernel", fus_ms),
+                     ("fused plain twin (one run)", fus_twin_ms)):
+        log(f"time {what}: {where}: {ms:.3f} ms, {rays / (ms / 1e3):.4e} nominal rays/s [{card}]")
+    log(f"time contract_jacobian: {where}: {con_ms:.3f} ms [{card}]")
+    log(f"time fused kernel / forward kernel: {fus_ms / fwd_ms:.3f}; "
+        f"fwd+bwd (fused + contraction) {fus_ms + con_ms:.3f} ms [{card}]")
+    log(f"bound forward kernel: {fwd_bound:.3f} ms by {fwd_by}; fused kernel: "
+        f"{fus_bound:.3f} ms by {fus_by} (67 TFLOP/s float32, 3.35 TB/s; executed rounds)")
+    log(f"time one fit step (make params, fused kernel, backward, Adam), spheres32 "
+        f"{cfg.width}x{cfg.height} {cfg.spp}spp {cfg.max_bounces}b: {step_ms:.3f} ms; "
+        f"its fused kernel alone {fit_fus_ms:.3f} ms [{card}]")
+
+    # launches: the main paths' runs; every time, bound and round count: the
+    # glossy shape named in "timed_at".
+    common = {"route": "cuda", "library_ms": None, "timed_at": where}
+    log(json.dumps({"kernels": [
+        {"name": "render_fwd", "source": rk.SOURCE, "replaces": rk.REPLACES,
+         "launches": fwd_launches, "launches_by_path": {"render": fwd_launches},
+         "max_abs_err": max_err, "ms": fwd_ms,
+         "plain_ms": fwd_twin_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "executed_rounds": fwd_rounds, **common},
+        {"name": "render_fused", "source": rg.SOURCE, "replaces": rg.REPLACES,
+         "launches": lg_launches + fit_launches,
+         "launches_by_path": {"loss_and_grad": lg_launches, "fit": fit_launches},
+         "max_abs_err": jac_err, "ms": fus_ms,
+         "plain_ms": fus_twin_ms, "bound_ms": fus_bound, "bound_by": fus_by,
+         "executed_rounds": fus_rounds, **common},
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

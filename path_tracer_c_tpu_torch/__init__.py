@@ -1,7 +1,9 @@
 """path_tracer_c_tpu_torch: the path tracer on PyTorch and CUDA.
 
 A port of ``path_tracer_c_tpu`` (JAX, Pallas on TPU) to PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper. The JAX package is the
+hand-written CUDA kernels for NVIDIA Hopper: the forward render
+(``render_kernel``) and its gradient (``render_kernel_vjp``, the material
+fit in ``grad.diff``). The JAX package is the
 reference this package is held against; this package imports PyTorch and
 never JAX.
 
@@ -17,6 +19,11 @@ from .scene.io import scene_from_arrays
 from .ops.camera import Camera, primary_rays
 from .ops.intersect import Hit, trace
 from .ops.render_kernel import render_kernel, render_kernel_reference
+from .ops.render_grad import (
+    render_fused, render_fused_reference, contract_jacobian, render_kernel_vjp,
+)
+from .grad import diff
+from .grad.diff import loss_and_grad, fit_materials
 from .models.integrator import render_radiance, render_image_u8, trace_paths
 from .utils.bitmap import write_bitmap, bitmap_bytes
 
@@ -26,6 +33,8 @@ __all__ = [
     "Scene", "SceneBuilder", "Materials", "Spheres", "Triangles", "demo",
     "scene_from_arrays", "Camera", "primary_rays", "Hit", "trace",
     "render_kernel", "render_kernel_reference",
+    "render_fused", "render_fused_reference", "contract_jacobian",
+    "render_kernel_vjp", "diff", "loss_and_grad", "fit_materials",
     "render_radiance", "render_image_u8", "trace_paths",
     "write_bitmap", "bitmap_bytes",
 ]

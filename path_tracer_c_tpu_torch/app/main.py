@@ -1,9 +1,12 @@
-"""Command-line interface: offline render to BMP.
+"""Command-line interface: offline render to BMP, and the material fit.
 
-The ``render`` subcommand of the JAX package's ``app/main.py`` on PyTorch:
-a built-in scene or scene JSON, rendered by the hand CUDA kernel
-(``--engine cuda``, the default) or by the eager integrator
-(``--engine core``), written as a 24-bit BMP.
+The ``render`` and ``fit`` subcommands of the JAX package's ``app/main.py``
+on PyTorch. ``render``: a built-in scene or scene JSON, rendered by the
+hand CUDA kernel (``--engine cuda``, the default) or by the eager
+integrator (``--engine core``), written as a 24-bit BMP. ``fit``: render a
+target with the true scene, corrupt albedo and emission strength, and
+recover them with Adam on the gradient of the fused CUDA kernel
+(``--engine cuda``) or of the eager integrator (``--engine core``).
 
 ``--device cuda`` (the default) needs a CUDA device and raises without
 one; it never carries on on the CPU. ``--device cpu`` runs the same
@@ -14,12 +17,16 @@ renders every image size through it.
 Usage:
     python -m path_tracer_c_tpu_torch.app.main render --scene glossy \
         --width 1024 --height 1024 --spp 64 --max-bounces 8 --out out.bmp
+    python -m path_tracer_c_tpu_torch.app.main fit \
+        --config configs/config4_inverse_spheres32.json
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -76,7 +83,12 @@ def _check_ported(cfg):
         )
     if cfg.tri_nee:
         raise SystemExit("tri_nee is not ported yet: see ROADMAP.md A9 (physical tier)")
-    for name in ("checkpoint_every", "checkpoint_path", "progressive", "debug_nans"):
+    _refuse_if_set(cfg, ("checkpoint_every", "checkpoint_path", "progressive", "debug_nans"))
+
+
+def _refuse_if_set(cfg, names):
+    """Settings of ROADMAP.md A12 (checkpoints and the rest of the CLI)."""
+    for name in names:
         if getattr(cfg, name):
             raise SystemExit(
                 f"{name} is not ported yet: see ROADMAP.md A12 "
@@ -131,6 +143,70 @@ def cmd_render(args):
     print(f"wrote {cfg.output} ({cfg.width}x{cfg.height}, {cfg.spp} spp)")
 
 
+def cmd_fit(args):
+    """Inverse rendering: recover albedo and emission strength."""
+    import numpy as np
+
+    from ..grad import diff
+    from ..models.integrator import render_radiance
+    from ..ops import render_kernel as rk
+    from ..ops.camera import Camera
+    from ..utils.config import FitConfig, load
+    from ..utils.metrics import MetricsLogger
+
+    fcfg = load(args.config, FitConfig) if args.config else FitConfig()
+    cfg = fcfg.render
+    for name in ("width", "height", "spp", "max_bounces", "scene", "engine"):
+        v = getattr(args, name)
+        if v is not None:
+            setattr(cfg, name, v)
+    if args.steps:
+        fcfg.steps = args.steps
+    mode = args.mode or fcfg.mode or "materials"
+    if mode in ("geometry", "roughness"):
+        raise SystemExit(
+            f"fit --mode {mode} is not ported to PyTorch yet: see ROADMAP.md A9 "
+            "(physical tier)")
+    if mode != "materials":
+        raise SystemExit(f"fit: unknown mode {mode!r}; expected materials")
+    # An explicit engine is honoured; "pallas" (the JAX package's kernel
+    # engine) and "auto" are this package's "cuda".
+    if cfg.engine in ("pallas", "auto"):
+        cfg.engine = "cuda"
+    _check_ported(cfg)
+    _refuse_if_set(fcfg, ("checkpoint_every", "checkpoint_path"))
+    device = _device(args.device)
+
+    true_scene = get_scene(cfg.scene, device)
+    camera = Camera.reference(device, cfg.fov_deg)
+    metrics = MetricsLogger(args.metrics)
+    if fcfg.target:
+        target = torch.from_numpy(np.load(fcfg.target)).to(device, torch.float32)
+    else:
+        # The target comes from the engine's own forward renderer: on a
+        # card the eager integrator would take far longer than the fit.
+        render = rk.render_kernel if cfg.engine == "cuda" else render_radiance
+        target = render(true_scene, camera, cfg.height, cfg.width, cfg.spp,
+                        cfg.max_bounces, (cfg.seed + 12345) & 0xFFFFFFFF)
+
+    t0 = time.time()
+    # Corrupt the materials, then recover them.
+    mats = true_scene.materials
+    init = dataclasses.replace(true_scene, materials=dataclasses.replace(
+        mats, albedo=torch.full_like(mats.albedo, 0.5),
+        emission_strength=torch.full_like(mats.emission_strength, 0.1)))
+    callback = None
+    if args.metrics:
+        callback = lambda i, l: metrics.log("fit_step", step=i, loss=l, engine=cfg.engine)
+    fitted, losses = diff.fit_materials(
+        init, target, camera, cfg.height, cfg.width, cfg.spp, cfg.max_bounces,
+        steps=fcfg.steps, lr=fcfg.lr, seed0=cfg.seed, callback=callback,
+        engine=cfg.engine)
+    err = float((fitted.materials.albedo - mats.albedo).abs().max())
+    print(f"fit: {fcfg.steps} steps in {time.time() - t0:.1f}s, "
+          f"loss {losses[0]:.3e} -> {losses[-1]:.3e}, max albedo err {err:.4f}")
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="path_tracer_c_tpu_torch", description=__doc__,
@@ -154,6 +230,27 @@ def build_parser():
     )
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     r.set_defaults(fn=cmd_render)
+
+    f = sub.add_parser("fit", help="inverse rendering: recover materials")
+    f.add_argument("--config", help="JSON fit config file")
+    f.add_argument("--scene")
+    f.add_argument("--width", type=int)
+    f.add_argument("--height", type=int)
+    f.add_argument("--spp", type=int)
+    f.add_argument("--max-bounces", type=int, dest="max_bounces")
+    f.add_argument("--steps", type=int)
+    f.add_argument("--mode", choices=["materials", "geometry", "roughness"],
+                   help="materials (default: the config's); the other two "
+                        "need the physical tier, which is not ported yet")
+    f.add_argument("--metrics", help="metrics JSONL output path")
+    f.add_argument(
+        "--engine",
+        help="cuda: the fused kernel and its contraction (their plain twin "
+             "on --device cpu); core: autograd through the eager integrator "
+             "(default: the config's, else cuda)",
+    )
+    f.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    f.set_defaults(fn=cmd_fit)
     return p
 
 

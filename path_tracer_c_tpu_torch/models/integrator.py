@@ -40,12 +40,21 @@ DEFAULT_EPS_OFFSET = _f32(1e-4)
 EPS_OFFSET_SCALE = _f32(4e-6)  # extra offset per unit |hit point|
 
 
-def trace_paths(scene: Scene, origins, directions, state, max_bounces: int):
+def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
+                count_rounds: bool = False):
     """Incident radiance for a batch of rays.
 
     ``origins``/``directions`` are (N, 3) (unit directions), ``state`` the
     (N,) uint32 RNG state (see ``ops.rng``). Returns ``(radiance (N, 3),
-    final state)``.
+    final state)``; with ``count_rounds`` also the number of ray-rounds
+    that began alive (an int64 scalar tensor): a ray stays alive until it
+    misses or dies of total internal reflection, which is the fused
+    kernel's exit rule (``ops/render_grad.py``).
+
+    Differentiable by ``torch.autograd`` in the material leaves and the
+    sky. Every random decision is detached: the branch compares against
+    ``transparency.detach()``, and the ratio factor below re-attaches its
+    derivative.
     """
     n = origins.shape[0]
     sky = scene.sky_color[None, :]
@@ -54,8 +63,11 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int):
     thr = torch.ones_like(origins)
     total = torch.zeros_like(origins)
     alive = torch.ones((n,), dtype=torch.bool, device=origins.device)
+    rounds = torch.zeros((), dtype=torch.int64, device=origins.device)
 
     for _ in range(max_bounces + 1):
+        if count_rounds:
+            rounds = rounds + alive.sum()
         hit = trace(o, d, scene)
         miss_now = alive & ~hit.mask
         total = total + torch.where(miss_now[:, None], thr * sky, 0.0)
@@ -84,14 +96,17 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int):
         refr_normal = torch.where(entering, nrm, -nrm)
         refr_dir, tir = refract(d, refr_normal, eta)
 
-        choose_refr = u_branch < transp
-        # The branch weight of the JAX package's ratio form: 1 wherever the
-        # chosen branch has probability >= 1e-6 (there it also carries the
-        # transparency derivative, which the gradient slice will need).
+        # The branch is chosen against the detached transparency, and the
+        # ratio is 1 in value wherever the chosen branch has probability
+        # >= 1e-6; its derivative, 1/t on the refracted branch and
+        # -1/(1-t) on the reflected one, is that of the reference's t and
+        # (1-t) branch weights.
+        transp_d = transp.detach()
+        choose_refr = u_branch < transp_d
         ratio = torch.where(
             choose_refr,
-            transp / torch.clamp_min(transp, _f32(1e-6)),
-            (1.0 - transp) / torch.clamp_min(1.0 - transp, _f32(1e-6)),
+            transp / torch.clamp_min(transp_d, _f32(1e-6)),
+            (1.0 - transp) / torch.clamp_min(1.0 - transp_d, _f32(1e-6)),
         )
         thr = torch.where(live, thr * ratio[:, None], thr)
 
@@ -115,6 +130,8 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int):
         d = torch.where(live, new_d, d)
 
     total = total + torch.where(alive[:, None], thr * sky, 0.0)
+    if count_rounds:
+        return total, st, rounds
     return total, st
 
 

@@ -1,8 +1,9 @@
-"""Compute primitives: RNG, camera, intersection, sampling, and the forward
-render kernel (hand-written CUDA with its plain PyTorch twin).
+"""Compute primitives: RNG, camera, intersection, sampling, the forward
+render kernel and the fused primal + Jacobian kernel (hand-written CUDA,
+each with its plain PyTorch twin).
 
-``render_kernel`` is imported by its users; building the CUDA library
-happens on its first CUDA call, never at import.
+``render_kernel`` and ``render_grad`` are imported by their users; building
+the CUDA library happens on the first CUDA call, never at import.
 """
 from . import rng, intersect, sampling, camera
 

@@ -2,9 +2,11 @@
 
 On first use the sources under ``csrc/`` are compiled for Hopper (sm_90a)
 into a shared library with a plain C interface, in ``build/kernels/``
-beside the package. The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is loaded as
-it is. Nothing is prebuilt or downloaded. Nothing here runs at import.
+beside the package. The library's name carries a hash of the sources,
+headers and flags, so an edited file is rebuilt and an unchanged one is
+loaded as it is. ptxas's account of every kernel (registers, spills, local
+memory) is kept beside the library; ``resource_usage`` reads it. Nothing
+is prebuilt or downloaded. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "load_library", "resource_usage"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -28,22 +30,24 @@ _CSRC = _PKG / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 # C signatures of the entry points, by name (see csrc/*.cu).
+_SCENE = [_P, _P, _I,  # spheres, sphere materials, count
+          _P, _P, _I,  # triangles, triangle materials, count
+          _P, _I,  # materials, count
+          _P]  # camera and sky params
+_RUN = [_I, _I, _I, _I,  # height, width, spp, max_bounces
+        _U, _I, _I,  # seed, sample_offset, jitter
+        _I, _P]  # device index, stream
 _SIGNATURES = {
-    "render_fwd": (
-        [_P, _P, _I,  # spheres, sphere materials, count
-         _P, _P, _I,  # triangles, triangle materials, count
-         _P, _I,  # materials, count
-         _P,  # camera and sky params
-         _P,  # out
-         _I, _I, _I, _I,  # height, width, spp, max_bounces
-         _U, _I, _I,  # seed, sample_offset, jitter
-         _I, _P],  # device index, stream
-        ctypes.c_int,
-    ),
+    # out, round counter (or null)
+    "render_fwd": (_SCENE + [_P, _P] + _RUN, ctypes.c_int),
+    # image, Jacobian planes, round counter (or null)
+    "render_fused": (_SCENE + [_P, _P, _P] + _RUN, ctypes.c_int),
+    "render_fused_max_bounces": ([], ctypes.c_int),
 }
 
 
@@ -68,11 +72,23 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(_CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _library_path() -> Path:
+    return build_dir() / f"libpt_kernels_{_digest(_sources())}.so"
+
+
+def resource_usage() -> str:
+    """What ptxas said of each kernel when the loaded library was built
+    (``-Xptxas -v``): registers, stack frame, spill stores and loads."""
+    load_library()
+    return _library_path().with_suffix(".ptxas.txt").read_text()
 
 
 @functools.cache
@@ -81,7 +97,7 @@ def load_library() -> ctypes.CDLL:
     entry points' argument types. Raises if nvcc fails."""
     sources = _sources()
     out_dir = build_dir()
-    lib_path = out_dir / f"libpt_kernels_{_digest(sources)}.so"
+    lib_path = _library_path()
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         # Build under a temporary name, then rename: a concurrent process
@@ -96,6 +112,7 @@ def load_library() -> ctypes.CDLL:
                     f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
                     f"{res.stdout}{res.stderr}"
                 )
+            lib_path.with_suffix(".ptxas.txt").write_text(res.stderr)
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):

@@ -133,6 +133,29 @@ def _camera_params(camera: Camera, scene: Scene, height: int, width: int):
     ).contiguous()
 
 
+def _ptr(t):
+    """A tensor's device pointer for ctypes; None passes as null."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _table_args(operands):
+    """The scene tables of ``_scene_operands`` as the kernels' leading
+    arguments: spheres, triangles and materials, each with its row count."""
+    sph, sph_m, tri, tri_m, mat = operands
+    return (_ptr(sph), _ptr(sph_m), sph.shape[0],
+            _ptr(tri), _ptr(tri_m), tri.shape[0],
+            _ptr(mat), mat.shape[0])
+
+
+def _run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device):
+    """The kernels' trailing arguments: sizes, stream seeds, the device
+    and PyTorch's current stream on it."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return (height, width, spp, max_bounces,
+            int(seed), int(sample_offset), int(bool(jitter)),
+            device.index, ctypes.c_void_p(stream))
+
+
 def render_kernel(
     scene: Scene,
     camera: Camera,
@@ -143,44 +166,46 @@ def render_kernel(
     seed: int,
     sample_offset: int = 0,
     jitter: bool = False,
-) -> torch.Tensor:
+    count_rounds: bool = False,
+):
     """Radiance image (H, W, 3) float32, on the scene's device.
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
     ``render_kernel.launches`` counts its launches. CPU tensors go to
     ``render_kernel_reference``. Any other device raises.
+
+    ``count_rounds=True`` returns ``(image, executed_rounds)``: the bounce
+    rounds that ran, summed over threads (one per pixel) and samples, as a
+    Python int. A thread stops at a miss or at zero throughput, so this is
+    less than the nominal ``H * W * spp * (max_bounces + 1)``. The count
+    is per thread; the JAX package counts whole tile rounds, so the two
+    are not comparable. Counting is a second instantiation of the kernel
+    and waits for the device; timed renders leave it off.
     """
     _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
     device = scene.device
     if device.type == "cpu":
         return render_kernel_reference(
             scene, camera, height, width, spp, max_bounces, seed,
-            sample_offset=sample_offset, jitter=jitter,
+            sample_offset=sample_offset, jitter=jitter, count_rounds=count_rounds,
         )
     if device.type != "cuda":
         raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
     from .build import load_library
 
     lib = load_library()
-    sph, sph_m, tri, tri_m, mat = _scene_operands(scene)
+    operands = _scene_operands(scene)
     par = _camera_params(camera, scene, height, width)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    stream = torch.cuda.current_stream(device).cuda_stream
+    counter = torch.zeros((), dtype=torch.int64, device=device) if count_rounds else None
     err = lib.render_fwd(
-        ptr(sph), ptr(sph_m), sph.shape[0],
-        ptr(tri), ptr(tri_m), tri.shape[0],
-        ptr(mat), mat.shape[0],
-        ptr(par), ptr(out),
-        height, width, spp, max_bounces,
-        int(seed), int(sample_offset), int(bool(jitter)),
-        device.index,
-        ctypes.c_void_p(stream),
+        *_table_args(operands), _ptr(par), _ptr(out), _ptr(counter),
+        *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
     )
     if err != 0:
         raise RuntimeError(f"render_fwd kernel launch failed: CUDA error {err}")
     render_kernel.launches += 1
-    return out
+    return (out, int(counter)) if count_rounds else out
 
 
 render_kernel.launches = 0
@@ -281,7 +306,9 @@ def _fetch_materials(mat_tab, m):
 def _shade(hit, mats, o, d, thr, rad, st, sky):
     """One bounce: sky on a miss, emission, albedo, the 3 draws, perturbed
     normal, reflect or refract, offset origin. Dead rays (zero
-    throughput) are updated like live ones; all they add is exact zeros."""
+    throughput) are updated like live ones; all they add is exact zeros.
+    Returns the new origin, direction, throughput, radiance and RNG state,
+    and the round's events ``(hit, refracted, died)`` as bool masks."""
     best, (nx, ny, nz), _ = hit
     dx, dy, dz = d
     tr, tg, tb = thr
@@ -346,7 +373,7 @@ def _shade(hit, mats, o, d, thr, rad, st, sky):
     offs = _EPS_OFFSET + _EPS_SCALE * sqrt_rn(px * px + py * py + pz * pz)
     side = torch.where(ndx * nx + ndy * ny + ndz * nz >= 0.0, 1.0, -1.0)
     o = (px + offs * side * nx, py + offs * side * ny, pz + offs * side * nz)
-    return o, (ndx, ndy, ndz), (tr, tg, tb), (ar, ag, ab), st
+    return o, (ndx, ndy, ndz), (tr, tg, tb), (ar, ag, ab), st, (hitmask, choose_refr, died)
 
 
 def render_kernel_reference(
@@ -359,9 +386,12 @@ def render_kernel_reference(
     seed: int,
     sample_offset: int = 0,
     jitter: bool = False,
-) -> torch.Tensor:
+    count_rounds: bool = False,
+):
     """Plain PyTorch twin of the hand kernel, on the scene's device: the
-    same math on (H*W,) planes, every round run (no early exit)."""
+    same math on (H*W,) planes, every round run (no early exit). With
+    ``count_rounds`` it also counts the rounds the kernel's threads run:
+    those a path begins with nonzero throughput."""
     _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
     device = scene.device
     sph, sph_m, tri, tri_m, mat_tab = _scene_operands(scene)
@@ -378,6 +408,7 @@ def render_kernel_reference(
     one = torch.ones(n, dtype=torch.float32, device=device)
 
     acc = (zero, zero, zero)
+    rounds = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(spp):
         st = _rng.seed_state(pix, s + sample_offset, seed)
         d = pd
@@ -387,9 +418,14 @@ def render_kernel_reference(
             d = _camera_dir(par, cols + jx, rows + jy, fw, fh)
         o, thr, rad = origin, (one, one, one), (zero, zero, zero)
         for _ in range(max_bounces + 1):
+            if count_rounds:
+                # A miss and a death by total internal reflection zero the
+                # throughput too, so this is the kernel's one exit test.
+                rounds = rounds + ((thr[0] != 0.0) | (thr[1] != 0.0) | (thr[2] != 0.0)).sum()
             hit = _closest_hit(sph, sph_m, tri, tri_m, o, d)
             mats = _fetch_materials(mat_tab, hit[2])
-            o, d, thr, rad, st = _shade(hit, mats, o, d, thr, rad, st, sky)
+            o, d, thr, rad, st, _ = _shade(hit, mats, o, d, thr, rad, st, sky)
         acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
     inv = _f32(1.0 / spp)
-    return torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
+    img = torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
+    return (img, int(rounds)) if count_rounds else img

@@ -1,6 +1,8 @@
 """Render configuration as data, JSON-compatible with the JAX package.
 
-``load`` reads the JAX package's config files (``configs/*.json``). Keys
+``load`` reads the JAX package's config files (``configs/*.json``): a
+render config, or with ``cls=FitConfig`` a fit config, whose ``render``
+block is a render config. Keys
 this package does not know, such as the TPU tile sizes, are ignored, as
 the JAX loader ignores them. The fields for features not ported yet
 (``mesh``, checkpointing, progressive output, ``tri_nee``, ``debug_nans``)
@@ -15,7 +17,7 @@ import json
 from dataclasses import dataclass, field
 from pathlib import Path
 
-__all__ = ["RenderConfig", "MeshConfig", "load"]
+__all__ = ["RenderConfig", "MeshConfig", "FitConfig", "load"]
 
 
 @dataclass
@@ -50,17 +52,34 @@ class RenderConfig:
     tri_nee: bool = False
 
 
+@dataclass
+class FitConfig:
+    """Inverse rendering: the render settings of every step, and the fit's."""
+
+    render: RenderConfig = field(default_factory=RenderConfig)
+    steps: int = 200
+    lr: float = 0.05
+    target: str = ""  # target image path (npy), or empty to render one
+    checkpoint_every: int = 0
+    checkpoint_path: str = ""
+    mode: str = "materials"  # the CLI's --mode overrides
+
+
+_NESTED = {"mesh": MeshConfig, "render": RenderConfig}
+
+
 def _from_dict(cls, d: dict):
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:
             continue
         v = d[f.name]
-        if f.name == "mesh" and isinstance(v, dict):
-            v = _from_dict(MeshConfig, v)
+        if f.name in _NESTED and isinstance(v, dict):
+            v = _from_dict(_NESTED[f.name], v)
         kwargs[f.name] = v
     return cls(**kwargs)
 
 
-def load(path) -> RenderConfig:
-    return _from_dict(RenderConfig, json.loads(Path(path).read_text()))
+def load(path, cls=RenderConfig):
+    """A ``RenderConfig`` (or ``cls``) from a JSON file."""
+    return _from_dict(cls, json.loads(Path(path).read_text()))

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the time of a gradient step of the PyTorch/CUDA port goes, on one
+GPU: a measurement chip_smoke.py does not take.
+
+    python3 scripts/torch_port_measure.py
+
+Runs ``torch.profiler`` over (1) ``loss_and_grad`` at the main shape
+(glossy, 1024x1024, 64 spp, 8 bounces) and (2) steps of ``fit_materials``
+at the shape of ``configs/config4_inverse_spheres32.json``, and prints for
+each the device time by kernel, the wall time per step and the share of it
+the device is busy. Every line of results carries the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+H = W = 1024
+SPP, BOUNCES = 64, 8
+
+# Operators whose device time (inclusive of what they call) is reported:
+# the autograd.Function's forward (zero-fill of the planes and the fused
+# kernel) and backward (the contraction), and the optimizer.
+OPS_OF_INTEREST = ("_RenderFused", "_RenderFusedBackward", "Optimizer.step#Adam.step")
+
+
+def profile(fn, steps: int) -> dict:
+    """Wall time per step, device time by kernel, and the device's busy
+    share, over ``steps`` calls of ``fn(i)`` after 3 warm-up calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for i in range(3):
+        fn(1000 + i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        fn(2000 + i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            fn(3000 + i)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    kernels, ops = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.key.startswith("Optimizer."):
+            continue  # the optimizer's range on the device: its kernels are counted below
+        if e.device_type == DeviceType.CUDA:  # a kernel or a copy on the device
+            kernels[e.key] = e.self_device_time_total / 1e3 / steps
+        elif e.key in OPS_OF_INTEREST:  # an operator: its own and its children's kernels
+            ops[e.key] = e.device_time_total / 1e3 / steps
+    device_ms = sum(kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms, "steps": steps,
+            "device_ms_by_op": ops, "device_ms_by_kernel": top,
+            "kernels_seen": len(kernels)}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_port_measure: no CUDA device")
+    sys.path.insert(0, str(REPO))
+    import path_tracer_c_tpu_torch as pt
+    from chip_smoke import card_line
+    from path_tracer_c_tpu_torch.grad import diff
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.utils.config import FitConfig, load
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    cam = pt.Camera.reference(dev)
+    glossy = pt.demo.glossy_scene(dev)
+    target = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 12345)
+    result = {"card": card}
+    result["loss_and_grad"] = profile(
+        lambda i: diff.loss_and_grad(glossy, target, cam, H, W, SPP, BOUNCES, i, engine="cuda"),
+        steps=5)
+    del target
+
+    fcfg = load(REPO / "configs" / "config4_inverse_spheres32.json", FitConfig)
+    cfg = fcfg.render
+    spheres = pt.demo.random_spheres_scene(dev)
+    fit_target = rk.render_kernel(spheres, cam, cfg.height, cfg.width, cfg.spp,
+                                  cfg.max_bounces, 12345)
+    # One call of fit_materials with 20 steps: the loop a user runs.
+    result["fit_20_steps"] = profile(
+        lambda i: diff.fit_materials(spheres, fit_target, cam, cfg.height, cfg.width, cfg.spp,
+                                     cfg.max_bounces, steps=20, lr=fcfg.lr, seed0=i),
+        steps=3)
+    fit = result["fit_20_steps"]
+    for key in ("wall_ms_per_step", "device_ms_per_step"):
+        fit[key.replace("per_step", "per_fit_step")] = fit.pop(key) / 20
+    for key in ("device_ms_by_op", "device_ms_by_kernel"):
+        fit[key] = {k: v / 20 for k, v in fit[key].items()}
+    for name, r in result.items():
+        if name != "card":
+            print(f"{name} [{card}]: {json.dumps(r)}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -97,8 +97,11 @@ def test_config_pallas_engine_maps_to_the_kernel(tmp_path):
 
 
 def test_port_does_not_import_jax():
-    code = ("import sys, path_tracer_c_tpu_torch, path_tracer_c_tpu_torch.app.main; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+    code = ("import sys, path_tracer_c_tpu_torch, path_tracer_c_tpu_torch.app.main, "
+            "path_tracer_c_tpu_torch.ops.render_grad, path_tracer_c_tpu_torch.ops.build, "
+            "path_tracer_c_tpu_torch.grad.diff, path_tracer_c_tpu_torch.utils.config; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'path_tracer_c_tpu' not in sys.modules, 'the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
 
 

@@ -1,4 +1,4 @@
-"""PyTorch port on a card: the hand CUDA kernel against its plain twin.
+"""PyTorch port on a card: the hand CUDA kernels against their plain twins.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they also run where only PyTorch is installed; from the repository root:
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import path_tracer_c_tpu_torch as P
+from path_tracer_c_tpu_torch.ops import render_grad as rg
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
 from path_tracer_c_tpu_torch.scene import demo as pdemo
 
@@ -64,3 +65,85 @@ def test_kernel_rejects_mixed_devices(cuda_device):
     mixed = dataclasses.replace(scene, sky_color=scene.sky_color.cpu())
     with pytest.raises(ValueError):
         rk.render_kernel(mixed, P.Camera.reference(cuda_device), 8, 8, 1, 1, 0)
+
+
+# -- the fused primal + Jacobian kernel --------------------------------------
+
+
+def mixed_scene(device):
+    """Emission, partial transparency (with total internal reflection), a
+    diffuse floor whose albedo is exactly black, sky misses."""
+    b = P.SceneBuilder(sky_color=(0.2, 0.3, 0.5))
+    b.add_material(albedo=(0.9, 0.8, 0.7), roughness=0.4,
+                   emission_color=(1.0, 0.8, 0.6), emission_strength=3.0)
+    glassy = b.add_material(albedo=(0.9, 0.95, 1.0), roughness=0.1,
+                            transparency=0.5, refractive_index=1.4)
+    black = b.add_material(albedo=(0.0, 0.0, 0.0), roughness=1.0)
+    b.add_sphere(center=(0, 2.5, 6), radius=1.5, material=0)
+    b.add_sphere(center=(0.5, -0.2, 4), radius=1.0, material=glassy)
+    b.add_triangle(v0=(-50, -1, -50), v1=(50, -1, -50), v2=(50, -1, 50), material=black)
+    b.add_triangle(v0=(-50, -1, -50), v1=(-50, -1, 50), v2=(50, -1, 50), material=black)
+    return b.build(device)
+
+
+@pytest.mark.parametrize(
+    "name", ["demo_scene", "glossy_scene", "mixed", "random_spheres_scene"])
+def test_fused_kernel_matches_forward_kernel_and_twin(cuda_device, name):
+    """The image equals render_kernel's bit for bit, and image and
+    Jacobian equal the twin's value for value: one definition of the
+    arithmetic, no FMA contraction, one order of additions.
+    random_spheres_scene has 33 materials, so 300 planes."""
+    scene = mixed_scene(cuda_device) if name == "mixed" else getattr(pdemo, name)(cuda_device)
+    cam = P.Camera.reference(cuda_device)
+    launches = rg.render_fused.launches
+    for jitter, offset, bounces in ((False, 0, 4), (True, 3, 8)):
+        args = (scene, cam, 100, 160, 4, bounces, 7)
+        kw = dict(sample_offset=offset, jitter=jitter)
+        img, jac = rg.render_fused(*args, **kw)
+        assert jac.shape == (9 * scene.num_materials + 3, 100, 160) and jac.device == cuda_device
+        assert torch.equal(img, rk.render_kernel(*args, **kw))
+        r_img, r_jac = rg.render_fused_reference(*args, **kw)
+        assert torch.equal(img, r_img)
+        assert torch.equal(jac, r_jac)
+    assert rg.render_fused.launches == launches + 2
+
+
+def test_count_rounds_match_twins(cuda_device):
+    scene, cam = mixed_scene(cuda_device), P.Camera.reference(cuda_device)
+    args = (scene, cam, 100, 160, 2, 6, 3)
+    img, n_fwd = rk.render_kernel(*args, count_rounds=True)
+    _, _, n_fus = rg.render_fused(*args, count_rounds=True)
+    assert torch.equal(img, rk.render_kernel(*args))
+    assert n_fwd == rk.render_kernel_reference(*args, count_rounds=True)[1]
+    assert n_fus == rg.render_fused_reference(*args, count_rounds=True)[2]
+    assert 0 < n_fwd < n_fus <= 100 * 160 * 2 * 7  # the black floor: more rounds fused
+
+
+def test_vjp_backward_matches_twin_contraction(cuda_device):
+    scene, cam = mixed_scene(cuda_device), P.Camera.reference(cuda_device)
+    h, w, spp, bounces, seed = 32, 64, 3, 4, 7
+    g = torch.randn((h, w, 3), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    leaves = [t.clone().requires_grad_() for t in rg._grad_leaves(scene)]
+    launches = rg.render_fused.launches
+    rg.render_kernel_vjp(rg._with_leaves(scene, leaves), cam, h, w, spp, bounces, seed).backward(g)
+    assert rg.render_fused.launches == launches + 1
+    _, r_jac = rg.render_fused_reference(scene, cam, h, w, spp, bounces, seed)
+    want = rg._grad_leaves(rg.contract_jacobian(scene, r_jac, g, spp))
+    for leaf, expect in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, expect, rtol=1e-5, atol=1e-6)
+    assert scene.materials.roughness.grad is None
+
+
+def test_fused_kernel_rejects_bad_inputs(cuda_device):
+    scene, cam = pdemo.demo_scene(cuda_device), P.Camera.reference(cuda_device)
+    with pytest.raises(ValueError):
+        rg.render_fused(scene, P.Camera.reference("cpu"), 8, 8, 1, 1, 0)
+    mixed = dataclasses.replace(scene, sky_color=scene.sky_color.cpu())
+    with pytest.raises(ValueError):
+        rg.render_fused(mixed, cam, 8, 8, 1, 1, 0)
+    launches = rg.render_fused.launches
+    with pytest.raises(ValueError, match="cap"):
+        rg.render_fused(scene, cam, 8, 8, 1, rg.MAX_BOUNCES + 1, 0)
+    assert rg.render_fused.launches == launches
+    img, _ = rg.render_fused(scene, cam, 8, 8, 1, rg.MAX_BOUNCES, 0)  # the cap itself runs
+    assert torch.equal(img, rk.render_kernel(scene, cam, 8, 8, 1, rg.MAX_BOUNCES, 0))
