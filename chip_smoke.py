@@ -32,8 +32,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    scene at 1024x1024, 64 spp, 8 bounces, then the CLI ``fit`` on
    ``configs/config4_inverse_spheres32.json``; every step must go through
    the fused kernel and the loss must fall.
-8. times: both kernels, the contraction, the twins and one fit step, with
-   CUDA events, and each kernel's bound from this run's executed rounds.
+8. physical kernel against its plain twin: ``render_physical_kernel`` on
+   the card against ``render_physical_kernel_reference`` on the card at a
+   ragged size on cornell, glossy, a scene with no emitter and a scene lit
+   by triangles and a sphere with ``tri_nee`` on, with next-event
+   estimation off, jitter off and a nonzero sample offset, and at the main
+   shape; the counted events (rounds, diffuse vertices, light samples,
+   shadow scans) must equal the twin's; once against the twin on the CPU.
+   The twin runs every round of every path, so agreement shows that what
+   the kernel skips adds exact zeros.
+9. the physical main path: the CLI ``render --config
+   configs/config3_glossy_1024.json`` (glossy, 1024x1024, 64 spp, 8
+   bounces, engine "physical"). The kernel's launch count must grow; the
+   BMP is decoded and checked.
+10. times: the three kernels, the contraction, the twins and one fit step,
+   with CUDA events, and each kernel's bound from this run's executed
+   rounds and events.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -70,6 +84,14 @@ MEAN_TOL = 1e-5
 # The eager integrator takes other roots and normalisations than the
 # kernel, so a grazing path may flip.
 GRAD_RTOL, GRAD_ATOL = 5e-3, 2e-5
+# The physical kernel against its twin: the JAX suite's criterion for its
+# physical kernel against the core path (tests/test_pallas_physical.py): the
+# 0.99-quantile of |delta| below 1e-4, the share of |delta| > 1e-3 below 1%,
+# the image means within 2e-3. On the card the two agree bit for bit (the
+# "exact" share printed); the CPU twin rounds rsqrt differently, and a
+# shadow ray at a cone's rim can then flip.
+PHYS_Q99_TOL, PHYS_FLIP_SHARE, PHYS_MEAN_TOL = 1e-4, 0.01, 2e-3
+PHYS_CONFIG = "configs/config3_glossy_1024.json"
 # The main paths' shape: the glossy scene at 1024^2, 64 spp, 8 bounces.
 H = W = 1024
 SPP, BOUNCES = 64, 8
@@ -87,6 +109,16 @@ PEAK_BYTES = 3.35e12
 # one (integer RNG work is left out): one sphere test, one triangle test,
 # the rest of closest_hit, one call of shade(), one swept hit.
 OPS_SPHERE, OPS_TRIANGLE, OPS_HIT_REST, OPS_SHADE, OPS_SWEEP = 29, 61, 25, 138, 24
+# The physical kernel (csrc/render_phys.cu), counted the same way: what
+# every hit round does (Le, the 7 draws' conversions, the hit point, the
+# offset, albedo, the next origin, the exit test); the new direction of a
+# diffuse vertex (cosine-weighted: two roots, sincos_2pi, the basis) and of
+# any other (the mirror, the cheapest: a refraction costs more); one light
+# sample of a sphere up to its tests (cone, basis, the full-b distance);
+# and what a shadow scan adds to the per-object tests (the ray's d.d, one
+# min per object, the visibility compare).
+OPS_PHYS_HIT, OPS_PHYS_DIFFUSE, OPS_PHYS_MIRROR, OPS_PHYS_LIGHT, OPS_PHYS_SHADOW_REST = (
+    54, 65, 9, 139, 10)
 
 
 def log(msg: str) -> None:
@@ -142,6 +174,31 @@ def compare_exact(a, b, what: str) -> float:
     return worst
 
 
+def compare_physical(a, b, what: str) -> dict:
+    """|a - b| statistics; raises unless within the physical tolerance."""
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {a.shape}/{b.shape}")
+    err = (a.double() - b.double()).abs().flatten()
+    if not torch.isfinite(err).all():
+        raise AssertionError(f"{what}: non-finite values")
+    k = max(int(0.99 * (err.numel() - 1)), 0)
+    stats = {
+        "q99": float(torch.kthvalue(err, k + 1).values),
+        "flips": float((err > 1e-3).double().mean()),
+        "dmean": abs(float(a.double().mean()) - float(b.double().mean())),
+        "max": float(err.max()),
+        "exact": float((err == 0).double().mean()),
+    }
+    log(f"  {what}: q99 {stats['q99']:.3g} share>1e-3 {stats['flips']:.3g} "
+        f"max {stats['max']:.3g} exact {stats['exact']:.6f}")
+    if not (stats["q99"] < PHYS_Q99_TOL and stats["flips"] < PHYS_FLIP_SHARE
+            and stats["dmean"] < PHYS_MEAN_TOL):
+        raise AssertionError(f"{what}: outside the physical tolerance")
+    return stats
+
+
 def time_cuda(fn, seeds) -> list[float]:
     """Milliseconds of each call, by CUDA events, one call per seed."""
     import torch
@@ -189,6 +246,38 @@ def test_scenes(pt, dev):
     return {"mixed_scene": mixed, "black_albedo_scene": b.build(dev)}
 
 
+def tri_light_scene(pt, dev):
+    """A triangle ceiling light, a sphere light and diffuse content: the
+    mixed emitter pool of tests/test_pallas_physical.py."""
+    b = pt.SceneBuilder(sky_color=(0.01, 0.01, 0.02))
+    ground = b.add_material(albedo=(0.6, 0.55, 0.5), roughness=1.0)
+    lamp = b.add_material(albedo=(0.0, 0.0, 0.0), emission_color=(1.0, 0.9, 0.7),
+                          emission_strength=20.0)
+    slamp = b.add_material(albedo=(0.0, 0.0, 0.0), emission_color=(0.8, 0.9, 1.0),
+                           emission_strength=8.0)
+    ball = b.add_material(albedo=(0.7, 0.3, 0.3), roughness=1.0)
+    b.add_triangle(v0=(-40, -1, -40), v1=(40, -1, -40), v2=(40, -1, 40), material=ground)
+    b.add_triangle(v0=(-40, -1, -40), v1=(-40, -1, 40), v2=(40, -1, 40), material=ground)
+    b.add_triangle(v0=(-1.0, 3.0, 4.0), v1=(1.0, 3.0, 4.0), v2=(1.0, 3.0, 6.0), material=lamp)
+    b.add_triangle(v0=(-1.0, 3.0, 4.0), v1=(-1.0, 3.0, 6.0), v2=(1.0, 3.0, 6.0), material=lamp)
+    b.add_sphere(center=(0.0, -0.3, 5.0), radius=0.7, material=ball)
+    b.add_sphere(center=(2.0, 2.0, 3.5), radius=0.4, material=slamp)
+    return b.build(dev)
+
+
+def check_bmp(data: bytes, width: int, height: int) -> None:
+    """Decode a 24-bit BMP's header and look at its pixels."""
+    if data[:2] != b"BM" or len(data) != 54 + 3 * width * height:
+        raise AssertionError(f"BMP: bad magic or size {len(data)}")
+    size, _, offset = struct.unpack("<III", data[2:14])
+    bw, bh, _, bpp = struct.unpack("<iiHH", data[18:30])
+    if (size, offset, bw, bh, bpp) != (len(data), 54, width, height, 24):
+        raise AssertionError(f"BMP header {(size, offset, bw, bh, bpp)}")
+    pixels = data[54:]
+    if len(set(pixels)) < 2 or not any(pixels):
+        raise AssertionError("BMP pixels are all equal or all zero")
+
+
 def bound_ms(scene, height, width, spp, rounds, fused: bool):
     """The least time the card could take: the larger of bytes over the
     memory rate (inputs read once, outputs written once) and float32
@@ -208,6 +297,29 @@ def bound_ms(scene, height, width, spp, rounds, fused: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_physical_ms(scene, height, width, spp, events):
+    """The physical kernel's bound, as ``bound_ms``: every round scans the
+    scene once, at least ``rounds - H W spp`` rounds hit and shade, a
+    diffuse vertex takes the cosine-weighted direction and any other at
+    least the mirror's, and the light samples and shadow scans are those
+    this run's data asked for (``count_events``). Bytes: the reference
+    tier's tables, the emitter tables (5 words a sphere, 5 a triangle, 1 a
+    material, 2 counts) and the image."""
+    scan = scene.num_spheres * OPS_SPHERE + scene.num_triangles * OPS_TRIANGLE
+    hit_rounds = max(events["rounds"] - height * width * spp, 0)
+    diffuse = events["diffuse_vertices"]
+    ops = (events["rounds"] * (scan + OPS_HIT_REST) + hit_rounds * OPS_PHYS_HIT
+           + diffuse * OPS_PHYS_DIFFUSE + max(hit_rounds - diffuse, 0) * OPS_PHYS_MIRROR
+           + events["light_samples"] * OPS_PHYS_LIGHT
+           + events["shadow_scans"] * (scan + scene.num_spheres + scene.num_triangles
+                                       + OPS_PHYS_SHADOW_REST))
+    tables = 4 * (11 * scene.num_spheres + 19 * scene.num_triangles
+                  + 10 * scene.num_materials + 19)
+    nbytes = tables + 12 * height * width
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def main() -> int:
     import torch
 
@@ -221,8 +333,9 @@ def main() -> int:
     from path_tracer_c_tpu_torch.ops import build
     from path_tracer_c_tpu_torch.ops import render_grad as rg
     from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
     from path_tracer_c_tpu_torch.utils.bitmap import bitmap_bytes
-    from path_tracer_c_tpu_torch.utils.config import FitConfig, load
+    from path_tracer_c_tpu_torch.utils.config import FitConfig, RenderConfig, load
     from path_tracer_c_tpu_torch.utils.metrics import rays_per_render
 
     if "jax" in sys.modules:
@@ -288,15 +401,7 @@ def main() -> int:
         if fwd_launches < 1:
             raise AssertionError("the CLI render did not go through the kernel")
         data = out.read_bytes()
-    if data[:2] != b"BM" or len(data) != 54 + 3 * W * H:
-        raise AssertionError(f"BMP: bad magic or size {len(data)}")
-    size, _, offset = struct.unpack("<III", data[2:14])
-    bw, bh, _, bpp = struct.unpack("<iiHH", data[18:30])
-    if (size, offset, bw, bh, bpp) != (len(data), 54, W, H, 24):
-        raise AssertionError(f"BMP header {(size, offset, bw, bh, bpp)}")
-    pixels = data[54:]
-    if len(set(pixels)) < 2 or not any(pixels):
-        raise AssertionError("BMP pixels are all equal or all zero")
+    check_bmp(data, W, H)
     # The CLI's image is the kernel's (seed 0), encoded.
     rad = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 0)
     if bitmap_bytes(pt.render_image_u8(rad).cpu().numpy()) != data:
@@ -405,7 +510,88 @@ def main() -> int:
     if not (last < first and albedo_err == albedo_err and albedo_err < float("inf")):
         raise AssertionError(f"fit: loss {first} -> {last}, albedo error {albedo_err}")
 
-    # -- 8. times and bounds --
+    # -- 8. physical kernel against its plain twin --
+    log("physical kernel vs plain twin (both on the card unless named):")
+    phys_launches0 = rp.render_physical_kernel.launches
+    phys_err = 0.0
+    phys_scenes = {**scenes, "diffuse_sphere_scene (no emitter)": pt.demo.diffuse_sphere_scene(dev),
+                   "tri_light_scene": tri_light_scene(pt, dev)}
+    phys_cases = [
+        ("cornell_spheres_scene", {}), ("glossy_scene", {}),
+        ("diffuse_sphere_scene (no emitter)", {}),
+        ("tri_light_scene", dict(tri_nee=True)), ("tri_light_scene", dict(tri_nee=True, jitter=False)),
+        ("cornell_spheres_scene", dict(nee=False)), ("glossy_scene", dict(jitter=False)),
+        ("glossy_scene", dict(sample_offset=3)), ("mixed_scene", dict(sample_offset=64, tri_nee=True)),
+    ]
+    for name, kw in phys_cases:
+        args = (phys_scenes[name], cam, 100, 160, 4, 8, 7)
+        k, ev = rp.render_physical_kernel(*args, count_events=True, **kw)
+        r, ev_twin = rp.render_physical_kernel_reference(*args, count_events=True, **kw)
+        torch.cuda.synchronize()
+        s = compare_physical(k, r, f"{name} 100x160 4spp 8b {kw}")
+        phys_err = max(phys_err, s["max"])
+        if not torch.equal(k, rp.render_physical_kernel(*args, **kw)):
+            raise AssertionError(f"{name}: the counting instantiation's image differs")
+        if ev != ev_twin or ev["rounds"] != rp.render_physical_kernel(
+                *args, count_rounds=True, **kw)[1]:
+            raise AssertionError(f"{name}: events {ev}, twin {ev_twin}")
+        log(f"    events {ev} of nominal {100 * 160 * 4 * 9} rounds, equal to the twin's")
+    # The main shape, as configs/config3 renders it (jitter on), the twin's
+    # one run timed.
+    pcfg = load(root / PHYS_CONFIG, RenderConfig)
+    if (pcfg.scene, pcfg.height, pcfg.width, pcfg.spp, pcfg.max_bounces) != (
+            "glossy", H, W, SPP, BOUNCES):
+        raise AssertionError(f"{PHYS_CONFIG} is not the main shape")
+    phys_kw = dict(jitter=pcfg.jitter, tri_nee=pcfg.tri_nee)
+    k_main, phys_events = rp.render_physical_kernel(glossy, cam, H, W, SPP, BOUNCES, 1,
+                                                    count_events=True, **phys_kw)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    r_main, ev_twin = rp.render_physical_kernel_reference(
+        glossy, cam, H, W, SPP, BOUNCES, 1, count_events=True, **phys_kw)
+    end.record()
+    torch.cuda.synchronize()
+    phys_twin_ms = start.elapsed_time(end)
+    s = compare_physical(k_main, r_main, f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b {phys_kw} "
+                                         "(main shape)")
+    phys_err = max(phys_err, s["max"])
+    if phys_events != ev_twin:
+        raise AssertionError(f"main shape: events {phys_events}, twin {ev_twin}")
+    log(f"    events {phys_events} of nominal {rays_per_render(H, W, SPP, BOUNCES)} rounds, "
+        "equal to the twin's")
+    del k_main, r_main
+    tri_cpu = tri_light_scene(pt, "cpu")
+    k = rp.render_physical_kernel(phys_scenes["tri_light_scene"], cam, 24, 40, 2, 4, 5,
+                                  sample_offset=2, tri_nee=True)
+    r = rp.render_physical_kernel_reference(tri_cpu, pt.Camera.reference("cpu"), 24, 40, 2, 4, 5,
+                                            sample_offset=2, tri_nee=True)
+    s = compare_physical(k.cpu(), r, "tri_light_scene 24x40 2spp 4b tri_nee, twin on the CPU")
+    phys_err = max(phys_err, s["max"])
+    if rp.render_physical_kernel.launches <= phys_launches0:
+        raise AssertionError("render_physical_kernel did not launch its kernel")
+
+    # -- 9. the physical main path, through the CLI --
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "config3.bmp"
+        rp.render_physical_kernel.launches = 0
+        t0 = time.perf_counter()
+        cli_main(["render", "--config", str(root / PHYS_CONFIG), "--out", str(out)])
+        phys_cli_seconds = time.perf_counter() - t0
+        phys_launches = rp.render_physical_kernel.launches
+        log(f"physical main path: CLI `render --config {PHYS_CONFIG}` launched "
+            f"render_physical_kernel {phys_launches} time(s), {phys_cli_seconds * 1e3:.1f} ms "
+            f"to the written BMP [{card}]")
+        if phys_launches < 1:
+            raise AssertionError("the CLI render did not go through the physical kernel")
+        data = out.read_bytes()
+    check_bmp(data, W, H)
+    rad = rp.render_physical_kernel(glossy, cam, H, W, SPP, BOUNCES, pcfg.seed, **phys_kw)
+    if bitmap_bytes(pt.render_image_u8(rad).cpu().numpy()) != data:
+        raise AssertionError("CLI BMP differs from the encoded physical kernel image")
+    log(f"physical main path: BMP {len(data)} bytes, {W}x{H}, decoded and checked")
+    del rad
+
+    # -- 10. times and bounds --
     rays = rays_per_render(H, W, SPP, BOUNCES)
     _, fwd_rounds = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 1, count_rounds=True)
     _, _, fus_rounds = rg.render_fused(glossy, cam, H, W, SPP, BOUNCES, 1, count_rounds=True)
@@ -413,8 +599,10 @@ def main() -> int:
         f"fused {fus_rounds}, nominal {rays}")
     fwd = lambda seed: rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, seed)
     fus = lambda seed: rg.render_fused(glossy, cam, H, W, SPP, BOUNCES, seed)
+    phy = lambda seed: rp.render_physical_kernel(glossy, cam, H, W, SPP, BOUNCES, seed, **phys_kw)
     fwd_ms = median_ms(fwd)
     fus_ms = median_ms(fus)
+    phy_ms = median_ms(phy)
     fwd_ms2 = median_ms(fwd)
     fwd_twin_ms = median_ms(
         lambda seed: rk.render_kernel_reference(glossy, cam, H, W, SPP, BOUNCES, seed))
@@ -435,17 +623,23 @@ def main() -> int:
 
     fwd_bound, fwd_by = bound_ms(glossy, H, W, SPP, fwd_rounds, fused=False)
     fus_bound, fus_by = bound_ms(glossy, H, W, SPP, fus_rounds, fused=True)
+    phy_bound, phy_by = bound_physical_ms(glossy, H, W, SPP, phys_events)
     where = f"glossy {H}x{W} {SPP}spp {BOUNCES}b"
-    for what, ms in (("forward kernel", fwd_ms), ("forward kernel, again after the fused",
+    for what, ms in (("forward kernel", fwd_ms), ("forward kernel, again after the others",
                                                    fwd_ms2),
                      ("forward plain twin", fwd_twin_ms), ("fused kernel", fus_ms),
-                     ("fused plain twin (one run)", fus_twin_ms)):
+                     ("fused plain twin (one run)", fus_twin_ms),
+                     (f"physical kernel {phys_kw}", phy_ms),
+                     ("physical plain twin (one run)", phys_twin_ms)):
         log(f"time {what}: {where}: {ms:.3f} ms, {rays / (ms / 1e3):.4e} nominal rays/s [{card}]")
     log(f"time contract_jacobian: {where}: {con_ms:.3f} ms [{card}]")
     log(f"time fused kernel / forward kernel: {fus_ms / fwd_ms:.3f}; "
         f"fwd+bwd (fused + contraction) {fus_ms + con_ms:.3f} ms [{card}]")
+    log(f"time physical kernel / forward kernel: {phy_ms / fwd_ms:.3f} "
+        f"({phy_ms / fwd_ms2:.3f} against the later forward time) [{card}]")
     log(f"bound forward kernel: {fwd_bound:.3f} ms by {fwd_by}; fused kernel: "
-        f"{fus_bound:.3f} ms by {fus_by} (67 TFLOP/s float32, 3.35 TB/s; executed rounds)")
+        f"{fus_bound:.3f} ms by {fus_by}; physical kernel: {phy_bound:.3f} ms by {phy_by} "
+        f"(67 TFLOP/s float32, 3.35 TB/s; executed rounds and events)")
     log(f"time one fit step (make params, fused kernel, backward, Adam), spheres32 "
         f"{cfg.width}x{cfg.height} {cfg.spp}spp {cfg.max_bounces}b: {step_ms:.3f} ms; "
         f"its fused kernel alone {fit_fus_ms:.3f} ms [{card}]")
@@ -465,6 +659,11 @@ def main() -> int:
          "max_abs_err": jac_err, "ms": fus_ms,
          "plain_ms": fus_twin_ms, "bound_ms": fus_bound, "bound_by": fus_by,
          "executed_rounds": fus_rounds, **common},
+        {"name": "render_phys", "source": rp.SOURCE, "replaces": rp.REPLACES,
+         "launches": phys_launches, "launches_by_path": {"render --engine physical": phys_launches},
+         "max_abs_err": phys_err, "ms": phy_ms,
+         "plain_ms": phys_twin_ms, "bound_ms": phy_bound, "bound_by": phy_by,
+         "executed_rounds": phys_events["rounds"], "events": phys_events, **common},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

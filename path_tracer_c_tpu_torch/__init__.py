@@ -2,8 +2,9 @@
 
 A port of ``path_tracer_c_tpu`` (JAX, Pallas on TPU) to PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper: the forward render
-(``render_kernel``) and its gradient (``render_kernel_vjp``, the material
-fit in ``grad.diff``). The JAX package is the
+(``render_kernel``), its gradient (``render_kernel_vjp``, the material
+fit in ``grad.diff``) and the physical tier's forward render
+(``render_physical_kernel``; eager: ``render_physical``). The JAX package is the
 reference this package is held against; this package imports PyTorch and
 never JAX.
 
@@ -22,9 +23,11 @@ from .ops.render_kernel import render_kernel, render_kernel_reference
 from .ops.render_grad import (
     render_fused, render_fused_reference, contract_jacobian, render_kernel_vjp,
 )
+from .ops.render_physical import render_physical_kernel, render_physical_kernel_reference
 from .grad import diff
 from .grad.diff import loss_and_grad, fit_materials
 from .models.integrator import render_radiance, render_image_u8, trace_paths
+from .models.physical import render_physical, trace_paths_physical
 from .utils.bitmap import write_bitmap, bitmap_bytes
 
 __version__ = "0.1.0"
@@ -34,7 +37,8 @@ __all__ = [
     "scene_from_arrays", "Camera", "primary_rays", "Hit", "trace",
     "render_kernel", "render_kernel_reference",
     "render_fused", "render_fused_reference", "contract_jacobian",
-    "render_kernel_vjp", "diff", "loss_and_grad", "fit_materials",
+    "render_kernel_vjp", "render_physical_kernel", "render_physical_kernel_reference",
+    "render_physical", "trace_paths_physical", "diff", "loss_and_grad", "fit_materials",
     "render_radiance", "render_image_u8", "trace_paths",
     "write_bitmap", "bitmap_bytes",
 ]

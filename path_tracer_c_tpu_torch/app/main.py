@@ -1,18 +1,22 @@
 """Command-line interface: offline render to BMP, and the material fit.
 
 The ``render`` and ``fit`` subcommands of the JAX package's ``app/main.py``
-on PyTorch. ``render``: a built-in scene or scene JSON, rendered by the
-hand CUDA kernel (``--engine cuda``, the default) or by the eager
-integrator (``--engine core``), written as a 24-bit BMP. ``fit``: render a
-target with the true scene, corrupt albedo and emission strength, and
-recover them with Adam on the gradient of the fused CUDA kernel
-(``--engine cuda``) or of the eager integrator (``--engine core``).
+on PyTorch. ``render``: a built-in scene or scene JSON, written as a
+24-bit BMP, rendered by one of four engines. Reference tier: the hand CUDA
+kernel (``--engine cuda``, the default) or the eager integrator
+(``--engine core``). Physical tier (importance-sampled BRDF, next-event
+estimation): its hand CUDA kernel (``--engine physical``) or its eager
+integrator (``--engine physical_core``); ``--tri-nee`` adds emissive
+triangles to the physical tier's light sampling. ``fit``: render a target
+with the true scene, corrupt albedo and emission strength, and recover
+them with Adam on the gradient of the fused CUDA kernel (``--engine
+cuda``) or of the eager integrator (``--engine core``).
 
 ``--device cuda`` (the default) needs a CUDA device and raises without
 one; it never carries on on the CPU. ``--device cpu`` runs the same
-engines on the CPU, where ``--engine cuda`` takes the kernel's plain
-twin. The kernel has no tile-divisibility rule, so ``--engine cuda``
-renders every image size through it.
+engines on the CPU, where a kernel engine takes the kernel's plain twin.
+The kernels have no tile-divisibility rule, so the kernel engines render
+every image size through the kernel.
 
 Usage:
     python -m path_tracer_c_tpu_torch.app.main render --scene glossy \
@@ -61,28 +65,33 @@ def get_scene(name: str, device):
 
 # Engines and settings of the JAX CLI that this package has not ported
 # yet, with the ROADMAP.md item that ports them.
-_NOT_PORTED_ENGINES = {
-    "physical": "A9 (physical tier)",
-    "physical_pallas": "A9 (physical tier)",
-    "split": "A10 (split tier)",
-}
+_NOT_PORTED_ENGINES = {"split": "A10 (split tier)"}
+_PHYSICAL_GRADIENT = "A9, second half (B4, B5)"
+# The JAX package's names for its kernel engines, and this package's.
+_ENGINE_ALIASES = {"pallas": "cuda", "physical_pallas": "physical"}
+_PHYSICAL_ENGINES = ("physical", "physical_core")
+_ENGINES = ("cuda", "core") + _PHYSICAL_ENGINES
 
 
-def _check_ported(cfg):
+def _check_ported(cfg, fit=False):
     if cfg.engine in _NOT_PORTED_ENGINES:
         raise SystemExit(
             f"engine '{cfg.engine}' is not ported to PyTorch yet: see "
             f"ROADMAP.md {_NOT_PORTED_ENGINES[cfg.engine]}"
         )
-    if cfg.engine not in ("cuda", "core"):
-        raise SystemExit(f"unknown engine '{cfg.engine}'; available: cuda, core")
+    if cfg.engine not in _ENGINES:
+        raise SystemExit(f"unknown engine '{cfg.engine}'; available: {', '.join(_ENGINES)}")
+    if fit and (cfg.engine in _PHYSICAL_ENGINES or cfg.tri_nee):
+        what = "tri_nee" if cfg.tri_nee else f"engine '{cfg.engine}'"
+        raise SystemExit(
+            f"fit: {what} needs the physical tier's gradient, which is not ported "
+            f"to PyTorch yet: see ROADMAP.md {_PHYSICAL_GRADIENT}"
+        )
     if cfg.mesh.tile * cfg.mesh.spp > 1:
         raise SystemExit(
             "a multi-device mesh is not ported yet: see ROADMAP.md A11 "
             "(parallel layer)"
         )
-    if cfg.tri_nee:
-        raise SystemExit("tri_nee is not ported yet: see ROADMAP.md A9 (physical tier)")
     _refuse_if_set(cfg, ("checkpoint_every", "checkpoint_path", "progressive", "debug_nans"))
 
 
@@ -104,9 +113,26 @@ def _device(name: str) -> torch.device:
     return torch.device("cpu")
 
 
-def cmd_render(args):
-    from ..models.integrator import render_image_u8, render_radiance
+def _renderer(cfg):
+    """The configured engine as ``render(scene, camera, H, W, spp, bounces,
+    seed, jitter=...)``. ``tri_nee`` reaches the physical engines only; the
+    reference tier has no light sampling and ignores it, as the JAX CLI
+    does."""
+    import functools
+
+    from ..models.integrator import render_radiance
+    from ..models.physical import render_physical
     from ..ops import render_kernel as rk
+    from ..ops import render_physical as rp
+
+    if cfg.engine in _PHYSICAL_ENGINES:
+        render = rp.render_physical_kernel if cfg.engine == "physical" else render_physical
+        return functools.partial(render, tri_nee=cfg.tri_nee)
+    return rk.render_kernel if cfg.engine == "cuda" else render_radiance
+
+
+def cmd_render(args):
+    from ..models.integrator import render_image_u8
     from ..ops.camera import Camera
     from ..utils import bitmap
     from ..utils.config import RenderConfig, load
@@ -117,8 +143,9 @@ def cmd_render(args):
         v = getattr(args, name)
         if v is not None:
             setattr(cfg, name, v)
-    if cfg.engine == "pallas":
-        cfg.engine = "cuda"
+    cfg.engine = _ENGINE_ALIASES.get(cfg.engine, cfg.engine)
+    if args.tri_nee:
+        cfg.tri_nee = True
     if args.out:
         cfg.output = args.out
     _check_ported(cfg)
@@ -127,7 +154,7 @@ def cmd_render(args):
     scene = get_scene(cfg.scene, device)
     camera = Camera.reference(device, cfg.fov_deg)
     metrics = MetricsLogger(args.metrics)
-    render = rk.render_kernel if cfg.engine == "cuda" else render_radiance
+    render = _renderer(cfg)
     with Timer() as t:
         rad = render(
             scene, camera, cfg.height, cfg.width, cfg.spp, cfg.max_bounces,
@@ -148,8 +175,6 @@ def cmd_fit(args):
     import numpy as np
 
     from ..grad import diff
-    from ..models.integrator import render_radiance
-    from ..ops import render_kernel as rk
     from ..ops.camera import Camera
     from ..utils.config import FitConfig, load
     from ..utils.metrics import MetricsLogger
@@ -165,15 +190,14 @@ def cmd_fit(args):
     mode = args.mode or fcfg.mode or "materials"
     if mode in ("geometry", "roughness"):
         raise SystemExit(
-            f"fit --mode {mode} is not ported to PyTorch yet: see ROADMAP.md A9 "
-            "(physical tier)")
+            f"fit --mode {mode} is not ported to PyTorch yet: see ROADMAP.md "
+            f"{_PHYSICAL_GRADIENT}")
     if mode != "materials":
         raise SystemExit(f"fit: unknown mode {mode!r}; expected materials")
     # An explicit engine is honoured; "pallas" (the JAX package's kernel
     # engine) and "auto" are this package's "cuda".
-    if cfg.engine in ("pallas", "auto"):
-        cfg.engine = "cuda"
-    _check_ported(cfg)
+    cfg.engine = "cuda" if cfg.engine == "auto" else _ENGINE_ALIASES.get(cfg.engine, cfg.engine)
+    _check_ported(cfg, fit=True)
     _refuse_if_set(fcfg, ("checkpoint_every", "checkpoint_path"))
     device = _device(args.device)
 
@@ -185,8 +209,7 @@ def cmd_fit(args):
     else:
         # The target comes from the engine's own forward renderer: on a
         # card the eager integrator would take far longer than the fit.
-        render = rk.render_kernel if cfg.engine == "cuda" else render_radiance
-        target = render(true_scene, camera, cfg.height, cfg.width, cfg.spp,
+        target = _renderer(cfg)(true_scene, camera, cfg.height, cfg.width, cfg.spp,
                         cfg.max_bounces, (cfg.seed + 12345) & 0xFFFFFFFF)
 
     t0 = time.time()
@@ -224,10 +247,17 @@ def build_parser():
     r.add_argument("--out", help="output BMP path")
     r.add_argument("--metrics", help="metrics JSONL output path")
     r.add_argument(
-        "--engine", choices=["cuda", "core"],
-        help="cuda: the hand kernel (its plain twin on --device cpu); "
-             "core: the eager integrator (default: the config's, else cuda)",
+        "--engine", choices=list(_ENGINES) + list(_ENGINE_ALIASES),
+        help="cuda: the reference tier's hand kernel; core: its eager "
+             "integrator; physical: the physical tier's hand kernel; "
+             "physical_core: its eager integrator. A kernel engine takes "
+             "its plain twin on --device cpu. pallas and physical_pallas, "
+             "the JAX package's names, mean cuda and physical (default: "
+             "the config's, else cuda)",
     )
+    r.add_argument("--tri-nee", action="store_true", dest="tri_nee",
+                   help="physical engines: light-sample emissive triangles "
+                        "too (default: the config's)")
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     r.set_defaults(fn=cmd_render)
 
@@ -241,7 +271,8 @@ def build_parser():
     f.add_argument("--steps", type=int)
     f.add_argument("--mode", choices=["materials", "geometry", "roughness"],
                    help="materials (default: the config's); the other two "
-                        "need the physical tier, which is not ported yet")
+                        "need the physical tier's gradient, which is not "
+                        "ported yet")
     f.add_argument("--metrics", help="metrics JSONL output path")
     f.add_argument(
         "--engine",

@@ -1,6 +1,7 @@
-// Device functions shared by the reference-tier kernels (render_fwd.cu,
-// render_fused.cu): constants, the PCG stream, the camera, closest hit,
-// the material fetch and one bounce of shading.
+// Device functions shared by the kernels (render_fwd.cu, render_fused.cu,
+// render_phys.cu): constants, the PCG stream, the camera, closest hit, the
+// distance-only scene query, the material fetch and one bounce of the
+// reference tier's shading.
 //
 // They replace the device helpers of path_tracer_c_tpu/ops/pallas_kernels.py
 // (`make_geometry`, `_pcg`, `_uniform`, `_unit_sphere`) and ops/rng.py
@@ -81,11 +82,13 @@ struct Path {
   uint32_t st;
 };
 
-// Closest hit: distance (+inf on a miss), geometric normal, material index.
+// Closest hit: distance (+inf on a miss), geometric normal, material index,
+// and whether a sphere won (read by the physical tier only).
 struct Hit {
   float t;
   float nx, ny, nz;
   int m;
+  bool sphere;
 };
 
 struct Material {
@@ -181,6 +184,52 @@ __device__ __forceinline__ Path start_path(const Params& p, uint32_t pix,
   return q;
 }
 
+// Distance along the ray to sphere row `sp`, +inf where it misses: the
+// half-b quadratic. `dd` is d.d and `invdd` its reciprocal. One definition
+// for the closest-hit scan and the distance-only scan.
+__device__ __forceinline__ float sphere_t(const float* sp, float ox, float oy,
+                                          float oz, float dx, float dy, float dz,
+                                          float dd, float invdd) {
+  const float inf = pos_inf();
+  const float r = sp[3];
+  const float ocx = ox - sp[0], ocy = oy - sp[1], ocz = oz - sp[2];
+  const float h = ocx * dx + ocy * dy + ocz * dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+  const float det = h * h - dd * cq;
+  const float sq = sqrtf(fmaxf(det, 0.0f));
+  const float t1 = (-h - sq) * invdd;
+  const float t2 = (-h + sq) * invdd;
+  float t = t1 >= 0.0f ? t1 : (t2 >= 0.0f ? t2 : inf);
+  if (!(det >= 0.0f && sp[4] > 0.0f)) t = inf;
+  return t;
+}
+
+// Distance along the ray to triangle row `tp`, +inf where it misses:
+// Moller-Trumbore.
+__device__ __forceinline__ float triangle_t(const float* tp, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz) {
+  const float v0x = tp[0], v0y = tp[1], v0z = tp[2];
+  const float e1x = tp[3] - v0x, e1y = tp[4] - v0y, e1z = tp[5] - v0z;
+  const float e2x = tp[6] - v0x, e2y = tp[7] - v0y, e2z = tp[8] - v0z;
+  const float rcx = dy * e2z - dz * e2y;
+  const float rcy = dz * e2x - dx * e2z;
+  const float rcz = dx * e2y - dy * e2x;
+  const float det = e1x * rcx + e1y * rcy + e1z * rcz;
+  const bool nonpar = fabsf(det) >= kTriEps;
+  const float inv = 1.0f / (nonpar ? det : 1.0f);
+  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+  const float u = inv * (sx * rcx + sy * rcy + sz * rcz);
+  const float scx = sy * e1z - sz * e1y;
+  const float scy = sz * e1x - sx * e1z;
+  const float scz = sx * e1y - sy * e1x;
+  const float v = inv * (dx * scx + dy * scy + dz * scz);
+  const float t = inv * (e2x * scx + e2y * scy + e2z * scz);
+  const bool ok = nonpar && u >= kTriEps && u <= 1.0f && v >= kTriEps &&
+                  u + v <= 1.0f && t >= kTriEps && tp[12] > 0.0f;
+  return ok ? t : pos_inf();
+}
+
 // Closest hit: spheres, then triangles; strict < keeps the first.
 __device__ __forceinline__ Hit closest_hit(const Tables& sc, const Path& q) {
   const float inf = pos_inf();
@@ -193,26 +242,18 @@ __device__ __forceinline__ Hit closest_hit(const Tables& sc, const Path& q) {
   int m = 0;
   for (int i = 0; i < sc.n_sph; ++i) {
     const float* sp = sc.sph + i * kSphStride;
-    const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
-    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-    const float h = ocx * dx + ocy * dy + ocz * dz;
-    const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-    const float det = h * h - dd * cq;
-    const float sq = sqrtf(fmaxf(det, 0.0f));
-    const float t1 = (-h - sq) * invdd;
-    const float t2 = (-h + sq) * invdd;
-    float t = t1 >= 0.0f ? t1 : (t2 >= 0.0f ? t2 : inf);
-    if (!(det >= 0.0f && sp[4] > 0.0f)) t = inf;
+    const float t = sphere_t(sp, ox, oy, oz, dx, dy, dz, dd, invdd);
     if (t < best) {
       best = t;
-      bcx = cx;
-      bcy = cy;
-      bcz = cz;
+      bcx = sp[0];
+      bcy = sp[1];
+      bcz = sp[2];
       m = sc.sph_m[i];
     }
   }
+  const bool sphere = best < inf;
   // Sphere normal once, from the winning centre (select, then normalize).
-  const float ts = best < inf ? best : 0.0f;
+  const float ts = sphere ? best : 0.0f;
   float nx = ox + ts * dx - bcx;
   float ny = oy + ts * dy - bcy;
   float nz = oz + ts * dz - bcz;
@@ -221,27 +262,12 @@ __device__ __forceinline__ Hit closest_hit(const Tables& sc, const Path& q) {
   ny *= hn;
   nz *= hn;
 
+  Hit h;
+  h.sphere = sphere;
   for (int i = 0; i < sc.n_tri; ++i) {
     const float* tp = sc.tri + i * kTriStride;
-    const float v0x = tp[0], v0y = tp[1], v0z = tp[2];
-    const float e1x = tp[3] - v0x, e1y = tp[4] - v0y, e1z = tp[5] - v0z;
-    const float e2x = tp[6] - v0x, e2y = tp[7] - v0y, e2z = tp[8] - v0z;
-    const float rcx = dy * e2z - dz * e2y;
-    const float rcy = dz * e2x - dx * e2z;
-    const float rcz = dx * e2y - dy * e2x;
-    const float det = e1x * rcx + e1y * rcy + e1z * rcz;
-    const bool nonpar = fabsf(det) >= kTriEps;
-    const float inv = 1.0f / (nonpar ? det : 1.0f);
-    const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-    const float u = inv * (sx * rcx + sy * rcy + sz * rcz);
-    const float scx = sy * e1z - sz * e1y;
-    const float scy = sz * e1x - sx * e1z;
-    const float scz = sx * e1y - sy * e1x;
-    const float v = inv * (dx * scx + dy * scy + dz * scz);
-    const float t = inv * (e2x * scx + e2y * scy + e2z * scz);
-    const bool ok = nonpar && u >= kTriEps && u <= 1.0f && v >= kTriEps &&
-                    u + v <= 1.0f && t >= kTriEps && tp[12] > 0.0f;
-    if (ok && t < best) {
+    const float t = triangle_t(tp, ox, oy, oz, dx, dy, dz);
+    if (t < best) {
       best = t;
       const float fnx = tp[9], fny = tp[10], fnz = tp[11];
       // Face normal flipped to oppose the ray.
@@ -250,15 +276,31 @@ __device__ __forceinline__ Hit closest_hit(const Tables& sc, const Path& q) {
       ny = sgn * fny;
       nz = sgn * fnz;
       m = sc.tri_m[i];
+      h.sphere = false;
     }
   }
-  Hit h;
   h.t = best;
   h.nx = nx;
   h.ny = ny;
   h.nz = nz;
   h.m = m;
   return h;
+}
+
+// Distance to the closest object along a ray, +inf on a miss: the shadow
+// query, with the per-object tests of closest_hit and no normals.
+__device__ __forceinline__ float closest_t(const Tables& sc, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz) {
+  const float dd = dx * dx + dy * dy + dz * dz;
+  const float invdd = 1.0f / dd;
+  float best = pos_inf();
+  for (int i = 0; i < sc.n_sph; ++i)
+    best = fminf(best, sphere_t(sc.sph + i * kSphStride, ox, oy, oz, dx, dy, dz,
+                                dd, invdd));
+  for (int i = 0; i < sc.n_tri; ++i)
+    best = fminf(best, triangle_t(sc.tri + i * kTriStride, ox, oy, oz, dx, dy, dz));
+  return best;
 }
 
 // Material row `m`; an index outside the table reads as black, ior 1.
@@ -387,6 +429,7 @@ __device__ __forceinline__ int shade(const Hit& h, const Material& mt, Path& q) 
 
 // Sum `value` over the block and add it to *counter: a warp reduction,
 // then one atomicAdd a block. Every thread of the block must call it.
+// Only the counting instantiations of the kernels call it.
 __device__ __forceinline__ void block_add(int value, unsigned long long* counter) {
   __shared__ int warp_sums[32];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -399,6 +442,7 @@ __device__ __forceinline__ void block_add(int value, unsigned long long* counter
     for (int i = 0; i < n_warps; ++i) total += static_cast<unsigned long long>(warp_sums[i]);
     atomicAdd(counter, total);
   }
+  __syncthreads();  // warp_sums is free again: a kernel may add several counts
 }
 
 }  // namespace ptc

@@ -46,7 +46,7 @@ __all__ = [
     "fit_materials",
 ]
 
-_NOT_PORTED = "is not ported to PyTorch yet: see ROADMAP.md A9 (physical tier)"
+_NOT_PORTED = "is not ported to PyTorch yet: see ROADMAP.md A9, second half (B4, B5)"
 
 
 def mse_loss(img, target):
@@ -55,8 +55,8 @@ def mse_loss(img, target):
 
 
 def _resolve_engine(engine: str) -> str:
-    if engine in ("physical", "physical_pallas"):
-        raise NotImplementedError(f"engine {engine!r} {_NOT_PORTED}")
+    if engine in ("physical", "physical_pallas", "physical_core"):
+        raise NotImplementedError(f"the gradient of engine {engine!r} {_NOT_PORTED}")
     if engine in ("auto", "pallas"):
         return "cuda"
     if engine not in ("cuda", "core"):

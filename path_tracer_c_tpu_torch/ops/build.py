@@ -31,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    "--threads", "0",  # the sources compile side by side
 )
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
@@ -48,6 +49,9 @@ _SIGNATURES = {
     # image, Jacobian planes, round counter (or null)
     "render_fused": (_SCENE + [_P, _P, _P] + _RUN, ctypes.c_int),
     "render_fused_max_bounces": ([], ctypes.c_int),
+    # the scene tables, 7 emitter tables (see csrc/render_phys.cu), camera
+    # and sky params, out, round counter (or null), nee, tri_nee
+    "render_phys": (_SCENE[:-1] + [_P] * 7 + [_P, _P, _P, _I, _I] + _RUN, ctypes.c_int),
 }
 
 

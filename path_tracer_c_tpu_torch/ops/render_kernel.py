@@ -228,15 +228,13 @@ def _camera_dir(par, px, py, fw, fh):
     return dx * n, dy * n, dz * n
 
 
-def _closest_hit(sph, sph_m, tri, tri_m, o, d):
-    """Closest hit over all spheres, then all triangles; on a tie the first
-    object wins (the kernel's sequential strict-< scan). Returns (t, normal,
-    material index); t is +inf on a miss."""
+def _sphere_ts(sph, o, d):
+    """Distance of every ray to every sphere, (N, S), +inf where it misses:
+    the half-b quadratic. ``o`` and ``d`` are 3-tuples of (N,) planes."""
     ox, oy, oz = (c[:, None] for c in o)
     dx, dy, dz = (c[:, None] for c in d)
     dd = dx * dx + dy * dy + dz * dz
     invdd = 1.0 / dd
-    # spheres: (N, S) half-b quadratic
     cx, cy, cz, r, act = sph.unbind(1)
     ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
     h = ocx * dx + ocy * dy + ocz * dz
@@ -246,20 +244,14 @@ def _closest_hit(sph, sph_m, tri, tri_m, o, d):
     t1 = (-h - sq) * invdd
     t2 = (-h + sq) * invdd
     t = torch.where(t1 >= 0.0, t1, torch.where(t2 >= 0.0, t2, _INF))
-    t = torch.where((det >= 0.0) & (act > 0.0), t, _INF)
-    best, si = torch.min(t, dim=1)  # first minimum
-    hit = best < _INF
-    # Select, then normalize: the winning sphere's normal, computed once.
-    # Without a sphere hit the kernel keeps a zero centre and material 0.
-    ts = torch.where(hit, best, 0.0)
-    nx = o[0] + ts * d[0] - torch.where(hit, cx[si], 0.0)
-    ny = o[1] + ts * d[1] - torch.where(hit, cy[si], 0.0)
-    nz = o[2] + ts * d[2] - torch.where(hit, cz[si], 0.0)
-    hn = torch.rsqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _N_FLOOR))
-    nx, ny, nz = nx * hn, ny * hn, nz * hn
-    mat = torch.where(hit, sph_m[si], 0)
+    return torch.where((det >= 0.0) & (act > 0.0), t, _INF)
 
-    # triangles: (N, T) Moller-Trumbore
+
+def _triangle_ts(tri, o, d):
+    """Distance of every ray to every triangle, (N, T), +inf where it
+    misses: Moller-Trumbore."""
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
     v0x, v0y, v0z = tri[:, 0], tri[:, 1], tri[:, 2]
     e1x, e1y, e1z = tri[:, 3] - v0x, tri[:, 4] - v0y, tri[:, 5] - v0z
     e2x, e2y, e2z = tri[:, 6] - v0x, tri[:, 7] - v0y, tri[:, 8] - v0z
@@ -278,8 +270,27 @@ def _closest_hit(sph, sph_m, tri, tri_m, o, d):
     tt = inv * (e2x * scx + e2y * scy + e2z * scz)
     ok = (nonpar & (u >= _TRI_EPS) & (u <= 1.0) & (v >= _TRI_EPS)
           & (u + v <= 1.0) & (tt >= _TRI_EPS) & (tri[:, 12] > 0.0))
-    tt = torch.where(ok, tt, _INF)
-    tbest, ti = torch.min(tt, dim=1)
+    return torch.where(ok, tt, _INF)
+
+
+def _closest_hit(sph, sph_m, tri, tri_m, o, d):
+    """Closest hit over all spheres, then all triangles; on a tie the first
+    object wins (the kernel's sequential strict-< scan). Returns (t, normal,
+    material index, whether a sphere won); t is +inf on a miss."""
+    best, si = torch.min(_sphere_ts(sph, o, d), dim=1)  # first minimum
+    hit = best < _INF
+    # Select, then normalize: the winning sphere's normal, computed once.
+    # Without a sphere hit the kernel keeps a zero centre and material 0.
+    cx, cy, cz = sph[:, 0], sph[:, 1], sph[:, 2]
+    ts = torch.where(hit, best, 0.0)
+    nx = o[0] + ts * d[0] - torch.where(hit, cx[si], 0.0)
+    ny = o[1] + ts * d[1] - torch.where(hit, cy[si], 0.0)
+    nz = o[2] + ts * d[2] - torch.where(hit, cz[si], 0.0)
+    hn = torch.rsqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _N_FLOOR))
+    nx, ny, nz = nx * hn, ny * hn, nz * hn
+    mat = torch.where(hit, sph_m[si], 0)
+
+    tbest, ti = torch.min(_triangle_ts(tri, o, d), dim=1)
     upd = tbest < best  # strict: a sphere wins a tie
     fnx, fny, fnz = tri[ti, 9], tri[ti, 10], tri[ti, 11]
     # Face normal flipped to oppose the ray.
@@ -289,7 +300,14 @@ def _closest_hit(sph, sph_m, tri, tri_m, o, d):
     ny = torch.where(upd, sgn * fny, ny)
     nz = torch.where(upd, sgn * fnz, nz)
     mat = torch.where(upd, tri_m[ti], mat)
-    return best, (nx, ny, nz), mat
+    return best, (nx, ny, nz), mat, hit & ~upd
+
+
+def _closest_t(sph, tri, o, d):
+    """Distance to the closest object, +inf on a miss: the shadow query,
+    with the per-object tests of ``_closest_hit`` and no normals."""
+    return torch.minimum(_sphere_ts(sph, o, d).min(dim=1).values,
+                         _triangle_ts(tri, o, d).min(dim=1).values)
 
 
 def _fetch_materials(mat_tab, m):
@@ -309,7 +327,7 @@ def _shade(hit, mats, o, d, thr, rad, st, sky):
     throughput) are updated like live ones; all they add is exact zeros.
     Returns the new origin, direction, throughput, radiance and RNG state,
     and the round's events ``(hit, refracted, died)`` as bool masks."""
-    best, (nx, ny, nz), _ = hit
+    best, (nx, ny, nz) = hit[:2]
     dx, dy, dz = d
     tr, tg, tb = thr
     ar, ag, ab = rad

@@ -5,9 +5,9 @@ render config, or with ``cls=FitConfig`` a fit config, whose ``render``
 block is a render config. Keys
 this package does not know, such as the TPU tile sizes, are ignored, as
 the JAX loader ignores them. The fields for features not ported yet
-(``mesh``, checkpointing, progressive output, ``tri_nee``, ``debug_nans``)
-are kept so that the CLI can refuse a config that sets them, instead of
-silently rendering something else.
+(``mesh``, checkpointing, progressive output, ``debug_nans``) are kept so
+that the CLI can refuse a config that sets them, instead of silently
+rendering something else.
 """
 
 from __future__ import annotations
@@ -40,8 +40,11 @@ class RenderConfig:
     seed: int = 0
     scene: str = "demo"  # name in scene.demo or a scene JSON path
     jitter: bool = False
-    # "cuda" (the hand kernel) | "core" (the eager integrator). "pallas",
-    # the JAX package's name for its kernel engine, means "cuda" here.
+    # Reference tier: "cuda" (the hand kernel) | "core" (the eager
+    # integrator). Physical tier: "physical" (its hand kernel) |
+    # "physical_core" (its eager integrator). "pallas" and
+    # "physical_pallas", the JAX package's names for its kernel engines,
+    # mean "cuda" and "physical" here.
     engine: str = "cuda"
     output: str = "output.bmp"
     mesh: MeshConfig = field(default_factory=MeshConfig)
@@ -49,7 +52,7 @@ class RenderConfig:
     checkpoint_path: str = ""
     debug_nans: bool = False
     progressive: bool = False
-    tri_nee: bool = False
+    tri_nee: bool = False  # physical engines: light-sample emissive triangles too
 
 
 @dataclass

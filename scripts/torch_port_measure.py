@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time of a gradient step of the PyTorch/CUDA port goes, on one
-GPU: a measurement chip_smoke.py does not take.
+"""Where the time of the PyTorch/CUDA port's main paths goes, on one GPU:
+measurements chip_smoke.py does not take.
 
     python3 scripts/torch_port_measure.py
 
 Runs ``torch.profiler`` over (1) ``loss_and_grad`` at the main shape
-(glossy, 1024x1024, 64 spp, 8 bounces) and (2) steps of ``fit_materials``
-at the shape of ``configs/config4_inverse_spheres32.json``, and prints for
-each the device time by kernel, the wall time per step and the share of it
-the device is busy. Every line of results carries the card's name and
-power limit.
+(glossy, 1024x1024, 64 spp, 8 bounces), (2) steps of ``fit_materials`` at
+the shape of ``configs/config4_inverse_spheres32.json`` and (3) the CLI
+``render --config configs/config3_glossy_1024.json`` (the physical tier),
+and prints for each the device time by kernel, the wall time per step and
+the share of it the device is busy; for (3) also the render's stages on
+the host's clock (set-up, kernel, u8 and copy to the host, BMP encode and
+write). Every line of results carries the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,6 +71,37 @@ def profile(fn, steps: int) -> dict:
             "kernels_seen": len(kernels)}
 
 
+def render_stages(cfg, reps: int = 5) -> dict:
+    """Median milliseconds of the stages of one CLI render of ``cfg``, each
+    closed by a device synchronise, on the host's clock."""
+    import torch
+    from path_tracer_c_tpu_torch.app.main import _renderer, get_scene
+    from path_tracer_c_tpu_torch.models.integrator import render_image_u8
+    from path_tracer_c_tpu_torch.ops.camera import Camera
+    from path_tracer_c_tpu_torch.utils import bitmap
+
+    dev = torch.device("cuda", 0)
+    stages = {"setup": [], "kernel": [], "u8_and_copy": [], "bmp_encode_write": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for rep in range(reps + 1):
+            t = [time.perf_counter()]
+            scene, cam = get_scene(cfg.scene, dev), Camera.reference(dev, cfg.fov_deg)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            rad = _renderer(cfg)(scene, cam, cfg.height, cfg.width, cfg.spp, cfg.max_bounces,
+                                 cfg.seed + rep, jitter=cfg.jitter)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            u8 = render_image_u8(rad).cpu().numpy()
+            t.append(time.perf_counter())
+            bitmap.write_bitmap(str(Path(tmp) / "o.bmp"), u8, y_inverted=True)
+            t.append(time.perf_counter())
+            if rep:  # the first is the warm-up
+                for name, a, b in zip(stages, t, t[1:]):
+                    stages[name].append((b - a) * 1e3)
+    return {name: statistics.median(v) for name, v in stages.items()}
+
+
 def main() -> int:
     import torch
 
@@ -103,6 +140,18 @@ def main() -> int:
         fit[key.replace("per_step", "per_fit_step")] = fit.pop(key) / 20
     for key in ("device_ms_by_op", "device_ms_by_kernel"):
         fit[key] = {k: v / 20 for k, v in fit[key].items()}
+    from path_tracer_c_tpu_torch.app.main import main as cli_main
+    from path_tracer_c_tpu_torch.utils.config import RenderConfig
+
+    config3 = REPO / "configs" / "config3_glossy_1024.json"
+    with tempfile.TemporaryDirectory() as tmp:
+        def cli(i):
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_main(["render", "--config", str(config3), "--seed", str(i),
+                          "--out", str(Path(tmp) / "c3.bmp")])
+        result["cli_render_config3"] = profile(cli, steps=5)
+    result["cli_render_config3"]["stage_ms"] = render_stages(load(config3, RenderConfig))
+
     for name, r in result.items():
         if name != "card":
             print(f"{name} [{card}]: {json.dumps(r)}", flush=True)

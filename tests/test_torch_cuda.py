@@ -21,6 +21,7 @@ import torch
 import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.ops import render_grad as rg
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
+from path_tracer_c_tpu_torch.ops import render_physical as rp
 from path_tracer_c_tpu_torch.scene import demo as pdemo
 
 pytestmark = pytest.mark.cuda
@@ -147,3 +148,79 @@ def test_fused_kernel_rejects_bad_inputs(cuda_device):
     assert rg.render_fused.launches == launches
     img, _ = rg.render_fused(scene, cam, 8, 8, 1, rg.MAX_BOUNCES, 0)  # the cap itself runs
     assert torch.equal(img, rk.render_kernel(scene, cam, 8, 8, 1, rg.MAX_BOUNCES, 0))
+
+
+# -- the physical tier's forward kernel ------------------------------------------
+
+
+def assert_close_physical(a, b):
+    """tests/test_pallas_physical.py's tolerance for kernel against core."""
+    err = (a.double().cpu() - b.double().cpu()).abs().flatten()
+    assert a.shape == b.shape and bool(torch.isfinite(err).all())
+    assert float(torch.quantile(err, 0.99)) < 1e-4
+    assert float((err > 1e-3).double().mean()) < 0.01
+    assert abs(float(a.double().mean()) - float(b.double().mean())) < 2e-3
+
+
+def tri_light_mixed_scene(device):
+    """A triangle ceiling light, a sphere light and diffuse content: the
+    mixed emitter pool of tests/test_pallas_physical.py."""
+    b = P.SceneBuilder(sky_color=(0.01, 0.01, 0.02))
+    ground = b.add_material(albedo=(0.6, 0.55, 0.5), roughness=1.0)
+    lamp = b.add_material(albedo=(0.0, 0.0, 0.0), emission_color=(1.0, 0.9, 0.7),
+                          emission_strength=20.0)
+    slamp = b.add_material(albedo=(0.0, 0.0, 0.0), emission_color=(0.8, 0.9, 1.0),
+                           emission_strength=8.0)
+    ball = b.add_material(albedo=(0.7, 0.3, 0.3), roughness=1.0)
+    b.add_triangle(v0=(-40, -1, -40), v1=(40, -1, -40), v2=(40, -1, 40), material=ground)
+    b.add_triangle(v0=(-40, -1, -40), v1=(-40, -1, 40), v2=(40, -1, 40), material=ground)
+    b.add_triangle(v0=(-1.0, 3.0, 4.0), v1=(1.0, 3.0, 4.0), v2=(1.0, 3.0, 6.0), material=lamp)
+    b.add_triangle(v0=(-1.0, 3.0, 4.0), v1=(-1.0, 3.0, 6.0), v2=(1.0, 3.0, 6.0), material=lamp)
+    b.add_sphere(center=(0.0, -0.3, 5.0), radius=0.7, material=ball)
+    b.add_sphere(center=(2.0, 2.0, 3.5), radius=0.4, material=slamp)
+    return b.build(device)
+
+
+@pytest.mark.parametrize("name, kw", [
+    ("cornell_spheres_scene", {}),
+    ("glossy_scene", dict(sample_offset=3)),
+    ("diffuse_sphere_scene", {}),  # no emitter: the pick is clamped, the term masked
+    ("cornell_spheres_scene", dict(nee=False)),
+    ("cornell_spheres_scene", dict(jitter=False)),
+    ("tri_light", dict(tri_nee=True, jitter=False)),
+    ("tri_light", dict(tri_nee=False)),
+    ("glossy_scene", dict(tri_nee=True)),  # the flag with no emissive triangle
+])
+def test_physical_kernel_matches_twin(cuda_device, name, kw):
+    """The kernel ends a path at zero throughput and skips light samples
+    that cannot count; the twin runs every round of every path and masks.
+    Equal images show that what the kernel skips adds exact zeros."""
+    scene = (tri_light_mixed_scene(cuda_device) if name == "tri_light"
+             else getattr(pdemo, name)(cuda_device))
+    cam = P.Camera.reference(cuda_device)
+    launches = rp.render_physical_kernel.launches
+    args = (scene, cam, 100, 160, 4, 6, 7)
+    k, n = rp.render_physical_kernel(*args, count_rounds=True, **kw)
+    r, n_twin = rp.render_physical_kernel_reference(*args, count_rounds=True, **kw)
+    assert k.device == cuda_device and k.shape == (100, 160, 3)
+    assert_close_physical(k, r)
+    assert torch.equal(k, rp.render_physical_kernel(*args, **kw))
+    assert n == n_twin and 0 < n <= 100 * 160 * 4 * 7
+    events = rp.render_physical_kernel(*args, count_events=True, **kw)[1]
+    assert events == rp.render_physical_kernel_reference(*args, count_events=True, **kw)[1]
+    assert events["rounds"] == n
+    assert rp.render_physical_kernel.launches == launches + 3
+    # the chain to the twin on the CPU
+    cpu_scene = (tri_light_mixed_scene("cpu") if name == "tri_light"
+                 else getattr(pdemo, name)("cpu"))
+    cpu = rp.render_physical_kernel_reference(cpu_scene, P.Camera.reference("cpu"),
+                                              24, 40, 2, 4, 5, **kw)
+    assert_close_physical(rp.render_physical_kernel(scene, cam, 24, 40, 2, 4, 5, **kw), cpu)
+
+
+def test_physical_kernel_rejects_mixed_devices(cuda_device):
+    scene = pdemo.cornell_spheres_scene(cuda_device)
+    launches = rp.render_physical_kernel.launches
+    with pytest.raises(ValueError):
+        rp.render_physical_kernel(scene, P.Camera.reference("cpu"), 8, 8, 1, 1, 0)
+    assert rp.render_physical_kernel.launches == launches
