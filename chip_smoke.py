@@ -45,7 +45,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    configs/config3_glossy_1024.json`` (glossy, 1024x1024, 64 spp, 8
    bounces, engine "physical"). The kernel's launch count must grow; the
    BMP is decoded and checked.
-10. times: the three kernels, the contraction, the twins and one fit step,
+10. fused physical kernel against its plain twin: ``render_physical_fused``'s
+   image must equal ``render_physical_kernel``'s and its twin's bit for bit,
+   and every plane of its three families (materials and sky, sphere-emitter
+   geometry, triangle-emitter vertices) its twin's value for value, on
+   cornell, glossy, the mixed and black scenes and the triangle-and-sphere-lit
+   scene, with next-event estimation off, jitter on and off, a sample offset,
+   ``rough_grad``, caps below, at and above the live emitter counts; the
+   counted rounds and valid light samples must equal the twin's.
+11. two-pass kernel against its plain twin and against the fused kernel's
+   contraction, at the tolerance stated at ``BWD_RTOL``; then
+   ``render_physical_kernel_vjp`` + ``backward`` against ``torch.autograd``
+   through the eager physical tier.
+12. the physical gradient's main path at full width (glossy, 1024x1024, 64
+   spp, 8 bounces): ``loss_and_grad(engine="physical_pallas")`` (no geometry
+   planes), ``render_physical_kernel_vjp`` with jitter on and the emitter cap
+   at the scene's live emitter count plus ``backward``, and
+   ``render_physical_bwd`` once; both kernels against their twins at that
+   shape; then the CLI ``fit --mode geometry``, ``fit --mode roughness`` and
+   ``fit``, each with ``--engine physical_pallas``, on a small scene and
+   configs the script writes: every step must go through the fused kernel,
+   the loss must fall, and the printed error of the geometry and roughness
+   fits must end below the start's.
+13. times: the five kernels, the contractions, the twins and one fit step,
    with CUDA events, and each kernel's bound from this run's executed
    rounds and events.
 
@@ -119,6 +141,29 @@ OPS_SPHERE, OPS_TRIANGLE, OPS_HIT_REST, OPS_SHADE, OPS_SWEEP = 29, 61, 25, 138, 
 # min per object, the visibility compare).
 OPS_PHYS_HIT, OPS_PHYS_DIFFUSE, OPS_PHYS_MIRROR, OPS_PHYS_LIGHT, OPS_PHYS_SHADOW_REST = (
     54, 65, 9, 139, 10)
+# The physical gradient kernels (csrc/render_phys_fused.cu,
+# csrc/render_phys_bwd.cu, csrc/pt_phys.cuh), counted the same way. The fused
+# kernel: one swept hit (the suffix, the albedo, emission and transparency
+# planes' weights and adds, the carry), what a valid light sample adds to it
+# (nee and emw and the emitter's three adds), what rough_grad adds (drg, three
+# products, three adds); the cone chain's adjoint (69 forward, 111 back; the
+# triangle chain's is 72 and 111) and the 12 products and adds into the
+# planes with the closure's 9. The two-pass kernel: one swept hit with its
+# cotangent terms, what a valid light sample adds, and the geometry term
+# beside the adjoint.
+OPS_PF_SWEEP, OPS_PF_SWEEP_VALID, OPS_PF_SWEEP_ROUGH = 27, 18, 9
+OPS_CONE_ADJOINT, OPS_PF_GEO_PLANES = 180, 33
+OPS_PB_SWEEP, OPS_PB_SWEEP_VALID, OPS_PB_GEO = 43, 27, 20
+# The two-pass kernel reduces with float atomics in an order that changes
+# from run to run; its twin reduces in float64. Both, and the fused kernel's
+# contraction (float32 matrix-vector products), are held together at the JAX
+# suite's gate between its two schemes: rtol 2e-4, with an absolute floor of
+# 1e-6 of the leaf's largest entry.
+BWD_RTOL, BWD_ATOL_SCALE = 2e-4, 1e-6
+# The physical gradient against autograd through the eager physical tier:
+# the JAX suite's gates for the same comparison (rtol 5e-3, atol 3e-5; the
+# black light's geometry rtol 5e-3 with a floor of 1e-4 of its largest entry).
+PHYS_GRAD_RTOL, PHYS_GRAD_ATOL = 5e-3, 3e-5
 
 
 def log(msg: str) -> None:
@@ -293,31 +338,110 @@ def bound_ms(scene, height, width, spp, rounds, fused: bool):
     if fused:
         ops += hit_rounds * OPS_SWEEP
         nbytes += 4 * (9 * scene.num_materials + 3) * height * width
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound_of(ops, nbytes)
 
 
-def bound_physical_ms(scene, height, width, spp, events):
-    """The physical kernel's bound, as ``bound_ms``: every round scans the
-    scene once, at least ``rounds - H W spp`` rounds hit and shade, a
-    diffuse vertex takes the cosine-weighted direction and any other at
-    least the mirror's, and the light samples and shadow scans are those
-    this run's data asked for (``count_events``). Bytes: the reference
-    tier's tables, the emitter tables (5 words a sphere, 5 a triangle, 1 a
-    material, 2 counts) and the image."""
+def physical_ops(scene, height, width, spp, events) -> float:
+    """Float32 operations of the physical kernel's forward rounds: every
+    round scans the scene once, at least ``rounds - H W spp`` rounds hit and
+    shade, a diffuse vertex takes the cosine-weighted direction and any other
+    at least the mirror's, and the light samples and shadow scans are those
+    this run's data asked for (``count_events``)."""
     scan = scene.num_spheres * OPS_SPHERE + scene.num_triangles * OPS_TRIANGLE
     hit_rounds = max(events["rounds"] - height * width * spp, 0)
     diffuse = events["diffuse_vertices"]
-    ops = (events["rounds"] * (scan + OPS_HIT_REST) + hit_rounds * OPS_PHYS_HIT
-           + diffuse * OPS_PHYS_DIFFUSE + max(hit_rounds - diffuse, 0) * OPS_PHYS_MIRROR
-           + events["light_samples"] * OPS_PHYS_LIGHT
-           + events["shadow_scans"] * (scan + scene.num_spheres + scene.num_triangles
-                                       + OPS_PHYS_SHADOW_REST))
-    tables = 4 * (11 * scene.num_spheres + 19 * scene.num_triangles
-                  + 10 * scene.num_materials + 19)
-    nbytes = tables + 12 * height * width
+    return (events["rounds"] * (scan + OPS_HIT_REST) + hit_rounds * OPS_PHYS_HIT
+            + diffuse * OPS_PHYS_DIFFUSE + max(hit_rounds - diffuse, 0) * OPS_PHYS_MIRROR
+            + events["light_samples"] * OPS_PHYS_LIGHT
+            + events["shadow_scans"] * (scan + scene.num_spheres + scene.num_triangles
+                                        + OPS_PHYS_SHADOW_REST))
+
+
+def bound_of(ops: float, nbytes: float):
+    """``(milliseconds, "operations" or "bytes")``: the larger of the two
+    times at the published peaks."""
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def physical_table_bytes(scene, words_per_material: int = 10) -> int:
+    """The reference tier's tables and the emitter tables (5 words a sphere,
+    5 a triangle, 1 a material, 2 counts)."""
+    return 4 * (11 * scene.num_spheres + 19 * scene.num_triangles
+                + words_per_material * scene.num_materials + 19)
+
+
+def bound_physical_ms(scene, height, width, spp, events):
+    """The physical kernel's bound, as ``bound_ms``, from ``physical_ops``.
+    Bytes: the tables and the image."""
+    return bound_of(physical_ops(scene, height, width, spp, events),
+                    physical_table_bytes(scene) + 12 * height * width)
+
+
+def bound_physical_fused_ms(scene, height, width, spp, events, fwd_events, n_planes,
+                            geom: bool, rough: bool):
+    """The fused physical kernel's bound: the forward kernel's operations for
+    the rounds this kernel ran (the forward kernel's own events at the same
+    seed count the diffuse vertices, light samples and shadow scans: the two
+    run the same rounds wherever no albedo is exactly black), one sweep per
+    hit round, the light sample's sweep terms and, with geometry planes, the
+    weight chain's adjoint per valid light sample (``count_events``). Bytes:
+    the forward kernel's, plus every plane once."""
+    hit_rounds = max(events["rounds"] - height * width * spp, 0)
+    valid = events["valid_samples"]
+    ops = (physical_ops(scene, height, width, spp, {**fwd_events, "rounds": events["rounds"]})
+           + hit_rounds * (OPS_PF_SWEEP + (OPS_PF_SWEEP_ROUGH if rough else 0))
+           + valid * (OPS_PF_SWEEP_VALID + ((OPS_CONE_ADJOINT + OPS_PF_GEO_PLANES) if geom else 0)))
+    return bound_of(ops, physical_table_bytes(scene) + (12 + 4 * n_planes) * height * width)
+
+
+def bound_physical_bwd_ms(scene, height, width, spp, events, fwd_events, n_em_cap: int):
+    """The two-pass kernel's bound: as the fused kernel's, with its own sweep
+    terms; it runs the fused kernel's rounds. Bytes: the tables with the raw
+    emission colours, the image's cotangent once, the two small outputs."""
+    hit_rounds = max(events["rounds"] - height * width * spp, 0)
+    valid = events["valid_samples"]
+    ops = (physical_ops(scene, height, width, spp, {**fwd_events, "rounds": events["rounds"]})
+           + hit_rounds * OPS_PB_SWEEP
+           + valid * (OPS_PB_SWEEP_VALID + ((OPS_CONE_ADJOINT + OPS_PB_GEO) if n_em_cap else 0)))
+    nbytes = (physical_table_bytes(scene, 13) + 12 * height * width
+              + 4 * (8 * (scene.num_materials + 1) + 4 * max(n_em_cap, 1)))
+    return bound_of(ops, nbytes)
+
+
+def light_fit_scene(pt, dev):
+    """A black sphere light over a mostly diffuse sphere and ground under a
+    black sky: the scene of the three CLI fits (the light-recovery scene of
+    tests/test_pallas_physical.py with every material's roughness set; a
+    black light's geometry gradient is the light sample's chain, whole, and
+    its roughness, which no path can see, is the value the fit starts
+    from)."""
+    b = pt.SceneBuilder(sky_color=(0.0, 0.0, 0.0))
+    light = b.add_material(albedo=(0.0, 0.0, 0.0), roughness=0.5, emission_color=(1.0, 0.9, 0.8),
+                           emission_strength=10.0)
+    ball = b.add_material(albedo=(0.7, 0.5, 0.4), roughness=0.8)
+    ground = b.add_material(albedo=(0.4, 0.35, 0.3), roughness=0.9)
+    b.add_sphere(center=(1.5, 2.4, 4.0), radius=0.45, material=light)
+    b.add_sphere(center=(0.0, -0.2, 5.0), radius=1.0, material=ball)
+    b.add_triangle(v0=(-50, -1.2, -50), v1=(50, -1.2, -50), v2=(50, -1.2, 50), material=ground)
+    b.add_triangle(v0=(-50, -1.2, -50), v1=(-50, -1.2, 50), v2=(50, -1.2, 50), material=ground)
+    return b.build(dev)
+
+
+def compare_cotangents(a, b, leaves, what: str) -> float:
+    """The largest |a - b| over the leaves of two scene cotangents, relative
+    to each leaf's largest entry; raises outside BWD_RTOL / BWD_ATOL_SCALE."""
+    import torch
+
+    worst = 0.0
+    for table, name in leaves:
+        x, y = (getattr(getattr(d, table) if table else d, name) for d in (a, b))
+        scale = max(float(y.abs().max()), 1.0)
+        worst = max(worst, float((x - y).abs().max()) / scale)
+        torch.testing.assert_close(x, y, rtol=BWD_RTOL, atol=BWD_ATOL_SCALE * scale,
+                                   msg=lambda m: f"{what} d_{name}: {m}")
+    log(f"  {what}: largest |delta| / leaf scale {worst:.3g}")
+    return worst
 
 
 def main() -> int:
@@ -334,6 +458,8 @@ def main() -> int:
     from path_tracer_c_tpu_torch.ops import render_grad as rg
     from path_tracer_c_tpu_torch.ops import render_kernel as rk
     from path_tracer_c_tpu_torch.ops import render_physical as rp
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+    from path_tracer_c_tpu_torch.scene.io import save_scene
     from path_tracer_c_tpu_torch.utils.bitmap import bitmap_bytes
     from path_tracer_c_tpu_torch.utils.config import FitConfig, RenderConfig, load
     from path_tracer_c_tpu_torch.utils.metrics import rays_per_render
@@ -591,7 +717,219 @@ def main() -> int:
     log(f"physical main path: BMP {len(data)} bytes, {W}x{H}, decoded and checked")
     del rad
 
-    # -- 10. times and bounds --
+    # -- 10. fused physical kernel against its plain twin --
+    log("fused physical kernel: image vs render_physical_kernel, image and planes vs plain twin "
+        "(all must be equal):")
+    fwd_keys = ("nee", "tri_nee", "jitter", "sample_offset")
+    pf_cases = [
+        ("cornell_spheres_scene", {}), ("glossy_scene", dict(n_em_cap=1)),
+        ("cornell_spheres_scene", dict(nee=False, n_em_cap=1)),
+        ("glossy_scene", dict(jitter=False, sample_offset=3, rough_grad=True)),
+        ("tri_light_scene", dict(tri_nee=True, n_em_cap=1, tri_em_cap=2, rough_grad=True)),
+        ("tri_light_scene", dict(tri_nee=True, n_em_cap=3, tri_em_cap=1, jitter=False)),
+        ("mixed_scene", dict(tri_nee=True, n_em_cap=1, tri_em_cap=1, sample_offset=64)),
+        ("black_albedo_scene", dict(n_em_cap=1)),
+    ]
+    pf_err = 0.0
+    for name, kw in pf_cases:
+        args = (phys_scenes[name], cam, 100, 160, 4, 8, 7)
+        what = f"{name} 100x160 4spp 8b {kw}"
+        out = pg.render_physical_fused(*args, count_events=True, **kw)
+        ref = pg.render_physical_fused_reference(*args, count_events=True, **kw)
+        fwd_kw = {k: v for k, v in kw.items() if k in fwd_keys}
+        b3, n_fwd = rp.render_physical_kernel(*args, count_rounds=True, **fwd_kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out[0], b3):
+            raise AssertionError(f"{what}: fused image differs from render_physical_kernel's")
+        compare_exact(out[0], ref[0], what + " image")
+        families = (["material and sky planes"] + ["sphere planes"] * bool(kw.get("n_em_cap"))
+                    + ["vertex planes"] * bool(kw.get("tri_em_cap")))
+        for family, a, b in zip(families, out[1:-1], ref[1:-1]):
+            pf_err = max(pf_err, compare_exact(a, b, f"{what} {family} {tuple(a.shape)}"))
+        if out[-1] != ref[-1] or out[-1]["rounds"] < n_fwd:
+            raise AssertionError(f"{what}: events {out[-1]}, twin {ref[-1]}, forward rounds {n_fwd}")
+        if not all(torch.equal(a, b) for a, b in zip(pg.render_physical_fused(*args, **kw), out)):
+            raise AssertionError(f"{what}: the counting instantiation's outputs differ")
+        log(f"    events {out[-1]} (forward kernel: {n_fwd} rounds), equal to the twin's")
+
+    # -- 11. two-pass kernel against its twin and the fused contraction; the
+    # gradient against autograd --
+    log(f"two-pass kernel vs plain twin and vs the fused kernel's contraction (rtol {BWD_RTOL}, "
+        f"atol {BWD_ATOL_SCALE} of the leaf's largest entry):")
+    pb_leaves = [lf for lf in pg._GRAD_LEAVES if lf[0] != "triangles" and lf[1] != "roughness"]
+    g_small = torch.randn((100, 160, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    pb_err = 0.0
+    for name, kw in (("cornell_spheres_scene", {}), ("glossy_scene", dict(n_em_cap=1, sample_offset=3)),
+                     ("cornell_spheres_scene", dict(nee=False)),
+                     ("tri_light_scene", dict(tri_nee=True, n_em_cap=2, jitter=False)),
+                     ("black_albedo_scene", dict(n_em_cap=1))):
+        scene = phys_scenes[name]
+        what = f"{name} 100x160 4spp 8b {kw}"
+        d5 = pg.render_physical_bwd(scene, cam, g_small, 100, 160, 4, 8, 7, **kw)
+        r5 = pg.render_physical_bwd_reference(scene, cam, g_small, 100, 160, 4, 8, 7, **kw)
+        cap = kw.get("n_em_cap", min(scene.num_spheres, 8)) if kw.get("nee", True) else 0
+        out = pg.render_physical_fused(scene, cam, 100, 160, 4, 8, 7, n_em_cap=cap,
+                                       **{k: v for k, v in kw.items() if k != "n_em_cap"})
+        d4 = pg.contract_physical_jacobian(scene, out[1], g_small, 4, jac_geo=out[2] if cap else None)
+        pb_err = max(pb_err, compare_cotangents(d5, r5, pb_leaves, what + " vs twin"))
+        compare_cotangents(d5, d4, pb_leaves, what + " vs fused contraction")
+        if any(bool(t.any()) for t in (d5.triangles.v0, d5.triangles.v1, d5.triangles.v2,
+                                       d5.materials.roughness)):
+            raise AssertionError(f"{what}: a cotangent outside the two-pass contract is not zero")
+    log("physical gradient: render_physical_kernel_vjp + backward vs autograd through the eager tier:")
+    g = torch.randn((32, 64, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    tri_scene = phys_scenes["tri_light_scene"]
+    grads = []
+    for render in (pg.render_physical_kernel_vjp, pt.render_physical):
+        leaves = [x.clone().requires_grad_() for x in pg._grad_leaves(tri_scene)]
+        img = render(pg._with_leaves(tri_scene, leaves), cam, 32, 64, 4, 3, 7, jitter=False)
+        grads.append(torch.autograd.grad(img, leaves, g, allow_unused=True))
+    for (_, leaf), a, b in zip(pg._GRAD_LEAVES, *grads):
+        if leaf in ("center", "radius"):  # the black sphere light is sphere 1
+            torch.testing.assert_close(a[1], b[1], rtol=PHYS_GRAD_RTOL,
+                                       atol=1e-4 * float(b[1].abs().max()),
+                                       msg=lambda m: f"tri_light_scene d_{leaf}: {m}")
+        elif leaf in ("albedo", "emission_color", "emission_strength", "transparency", "sky_color"):
+            torch.testing.assert_close(a, b, rtol=PHYS_GRAD_RTOL, atol=PHYS_GRAD_ATOL,
+                                       msg=lambda m: f"tri_light_scene d_{leaf}: {m}")
+    log(f"  tri_light_scene 32x64 4spp 3b: materials, sky and the sphere light's centre and radius "
+        f"within rtol {PHYS_GRAD_RTOL}")
+
+    # -- 12. the physical gradient's main path --
+    n_live = rp.live_emitter_count(glossy)
+    phys_target = rp.render_physical_kernel(glossy, cam, H, W, SPP, BOUNCES, 12345, jitter=False)
+    pg.render_physical_fused.launches = pg.render_physical_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    loss, d_scene = diff.loss_and_grad(glossy, phys_target, cam, H, W, SPP, BOUNCES, 1,
+                                       engine="physical_pallas")
+    torch.cuda.synchronize()
+    plg_launches = pg.render_physical_fused.launches
+    peak_lg = torch.cuda.max_memory_allocated()
+    dm = d_scene.materials
+    log(f"physical gradient main path: loss_and_grad(engine='physical_pallas') launched "
+        f"render_physical_fused {plg_launches} time(s), loss {float(loss):.4e}, "
+        f"|d_albedo| {float(dm.albedo.abs().sum()):.4e}, "
+        f"|d_emission_strength| {float(dm.emission_strength.abs().sum()):.4e}, "
+        f"peak memory {peak_lg / 2**20:.0f} MiB")
+    if plg_launches != 1:
+        raise AssertionError("loss_and_grad did not go through the fused physical kernel once")
+    for name, x in (("albedo", dm.albedo), ("emission_color", dm.emission_color),
+                    ("emission_strength", dm.emission_strength), ("sky_color", d_scene.sky_color)):
+        if not (bool(torch.isfinite(x).all()) and bool(x.any())):
+            raise AssertionError(f"physical d_{name} is not finite and nonzero")
+    if any(bool(x.any()) for x in (dm.roughness, dm.metallicity, dm.refractive_index,
+                                   d_scene.spheres.center, d_scene.triangles.v0)):
+        raise AssertionError("a physical cotangent that is zero by contract is not zero")
+    del d_scene, dm, phys_target
+
+    # The user's call with geometry: jitter on, the cap at the live emitter count.
+    g_main = torch.randn((H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    leaves = [x.clone().requires_grad_() for x in pg._grad_leaves(glossy)]
+    torch.cuda.reset_peak_memory_stats()
+    img = pg.render_physical_kernel_vjp(pg._with_leaves(glossy, leaves), cam, H, W, SPP, BOUNCES, 1,
+                                        n_em_cap=n_live)
+    vjp_grads = torch.autograd.grad(img, leaves, g_main, allow_unused=True)
+    torch.cuda.synchronize()
+    pvjp_launches = pg.render_physical_fused.launches - plg_launches
+    peak_geo = torch.cuda.max_memory_allocated()
+    d_vjp = pg._with_leaves(rg.zeros_like_scene(glossy),
+                            [torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, vjp_grads)])
+    log(f"physical gradient main path: render_physical_kernel_vjp(n_em_cap={n_live}) + backward "
+        f"launched render_physical_fused {pvjp_launches} time(s), "
+        f"|d_center| {float(d_vjp.spheres.center.abs().sum()):.4e}, "
+        f"|d_radius| {float(d_vjp.spheres.radius.abs().sum()):.4e}, peak memory {peak_geo / 2**20:.0f} MiB")
+    if pvjp_launches != 1 or not torch.equal(img.detach(), rp.render_physical_kernel(
+            glossy, cam, H, W, SPP, BOUNCES, 1)):
+        raise AssertionError("render_physical_kernel_vjp: launches or image")
+    live_mask = torch.from_numpy(rp.live_emitter_mask(glossy)).to(dev)
+    if not bool(d_vjp.spheres.center[live_mask].any()) or bool(d_vjp.spheres.center[~live_mask].any()):
+        raise AssertionError("emitter geometry cotangents: the emitters' must be nonzero, the others' zero")
+    del img, leaves, vjp_grads
+
+    # The oracle at the same shape, against the fused path's cotangents.
+    d5 = pg.render_physical_bwd(glossy, cam, g_main, H, W, SPP, BOUNCES, 1, n_em_cap=n_live)
+    torch.cuda.synchronize()
+    pbwd_launches = pg.render_physical_bwd.launches
+    if pbwd_launches != 1:
+        raise AssertionError("render_physical_bwd did not launch its kernel once")
+    log(f"physical gradient main path: render_physical_bwd launched its kernel {pbwd_launches} time(s)")
+    compare_cotangents(d5, d_vjp, pb_leaves, f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b two-pass vs fused path")
+
+    # Both kernels against their twins at the main shape; the twins' one run timed.
+    geo_kw = dict(n_em_cap=n_live)
+    pf_main = pg.render_physical_fused(glossy, cam, H, W, SPP, BOUNCES, 1, count_events=True, **geo_kw)
+    pf_events = pf_main[-1]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    pf_twin = pg.render_physical_fused_reference(glossy, cam, H, W, SPP, BOUNCES, 1,
+                                                 count_events=True, **geo_kw)
+    end.record()
+    torch.cuda.synchronize()
+    pf_twin_ms = start.elapsed_time(end)
+    where_main = f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b {geo_kw} (main shape)"
+    compare_exact(pf_main[0], pf_twin[0], where_main + " image")
+    pf_err = max(pf_err, compare_exact(pf_main[1], pf_twin[1], where_main + " material and sky planes"))
+    pf_err = max(pf_err, compare_exact(pf_main[2], pf_twin[2], where_main + " sphere planes"))
+    if pf_events != pf_twin[-1]:
+        raise AssertionError(f"main shape: fused events {pf_events}, twin {pf_twin[-1]}")
+    log(f"    events {pf_events}, equal to the twin's; the forward kernel ran "
+        f"{phys_events['rounds']} rounds")
+    del pf_main, pf_twin
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    r5 = pg.render_physical_bwd_reference(glossy, cam, g_main, H, W, SPP, BOUNCES, 1, **geo_kw)
+    end.record()
+    torch.cuda.synchronize()
+    pb_twin_ms = start.elapsed_time(end)
+    pb_err = max(pb_err, compare_cotangents(d5, r5, pb_leaves, where_main + " two-pass vs twin"))
+    del d5, r5, d_vjp
+
+    # The three CLI fits on the fused physical kernel, on a scene and configs
+    # written here.
+    cli_fits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = Path(tmp) / "light_fit_scene.json"
+        fit_scene = light_fit_scene(pt, "cpu")
+        save_scene(scene_path, fit_scene)
+        fit_steps = 60
+        cfg_path = Path(tmp) / "fit.json"
+        cfg_path.write_text(json.dumps({
+            "render": {"width": 128, "height": 128, "spp": 32, "max_bounces": 3,
+                       "scene": str(scene_path), "engine": "physical_pallas", "seed": 0},
+            "steps": fit_steps, "lr": 0.03}))
+        # What each fit's printed error is at its start: the light moved by
+        # 0.3 at most, every roughness set to 0.5. The material fit also sets
+        # every emission strength to 0.1, which 60 steps do not undo, so its
+        # albedo error is held to be finite and its loss to fall, as the
+        # reference tier's CLI fit above.
+        start_err = {"geometry": 0.3,
+                     "roughness": float((fit_scene.materials.roughness - 0.5).abs().max()),
+                     "materials": float("inf")}
+        for mode in ("geometry", "roughness", "materials"):
+            buf = io.StringIO()
+            pg.render_physical_fused.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli_main(["fit", "--config", str(cfg_path), "--mode", mode])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            line = buf.getvalue().strip().splitlines()[-1]
+            launches = pg.render_physical_fused.launches
+            log(f"physical gradient main path: CLI `fit --mode {mode} --engine physical_pallas` "
+                f"({fit_steps} steps, {seconds:.1f} s, render_physical_fused launched {launches} "
+                f"time(s)): {line}")
+            m = re.search(r"loss ([\d.e+-]+) -> ([\d.e+-]+), max [a-z -]+ err ([\d.]+)$", line)
+            if m is None or "physical_pallas" not in line and mode != "materials":
+                raise AssertionError(f"fit --mode {mode}: the line did not parse")
+            first, last, err = (float(x) for x in m.groups())
+            if launches != fit_steps:
+                raise AssertionError(f"fit --mode {mode}: {launches} launches in {fit_steps} steps")
+            if not (err < start_err[mode] and last < first):
+                raise AssertionError(f"fit --mode {mode}: loss {first} -> {last}, error {err}, "
+                                     f"at the start {start_err[mode]}")
+            cli_fits[mode] = launches
+
+    # -- 13. times and bounds --
     rays = rays_per_render(H, W, SPP, BOUNCES)
     _, fwd_rounds = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 1, count_rounds=True)
     _, _, fus_rounds = rg.render_fused(glossy, cam, H, W, SPP, BOUNCES, 1, count_rounds=True)
@@ -604,6 +942,20 @@ def main() -> int:
     fus_ms = median_ms(fus)
     phy_ms = median_ms(phy)
     fwd_ms2 = median_ms(fwd)
+    pf = lambda **kw: (lambda seed: pg.render_physical_fused(glossy, cam, H, W, SPP, BOUNCES, seed, **kw))
+    pf_ms = median_ms(pf())
+    pf_geo_ms = median_ms(pf(**geo_kw))
+    pf_rough_ms = median_ms(pf(rough_grad=True))
+    pf_nojit_ms = median_ms(pf(jitter=False))
+    phy_ms2 = median_ms(phy)
+    pb_ms = median_ms(lambda seed: pg._grad_leaves(pg.render_physical_bwd(
+        glossy, cam, g_main, H, W, SPP, BOUNCES, seed, **geo_kw))[:8])
+    pf_out = pg.render_physical_fused(glossy, cam, H, W, SPP, BOUNCES, 1, **geo_kw)
+    pcon_ms = median_ms(lambda seed: pg._grad_leaves(
+        pg.contract_physical_jacobian(glossy, pf_out[1], g_main, SPP))[:6])
+    pcon_geo_ms = median_ms(lambda seed: pg._grad_leaves(
+        pg.contract_physical_jacobian(glossy, pf_out[1], g_main, SPP, jac_geo=pf_out[2]))[:8])
+    del pf_out
     fwd_twin_ms = median_ms(
         lambda seed: rk.render_kernel_reference(glossy, cam, H, W, SPP, BOUNCES, seed))
     fus_twin_ms = time_cuda(
@@ -624,21 +976,42 @@ def main() -> int:
     fwd_bound, fwd_by = bound_ms(glossy, H, W, SPP, fwd_rounds, fused=False)
     fus_bound, fus_by = bound_ms(glossy, H, W, SPP, fus_rounds, fused=True)
     phy_bound, phy_by = bound_physical_ms(glossy, H, W, SPP, phys_events)
+    n_planes = 9 * glossy.num_materials + 3 + 12 * n_live
+    pf_bound, pf_by = bound_physical_fused_ms(glossy, H, W, SPP, pf_events, phys_events,
+                                              n_planes, geom=True, rough=False)
+    pb_bound, pb_by = bound_physical_bwd_ms(glossy, H, W, SPP, pf_events, phys_events, n_live)
     where = f"glossy {H}x{W} {SPP}spp {BOUNCES}b"
     for what, ms in (("forward kernel", fwd_ms), ("forward kernel, again after the others",
                                                    fwd_ms2),
                      ("forward plain twin", fwd_twin_ms), ("fused kernel", fus_ms),
                      ("fused plain twin (one run)", fus_twin_ms),
                      (f"physical kernel {phys_kw}", phy_ms),
-                     ("physical plain twin (one run)", phys_twin_ms)):
+                     ("physical kernel, again after the fused physical kernel", phy_ms2),
+                     ("physical plain twin (one run)", phys_twin_ms),
+                     ("fused physical kernel, no geometry planes", pf_ms),
+                     (f"fused physical kernel {geo_kw}", pf_geo_ms),
+                     ("fused physical kernel, rough_grad", pf_rough_ms),
+                     ("fused physical kernel, jitter off", pf_nojit_ms),
+                     (f"fused physical plain twin {geo_kw} (one run)", pf_twin_ms),
+                     (f"two-pass physical kernel {geo_kw}", pb_ms),
+                     (f"two-pass physical plain twin {geo_kw} (one run)", pb_twin_ms)):
         log(f"time {what}: {where}: {ms:.3f} ms, {rays / (ms / 1e3):.4e} nominal rays/s [{card}]")
     log(f"time contract_jacobian: {where}: {con_ms:.3f} ms [{card}]")
     log(f"time fused kernel / forward kernel: {fus_ms / fwd_ms:.3f}; "
         f"fwd+bwd (fused + contraction) {fus_ms + con_ms:.3f} ms [{card}]")
     log(f"time physical kernel / forward kernel: {phy_ms / fwd_ms:.3f} "
         f"({phy_ms / fwd_ms2:.3f} against the later forward time) [{card}]")
+    log(f"time contract_physical_jacobian: {where}: {pcon_ms:.3f} ms; with the {12 * n_live} "
+        f"geometry planes {pcon_geo_ms:.3f} ms [{card}]")
+    log(f"time fused physical kernel / physical kernel: {pf_ms / phy_ms:.3f} "
+        f"({pf_ms / phy_ms2:.3f} against the later physical time); with geometry planes "
+        f"{pf_geo_ms / phy_ms:.3f}; two-pass / fused with geometry planes {pb_ms / pf_geo_ms:.3f}; "
+        f"physical fwd+bwd (fused + contraction) {pf_ms + pcon_ms:.3f} ms, with geometry "
+        f"{pf_geo_ms + pcon_geo_ms:.3f} ms [{card}]")
     log(f"bound forward kernel: {fwd_bound:.3f} ms by {fwd_by}; fused kernel: "
-        f"{fus_bound:.3f} ms by {fus_by}; physical kernel: {phy_bound:.3f} ms by {phy_by} "
+        f"{fus_bound:.3f} ms by {fus_by}; physical kernel: {phy_bound:.3f} ms by {phy_by}; "
+        f"fused physical kernel {geo_kw}: {pf_bound:.3f} ms by {pf_by}; two-pass physical "
+        f"kernel: {pb_bound:.3f} ms by {pb_by} "
         f"(67 TFLOP/s float32, 3.35 TB/s; executed rounds and events)")
     log(f"time one fit step (make params, fused kernel, backward, Adam), spheres32 "
         f"{cfg.width}x{cfg.height} {cfg.spp}spp {cfg.max_bounces}b: {step_ms:.3f} ms; "
@@ -664,6 +1037,19 @@ def main() -> int:
          "max_abs_err": phys_err, "ms": phy_ms,
          "plain_ms": phys_twin_ms, "bound_ms": phy_bound, "bound_by": phy_by,
          "executed_rounds": phys_events["rounds"], "events": phys_events, **common},
+        {"name": "render_phys_fused", "source": pg.SOURCE, "replaces": pg.REPLACES,
+         "launches": plg_launches + pvjp_launches + sum(cli_fits.values()),
+         "launches_by_path": {"loss_and_grad physical_pallas": plg_launches,
+                              "render_physical_kernel_vjp geom": pvjp_launches,
+                              **{f"fit --mode {k}": v for k, v in cli_fits.items()}},
+         "max_abs_err": pf_err, "ms": pf_geo_ms, "ms_no_geometry": pf_ms,
+         "plain_ms": pf_twin_ms, "bound_ms": pf_bound, "bound_by": pf_by,
+         "executed_rounds": pf_events["rounds"], "events": pf_events, **common},
+        {"name": "render_phys_bwd", "source": pg.SOURCE_BWD, "replaces": pg.REPLACES_BWD,
+         "launches": pbwd_launches, "launches_by_path": {"render_physical_bwd": pbwd_launches},
+         "max_abs_err": pb_err, "max_abs_err_is": "largest |delta| over a leaf's largest entry",
+         "ms": pb_ms, "plain_ms": pb_twin_ms, "bound_ms": pb_bound, "bound_by": pb_by,
+         "executed_rounds": pf_events["rounds"], "events": pf_events, **common},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-// Device functions shared by the kernels (render_fwd.cu, render_fused.cu,
-// render_phys.cu): constants, the PCG stream, the camera, closest hit, the
+// Device functions shared by all the kernels (the reference tier's
+// render_fwd.cu and render_fused.cu, and through pt_phys.cuh the physical
+// tier's): constants, the PCG stream, the camera, closest hit, the
 // distance-only scene query, the material fetch and one bounce of the
 // reference tier's shading.
 //

@@ -1,4 +1,5 @@
-"""Differentiable rendering: losses, gradients and the material fit."""
+"""Differentiable rendering: losses, gradients and the fits (materials,
+geometry, roughness, camera)."""
 from . import diff
 
 __all__ = ["diff"]

@@ -52,6 +52,15 @@ _SIGNATURES = {
     # the scene tables, 7 emitter tables (see csrc/render_phys.cu), camera
     # and sky params, out, round counter (or null), nee, tri_nee
     "render_phys": (_SCENE[:-1] + [_P] * 7 + [_P, _P, _P, _I, _I] + _RUN, ctypes.c_int),
+    # as render_phys up to the params; image, material and sky planes, sphere
+    # planes (or null), triangle planes (or null), round counter (or null),
+    # nee, tri_nee, rough_grad, n_em_cap, tri_em_cap (csrc/render_phys_fused.cu)
+    "render_phys_fused": (_SCENE[:-1] + [_P] * 7 + [_P] * 6 + [_I] * 5 + _RUN, ctypes.c_int),
+    "render_phys_grad_max_bounces": ([], ctypes.c_int),
+    # the scene tables, the 6 emitter tables, raw emission colours, counts,
+    # params, the image's cotangent, the two outputs, nee, tri_nee, n_em_cap
+    # (csrc/render_phys_bwd.cu)
+    "render_phys_bwd": (_SCENE[:-1] + [_P] * 8 + [_P] * 4 + [_I] * 3 + _RUN, ctypes.c_int),
 }
 
 

@@ -129,12 +129,13 @@ def _pick_list(cum):
     return torch.searchsorted(cum, k1, right=False).clamp(max=rows - 1).to(torch.int32)
 
 
-def _phys_operands(scene: Scene):
-    """The kernel's operands beyond the reference tier's tables: emitter
-    pick lists and radiances for spheres and triangles, triangle areas,
-    the raw emission strength of every material, and ``(n_em, n_em_t)`` as
-    an int32 pair on the device. An empty object table becomes one row
-    that is no emitter, as in ``_scene_operands``."""
+def _phys_operands(scene: Scene, operands):
+    """The kernel's operands beyond the reference tier's tables
+    (``operands``, of ``_scene_operands``): emitter pick lists and radiances
+    for spheres and triangles, triangle areas, the raw emission strength of
+    every material, and ``(n_em, n_em_t)`` as an int32 pair on the device;
+    for the twins also the tables' material indices. An empty object table
+    becomes one row that is no emitter, as in ``_scene_operands``."""
     dev = scene.device
     em_cum, le_sph, n_em = _emitter_operands(scene)
     tri_cum, le_tri, tri_area, n_em_t = _tri_emitter_operands(scene)
@@ -147,6 +148,7 @@ def _phys_operands(scene: Scene):
         tri_list=_pick_list(tri_cum), le_tri=le_tri.contiguous(),
         tri_area=tri_area.contiguous(),
         mat_est=scene.materials.emission_strength.contiguous(),
+        sph_m=operands[1], tri_m=operands[3],
         counts=torch.stack([n_em, n_em_t]).to(device=dev, dtype=torch.int32),
     )
 
@@ -200,17 +202,15 @@ def render_physical_kernel(
 
     lib = load_library()
     operands = _rk._scene_operands(scene)
-    ph = _phys_operands(scene)
+    ph = _phys_operands(scene, operands)
     par = _rk._camera_params(camera, scene, height, width)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     counter = None
     if count_rounds or count_events:
         counter = torch.zeros(len(EVENTS), dtype=torch.int64, device=device)
     err = lib.render_phys(
-        *_rk._table_args(operands),
-        _ptr(ph["em_list"]), _ptr(ph["le_sph"]), _ptr(ph["tri_list"]), _ptr(ph["le_tri"]),
-        _ptr(ph["tri_area"]), _ptr(ph["mat_est"]), _ptr(ph["counts"]),
-        _ptr(par), _ptr(out), _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
+        *_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out), _ptr(counter),
+        int(bool(nee)), int(bool(tri_nee)),
         *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
     )
     if err != 0:
@@ -220,6 +220,13 @@ def render_physical_kernel(
 
 
 render_physical_kernel.launches = 0
+
+
+def _emitter_args(ph):
+    """The emitter tables of ``_phys_operands`` as the physical kernels'
+    arguments after the scene tables."""
+    return tuple(_ptr(ph[k]) for k in (
+        "em_list", "le_sph", "tri_list", "le_tri", "tri_area", "mat_est", "counts"))
 
 
 def _with_counts(img, counter, count_rounds, count_events):
@@ -260,10 +267,15 @@ def _emitter_distance(so, om, c, r):
 
 def _nee(tabs, ph, n, so, thr, alb, hitm, choose_diff, u_pick, v1, v2, tri_nee):
     """The light sample of one bounce: the radiance it adds per channel
-    (zero where it is not valid), and the mask of samples that face the
-    surface and the emitter, for which the kernel runs its shadow scan.
-    ``n`` is the surface normal, ``so`` the shadow ray's origin, ``thr`` the
-    throughput before the albedo."""
+    (zero where it is not valid), the mask of samples that face the
+    surface and the emitter, for which the kernel runs its shadow scan, and
+    what the gradient twins (``ops/render_physical_grad.py``) read of the
+    sample: ``valid``, the weight ``w``, the emitter's radiance ``le`` and
+    material ``emat``, its sphere row ``e_idx`` and ordinal ``kk``, the
+    cone's azimuth ``(cp, sp)`` and the pool size ``pool_f``; with
+    ``tri_nee`` also ``is_tri``, the triangle's row ``t_idx`` and ordinal
+    ``kt``. ``n`` is the surface normal, ``so`` the shadow ray's origin,
+    ``thr`` the throughput before the albedo."""
     sph, tri = tabs
     nx, ny, nz = n
     sox, soy, soz = so
@@ -276,6 +288,8 @@ def _nee(tabs, ph, n, so, thr, alb, hitm, choose_diff, u_pick, v1, v2, tri_nee):
     e_idx = torch.where(kk < n_sph, ph["em_list"][kk.clamp(max=n_sph - 1).long()], n_sph - 1).long()
     cex, cey, cez, rer = sph[e_idx, 0], sph[e_idx, 1], sph[e_idx, 2], sph[e_idx, 3]
     le = ph["le_sph"][e_idx].unbind(1)
+    emat = ph["sph_m"][e_idx]
+    info = dict(e_idx=e_idx, kk=kk, pool_f=pool_f)
 
     dcx, dcy, dcz = cex - sox, cey - soy, cez - soz
     d2 = dcx * dcx + dcy * dcy + dcz * dcz
@@ -287,6 +301,7 @@ def _nee(tabs, ph, n, so, thr, alb, hitm, choose_diff, u_pick, v1, v2, tri_nee):
     cth = 1.0 - v1 * (1.0 - cosmax)
     sth = sqrt_rn(torch.clamp_min(1.0 - cth * cth, _D2_FLOOR))
     cp, sp = _rng.sincos_2pi(v2)
+    info.update(cp=cp, sp=sp)
     (tax, tay, taz), (bax, bay, baz) = _onb(wzx, wzy, wzz)
     cphi = sth * cp
     sphi = sth * sp
@@ -321,6 +336,8 @@ def _nee(tabs, ph, n, so, thr, alb, hitm, choose_diff, u_pick, v1, v2, tri_nee):
         cos_surf = torch.where(is_tri, nx * otx + ny * oty + nz * otz, cos_surf)
         t_e = torch.where(is_tri, dist_t, t_e)
         le = tuple(torch.where(is_tri, lt, ls) for lt, ls in zip(ph["le_tri"][t_idx].unbind(1), le))
+        emat = torch.where(is_tri, ph["tri_m"][t_idx], emat)
+        info.update(is_tri=is_tri, t_idx=t_idx, kt=kt)
         branch_ok = torch.where(is_tri, cos_l > _COS_L_MIN, outside)
         w = torch.where(is_tri, cos_surf * w_geom_t, cos_surf / pdf_omega) * pool_f
     else:
@@ -332,15 +349,20 @@ def _nee(tabs, ph, n, so, thr, alb, hitm, choose_diff, u_pick, v1, v2, tri_nee):
     # `pool > 0` switches the term off by a select, never by a multiply.
     faces = (pool > 0) & branch_ok & (cos_surf > 0.0) & (t_e < _INF)
     valid = hitm & choose_diff & faces & visible
+    info.update(valid=valid, w=w, le=le, emat=emat)
     return tuple(torch.where(valid, t * a * _INV_PI * l * w, 0.0)
-                 for t, a, l in zip(thr, alb, le)), faces
+                 for t, a, l in zip(thr, alb, le)), faces, info
 
 
 def _bounce(tabs, ph, hit, mats, est, o, d, thr, rad, st, prevd, sky, nee, tri_nee):
     """One bounce of every path, dead ones (zero throughput) included: all
     they add is exact zeros. Returns the new origin, direction, throughput,
-    radiance, RNG state and diffuse-arrival flag, and the round's events
-    ``(hit, diffuse lobe chosen, shadow scan wanted)`` as bool masks."""
+    radiance, RNG state and diffuse-arrival flag, the round's events
+    ``(hit, diffuse lobe chosen, shadow scan wanted)`` as bool masks, and
+    for the gradient twins what else the round decided: ``nee_counted``
+    (the hit's own emission was skipped), ``refracted``, ``died``, the
+    shadow origin ``so``, the emitter draws ``v1`` and ``v2``, and the
+    light sample's dict (``_nee``; None with next-event estimation off)."""
     best, (nx, ny, nz), _, sphm = hit
     dx, dy, dz = d
     tr, tg, tb = thr
@@ -424,10 +446,12 @@ def _bounce(tabs, ph, hit, mats, est, o, d, thr, rad, st, prevd, sky, nee, tri_n
     offs = _rk._EPS_OFFSET + _rk._EPS_SCALE * sqrt_rn(px * px + py * py + pz * pz)
 
     faces = torch.zeros_like(hitm)
+    so = (px + offs * nx, py + offs * ny, pz + offs * nz)
+    light = None
     if nee:
-        so = (px + offs * nx, py + offs * ny, pz + offs * nz)
-        (nr, ng, nb), faces = _nee((tabs[0], tabs[2]), ph, (nx, ny, nz), so, (tr, tg, tb),
-                          (alb_r, alb_g, alb_b), hitm, choose_diff, u_pick, v1, v2, tri_nee)
+        (nr, ng, nb), faces, light = _nee(
+            (tabs[0], tabs[2]), ph, (nx, ny, nz), so, (tr, tg, tb),
+            (alb_r, alb_g, alb_b), hitm, choose_diff, u_pick, v1, v2, tri_nee)
         ar, ag, ab = ar + nr, ag + ng, ab + nb
 
     # cos / pdf cancels for the diffuse lobe; the others tint by albedo.
@@ -437,7 +461,10 @@ def _bounce(tabs, ph, hit, mats, est, o, d, thr, rad, st, prevd, sky, nee, tri_n
     side = torch.where(ndx * nx + ndy * ny + ndz * nz >= 0.0, 1.0, -1.0)
     o = (px + offs * side * nx, py + offs * side * ny, pz + offs * side * nz)
     prevd = torch.where(hitm & ~died, choose_diff, prevd)
-    return o, (ndx, ndy, ndz), (tr, tg, tb), (ar, ag, ab), st, prevd, (hitm, choose_diff, faces)
+    info = dict(nee_counted=nee_counted, refracted=choose_refr, died=died, so=so,
+                v1=v1, v2=v2, light=light)
+    return (o, (ndx, ndy, ndz), (tr, tg, tb), (ar, ag, ab), st, prevd,
+            (hitm, choose_diff, faces), info)
 
 
 def render_physical_kernel_reference(
@@ -464,7 +491,7 @@ def render_physical_kernel_reference(
     device = scene.device
     tabs = _rk._scene_operands(scene)
     sph, sph_m, tri, tri_m, mat_tab = tabs
-    ph = _phys_operands(scene)
+    ph = _phys_operands(scene, tabs)
     par = _rk._camera_params(camera, scene, height, width)
     sky = (par[2], par[3], par[4])
     n = height * width
@@ -498,7 +525,7 @@ def render_physical_kernel_reference(
             # Raw emission strength; zero for an index outside the table.
             est = torch.where((m >= 0) & (m < n_mat),
                               ph["mat_est"][m.clamp(0, n_mat - 1).long()], 0.0)
-            o, d, thr, rad, st, prevd, (hitm, diffuse, faces) = _bounce(
+            o, d, thr, rad, st, prevd, (hitm, diffuse, faces), _ = _bounce(
                 tabs, ph, hit, mats, est, o, d, thr, rad, st, prevd, sky, nee, tri_nee)
             if count:
                 diffuse = running & hitm & diffuse

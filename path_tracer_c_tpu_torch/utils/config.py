@@ -41,10 +41,12 @@ class RenderConfig:
     scene: str = "demo"  # name in scene.demo or a scene JSON path
     jitter: bool = False
     # Reference tier: "cuda" (the hand kernel) | "core" (the eager
-    # integrator). Physical tier: "physical" (its hand kernel) |
-    # "physical_core" (its eager integrator). "pallas" and
+    # integrator). Physical tier, in a render: "physical" (its hand kernel) |
+    # "physical_core" (its eager integrator); "pallas" and
     # "physical_pallas", the JAX package's names for its kernel engines,
-    # mean "cuda" and "physical" here.
+    # mean "cuda" and "physical" there. In a fit the physical names are the
+    # JAX package's: "physical" is autograd through the eager tier,
+    # "physical_pallas" the fused kernel (grad/diff.py).
     engine: str = "cuda"
     output: str = "output.bmp"
     mesh: MeshConfig = field(default_factory=MeshConfig)
@@ -65,7 +67,7 @@ class FitConfig:
     target: str = ""  # target image path (npy), or empty to render one
     checkpoint_every: int = 0
     checkpoint_path: str = ""
-    mode: str = "materials"  # the CLI's --mode overrides
+    mode: str = "materials"  # materials | geometry | roughness; the CLI's --mode overrides
 
 
 _NESTED = {"mesh": MeshConfig, "render": RenderConfig}

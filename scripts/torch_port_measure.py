@@ -8,6 +8,11 @@ Runs ``torch.profiler`` over (1) ``loss_and_grad`` at the main shape
 (glossy, 1024x1024, 64 spp, 8 bounces), (2) steps of ``fit_materials`` at
 the shape of ``configs/config4_inverse_spheres32.json`` and (3) the CLI
 ``render --config configs/config3_glossy_1024.json`` (the physical tier),
+(4) the physical tier's fwd+bwd at the main shape, without geometry planes
+(``loss_and_grad(engine="physical_pallas")``) and with them
+(``render_physical_kernel_vjp`` with jitter on and the cap at the live
+emitter count, plus ``backward``), and (5) steps of ``fit_geometry`` on the
+fused physical kernel (cornell, 256x256, 8 spp, 3 bounces: config 4's size),
 and prints for each the device time by kernel, the wall time per step and
 the share of it the device is busy; for (3) also the render's stages on
 the host's clock (set-up, kernel, u8 and copy to the host, BMP encode and
@@ -32,7 +37,8 @@ SPP, BOUNCES = 64, 8
 # Operators whose device time (inclusive of what they call) is reported:
 # the autograd.Function's forward (zero-fill of the planes and the fused
 # kernel) and backward (the contraction), and the optimizer.
-OPS_OF_INTEREST = ("_RenderFused", "_RenderFusedBackward", "Optimizer.step#Adam.step")
+OPS_OF_INTEREST = ("_RenderFused", "_RenderFusedBackward", "_RenderPhysicalFused",
+                   "_RenderPhysicalFusedBackward", "Optimizer.step#Adam.step")
 
 
 def profile(fn, steps: int) -> dict:
@@ -151,6 +157,44 @@ def main() -> int:
                           "--out", str(Path(tmp) / "c3.bmp")])
         result["cli_render_config3"] = profile(cli, steps=5)
     result["cli_render_config3"]["stage_ms"] = render_stages(load(config3, RenderConfig))
+
+    # The physical tier's gradient at the main shape: a material objective
+    # (no geometry planes, jitter off), then the call with geometry planes.
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+
+    target = rp.render_physical_kernel(glossy, cam, H, W, SPP, BOUNCES, 12345, jitter=False)
+    result["physical_loss_and_grad"] = profile(
+        lambda i: diff.loss_and_grad(glossy, target, cam, H, W, SPP, BOUNCES, i,
+                                     engine="physical_pallas"), steps=5)
+    n_live = rp.live_emitter_count(glossy)
+
+    def fwd_bwd_geom(i):
+        leaves = [x.clone().requires_grad_() for x in pg._grad_leaves(glossy)]
+        img = pg.render_physical_kernel_vjp(pg._with_leaves(glossy, leaves), cam, H, W, SPP,
+                                            BOUNCES, i, n_em_cap=n_live)
+        return torch.autograd.grad(diff.mse_loss(img, target), leaves, allow_unused=True)
+
+    result["physical_fwd_bwd_geom"] = profile(fwd_bwd_geom, steps=5)
+    result["physical_fwd_bwd_geom"]["n_em_cap"] = n_live
+    del target
+
+    # Steps of the geometry fit on the fused physical kernel, at config 4's
+    # size: the loop `fit --mode geometry --engine physical_pallas` runs.
+    cornell = pt.demo.cornell_spheres_scene(dev)
+    li = int(rp.live_emitter_mask(cornell).argmax())
+    geo_target = rp.render_physical_kernel(cornell, cam, cfg.height, cfg.width, cfg.spp,
+                                           cfg.max_bounces, 12345, jitter=False)
+    result["fit_geometry_20_steps"] = profile(
+        lambda i: diff.fit_geometry(cornell, geo_target, cam, cfg.height, cfg.width, cfg.spp,
+                                    cfg.max_bounces, sphere_indices=(li,), steps=20, lr=0.02,
+                                    seed0=i, engine="physical_pallas"),
+        steps=3)
+    geo = result["fit_geometry_20_steps"]
+    for key in ("wall_ms_per_step", "device_ms_per_step"):
+        geo[key.replace("per_step", "per_fit_step")] = geo.pop(key) / 20
+    for key in ("device_ms_by_op", "device_ms_by_kernel"):
+        geo[key] = {k: v / 20 for k, v in geo[key].items()}
 
     for name, r in result.items():
         if name != "card":

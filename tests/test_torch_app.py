@@ -69,29 +69,30 @@ def test_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("settings, item", [
-    (None, "A9"),  # fit --mode geometry: the physical tier's gradient
+    (None, "geometry fit (physical): 1 steps in "),  # fit --mode geometry
     ({"mesh": {"tile": 4, "spp": 2}}, "A11"),
     ({"checkpoint_every": 2}, "A12"),
-    ({"tri_nee": True}, "A9"),  # in a fit: the physical tier's gradient
+    ({"tri_nee": True}, "fit: 1 steps in "),  # in a fit of the reference tier: ignored
 ])
-def test_unported_settings_name_the_roadmap_item(tmp_path, settings, item):
-    """The render settings still to be ported are refused by ROADMAP item;
-    the physical tier renders (configs/config3_glossy_1024.json loads and
-    runs), and what is left of A9 is its gradient, which only `fit` asks
-    for."""
+def test_unported_settings_name_the_roadmap_item(tmp_path, capsys, settings, item):
+    """The render settings still to be ported are refused by ROADMAP item.
+    The physical tier renders and, since its gradient was ported, fits:
+    `fit --mode geometry` and `tri_nee` in a fit run and print their
+    result line."""
     cfg = tmp_path / "c.json"
     render = {"width": 8, "height": 8, "spp": 1, **(settings or {})}
-    if item == "A9":
-        cfg.write_text(json.dumps({"render": render, "steps": 1}))
-        argv = ["fit", "--device", "cpu", "--config", str(cfg)]
-        argv += ["--mode", "geometry"] if settings is None else []
-    else:
+    if item.startswith("A"):
         cfg.write_text(json.dumps(render))
-        argv = ["render", "--device", "cpu", "--config", str(cfg),
-                "--out", str(tmp_path / "x.bmp")]
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-        app.main(argv)
-    assert not (tmp_path / "x.bmp").exists()
+        with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+            app.main(["render", "--device", "cpu", "--config", str(cfg),
+                      "--out", str(tmp_path / "x.bmp")])
+        assert not (tmp_path / "x.bmp").exists()
+        return
+    cfg.write_text(json.dumps({"render": render, "steps": 1}))
+    app.main(["fit", "--device", "cpu", "--config", str(cfg)]
+             + (["--mode", "geometry"] if settings is None else []))
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith(item) and " err " in line, line
 
 
 def test_config_pallas_engine_maps_to_the_kernel(tmp_path):
@@ -109,6 +110,7 @@ def test_port_does_not_import_jax():
     code = ("import sys, path_tracer_c_tpu_torch, path_tracer_c_tpu_torch.app.main, "
             "path_tracer_c_tpu_torch.ops.render_grad, path_tracer_c_tpu_torch.ops.build, "
             "path_tracer_c_tpu_torch.ops.render_physical, path_tracer_c_tpu_torch.models.physical, "
+            "path_tracer_c_tpu_torch.ops.render_physical_grad, "
             "path_tracer_c_tpu_torch.grad.diff, path_tracer_c_tpu_torch.utils.config; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'path_tracer_c_tpu' not in sys.modules, 'the JAX package imported'")

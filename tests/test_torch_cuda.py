@@ -22,6 +22,7 @@ import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.ops import render_grad as rg
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
 from path_tracer_c_tpu_torch.ops import render_physical as rp
+from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
 from path_tracer_c_tpu_torch.scene import demo as pdemo
 
 pytestmark = pytest.mark.cuda
@@ -224,3 +225,110 @@ def test_physical_kernel_rejects_mixed_devices(cuda_device):
     with pytest.raises(ValueError):
         rp.render_physical_kernel(scene, P.Camera.reference("cpu"), 8, 8, 1, 1, 0)
     assert rp.render_physical_kernel.launches == launches
+
+
+# -- the physical tier's gradient kernels ----------------------------------------
+
+FUSED_PHYSICAL_CASES = [
+    ("cornell_spheres_scene", {}),
+    ("glossy_scene", dict(n_em_cap=1, sample_offset=3)),
+    ("cornell_spheres_scene", dict(nee=False, n_em_cap=1)),
+    ("tri_light", dict(tri_nee=True, n_em_cap=1, tri_em_cap=2, rough_grad=True)),  # all flags
+    ("tri_light", dict(tri_nee=True, n_em_cap=3, tri_em_cap=1, jitter=False)),  # above, below
+    ("diffuse_sphere_scene", dict(rough_grad=True, n_em_cap=1)),  # no emitter
+]
+
+
+def physical_scene(name, device):
+    return tri_light_mixed_scene(device) if name == "tri_light" else getattr(pdemo, name)(device)
+
+
+@pytest.mark.parametrize("name, kw", FUSED_PHYSICAL_CASES)
+def test_fused_physical_kernel_matches_forward_kernel_and_twin(cuda_device, name, kw):
+    """The image equals the forward physical kernel's and the twin's bit for
+    bit, every plane of the three families the twin's value for value, and
+    the executed rounds the twin's: one definition of the arithmetic, no
+    FMA contraction, the twin's order of additions."""
+    scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
+    launches = pg.render_physical_fused.launches
+    args = (scene, cam, 100, 160, 4, 6, 7)
+    out = pg.render_physical_fused(*args, count_rounds=True, **kw)
+    ref = pg.render_physical_fused_reference(*args, count_rounds=True, **kw)
+    fwd_kw = {k: v for k, v in kw.items() if k in ("nee", "tri_nee", "jitter", "sample_offset")}
+    assert torch.equal(out[0], rp.render_physical_kernel(*args, **fwd_kw))
+    assert len(out) == len(ref) == 3 + bool(kw.get("n_em_cap")) + bool(kw.get("tri_em_cap"))
+    for a, b in zip(out[:-1], ref[:-1]):
+        assert a.device == cuda_device and torch.equal(a, b)
+    assert out[-1] == ref[-1] and 0 < out[-1] <= 100 * 160 * 4 * 7
+    assert out[-1] >= rp.render_physical_kernel(*args, count_rounds=True, **fwd_kw)[1]
+    plain = pg.render_physical_fused(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(plain, out[:-1]))
+    assert pg.render_physical_fused.launches == launches + 2
+
+
+@pytest.mark.parametrize("name, kw", [
+    ("cornell_spheres_scene", {}),
+    ("glossy_scene", dict(n_em_cap=1, sample_offset=3)),
+    ("cornell_spheres_scene", dict(nee=False)),
+    ("tri_light", dict(tri_nee=True, n_em_cap=2, jitter=False)),
+])
+def test_two_pass_kernel_matches_twin_and_fused_contraction(cuda_device, name, kw):
+    """The kernel reduces with float atomics in two levels, the twin in
+    float64: rtol 2e-4 with an absolute floor of 1e-6 of the leaf's scale
+    (the JAX suite's gate between its two schemes), against the twin and
+    against the fused kernel's contraction."""
+    scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
+    launches = pg.render_physical_bwd.launches
+    g = torch.randn((100, 160, 3), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    d = pg.render_physical_bwd(scene, cam, g, 100, 160, 4, 6, 7, **kw)
+    r = pg.render_physical_bwd_reference(scene, cam, g, 100, 160, 4, 6, 7, **kw)
+    assert pg.render_physical_bwd.launches == launches + 1
+    cap = kw.get("n_em_cap", min(scene.num_spheres, 8)) if kw.get("nee", True) else 0
+    fkw = {k: v for k, v in kw.items() if k != "n_em_cap"}
+    out = pg.render_physical_fused(scene, cam, 100, 160, 4, 6, 7, n_em_cap=cap, **fkw)
+    c = pg.contract_physical_jacobian(scene, out[1], g, 4, jac_geo=out[2] if cap else None)
+    for table, leaf in pg._GRAD_LEAVES:
+        get = lambda t: getattr(getattr(t, table) if table else t, leaf)
+        atol = 1e-6 * max(float(get(r).abs().max()), 1.0)
+        if table == "triangles" or leaf == "roughness":
+            assert not get(d).any()  # the narrower contract
+            continue
+        torch.testing.assert_close(get(d), get(r), rtol=2e-4, atol=atol)
+        torch.testing.assert_close(get(d), get(c), rtol=2e-4, atol=atol)
+
+
+def test_physical_vjp_backward_matches_autograd_through_the_eager_tier(cuda_device):
+    """Materials, sky and the black sphere light's geometry, at the JAX
+    suite's gates (rtol 5e-3, atol 3e-5)."""
+    scene, cam = tri_light_mixed_scene(cuda_device), P.Camera.reference(cuda_device)
+    g = torch.randn((32, 64, 3), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    launches = pg.render_physical_fused.launches
+    grads = []
+    for render in (pg.render_physical_kernel_vjp, P.render_physical):
+        leaves = [t.clone().requires_grad_() for t in pg._grad_leaves(scene)]
+        img = render(pg._with_leaves(scene, leaves), cam, 32, 64, 4, 3, 7, jitter=False)
+        grads.append(torch.autograd.grad(img, leaves, g, allow_unused=True))
+    assert pg.render_physical_fused.launches == launches + 1
+    for (_, leaf), a, b in zip(pg._GRAD_LEAVES, *grads):
+        if leaf in ("albedo", "emission_color", "emission_strength", "transparency", "sky_color"):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=3e-5)
+        elif leaf in ("center", "radius"):  # the light is sphere 1
+            torch.testing.assert_close(a[1], b[1], rtol=5e-3, atol=1e-4 * float(b[1].abs().max()))
+            assert not a[0].any()
+
+
+def test_physical_gradient_kernels_reject_bad_inputs(cuda_device):
+    scene, cam = pdemo.cornell_spheres_scene(cuda_device), P.Camera.reference(cuda_device)
+    launches = (pg.render_physical_fused.launches, pg.render_physical_bwd.launches)
+    g = torch.ones((8, 8, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        pg.render_physical_fused(scene, P.Camera.reference("cpu"), 8, 8, 1, 1, 0)
+    with pytest.raises(ValueError):
+        pg.render_physical_fused(scene, cam, 8, 8, 1, pg.MAX_BOUNCES + 1, 0)
+    with pytest.raises(ValueError):
+        pg.render_physical_bwd(scene, cam, g.cpu(), 8, 8, 1, 1, 0)
+    with pytest.raises(ValueError):
+        pg.render_physical_bwd(scene, cam, g, 8, 8, 1, pg.MAX_BOUNCES + 1, 0)
+    assert (pg.render_physical_fused.launches, pg.render_physical_bwd.launches) == launches
+    out = pg.render_physical_fused(scene, cam, 8, 8, 1, pg.MAX_BOUNCES, 0)
+    assert torch.equal(out[0], rp.render_physical_kernel(scene, cam, 8, 8, 1, pg.MAX_BOUNCES, 0))
