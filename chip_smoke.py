@@ -69,7 +69,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    fits must end below the start's.
 13. times: the five kernels, the contractions, the twins and one fit step,
    with CUDA events, and each kernel's bound from this run's executed
-   rounds and events.
+   rounds and events (``utils/flops.py``).
+14. speed of light: the calibration kernel (B6) against its twin for each of
+   its four chains, within ``CALIB_ULPS``; the null and micro probes (B7, B8)
+   against their twins, value for value, and the micro probe's SASS (the
+   reload variant keeps its loads); the forward kernel's warp lane-rounds
+   against the twin's at a ragged shape and at the main shape; then the
+   speed-of-light path, with its launches counted: the four op rates with
+   their spread (``measure_op_rates``) and ``sol_decompose`` at the main
+   shape; the ALU rate at twice the launch size within 5% of the rate at the
+   default size; the probes' times; ``sol_report`` of the five render
+   kernels at phase 13's times, and every kernel's bound at the measured
+   rates.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -119,41 +130,6 @@ H = W = 1024
 SPP, BOUNCES = 64, 8
 FIT_CONFIG = "configs/config4_inverse_spheres32.json"
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): 67 TFLOP/s float32
-# outside the tensor cores, counting a fused multiply-add as two, and
-# 3.35 TB/s of device memory. The kernels are built with -fmad=false, so a
-# multiply and an add issue separately and half that rate is their ceiling;
-# the bound below is still stated against the published figure.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# Float32 operations counted from csrc/pt_common.cuh and
-# csrc/render_fused.cu, each add, multiply, compare, max, divide, root as
-# one (integer RNG work is left out): one sphere test, one triangle test,
-# the rest of closest_hit, one call of shade(), one swept hit.
-OPS_SPHERE, OPS_TRIANGLE, OPS_HIT_REST, OPS_SHADE, OPS_SWEEP = 29, 61, 25, 138, 24
-# The physical kernel (csrc/render_phys.cu), counted the same way: what
-# every hit round does (Le, the 7 draws' conversions, the hit point, the
-# offset, albedo, the next origin, the exit test); the new direction of a
-# diffuse vertex (cosine-weighted: two roots, sincos_2pi, the basis) and of
-# any other (the mirror, the cheapest: a refraction costs more); one light
-# sample of a sphere up to its tests (cone, basis, the full-b distance);
-# and what a shadow scan adds to the per-object tests (the ray's d.d, one
-# min per object, the visibility compare).
-OPS_PHYS_HIT, OPS_PHYS_DIFFUSE, OPS_PHYS_MIRROR, OPS_PHYS_LIGHT, OPS_PHYS_SHADOW_REST = (
-    54, 65, 9, 139, 10)
-# The physical gradient kernels (csrc/render_phys_fused.cu,
-# csrc/render_phys_bwd.cu, csrc/pt_phys.cuh), counted the same way. The fused
-# kernel: one swept hit (the suffix, the albedo, emission and transparency
-# planes' weights and adds, the carry), what a valid light sample adds to it
-# (nee and emw and the emitter's three adds), what rough_grad adds (drg, three
-# products, three adds); the cone chain's adjoint (69 forward, 111 back; the
-# triangle chain's is 72 and 111) and the 12 products and adds into the
-# planes with the closure's 9. The two-pass kernel: one swept hit with its
-# cotangent terms, what a valid light sample adds, and the geometry term
-# beside the adjoint.
-OPS_PF_SWEEP, OPS_PF_SWEEP_VALID, OPS_PF_SWEEP_ROUGH = 27, 18, 9
-OPS_CONE_ADJOINT, OPS_PF_GEO_PLANES = 180, 33
-OPS_PB_SWEEP, OPS_PB_SWEEP_VALID, OPS_PB_GEO = 43, 27, 20
 # The two-pass kernel reduces with float atomics in an order that changes
 # from run to run; its twin reduces in float64. Both, and the fused kernel's
 # contraction (float32 matrix-vector products), are held together at the JAX
@@ -164,6 +140,14 @@ BWD_RTOL, BWD_ATOL_SCALE = 2e-4, 1e-6
 # the JAX suite's gates for the same comparison (rtol 5e-3, atol 3e-5; the
 # black light's geometry rtol 5e-3 with a floor of 1e-4 of its largest entry).
 PHYS_GRAD_RTOL, PHYS_GRAD_ATOL = 5e-3, 3e-5
+# The calibration kernel against its twin: within 2 float32 ulp. The alu and
+# sqrt chains round alike (separate multiplies and adds, IEEE roots) and agree
+# bit for bit; the card's cosf and log1pf and PyTorch's cos and log1p are
+# different routines, and each chain converges, so a difference stays at the
+# last place. The rounds of the check, and of the kernel's timed call beside
+# its twin (the twin runs one PyTorch operation a step).
+CALIB_ULPS = 2
+CALIB_CHECK_REPS, CALIB_TIMED_REPS = 4, 64
 
 
 def log(msg: str) -> None:
@@ -323,92 +307,6 @@ def check_bmp(data: bytes, width: int, height: int) -> None:
         raise AssertionError("BMP pixels are all equal or all zero")
 
 
-def bound_ms(scene, height, width, spp, rounds, fused: bool):
-    """The least time the card could take: the larger of bytes over the
-    memory rate (inputs read once, outputs written once) and float32
-    operations over the peak rate, for the rounds this run executed. Every
-    sample has at most one miss round, so at least ``rounds - H W spp``
-    rounds shade (and, in the fused kernel, are swept as hits)."""
-    hit_rounds = max(rounds - height * width * spp, 0)
-    ops = rounds * (scene.num_spheres * OPS_SPHERE + scene.num_triangles * OPS_TRIANGLE
-                    + OPS_HIT_REST) + hit_rounds * OPS_SHADE
-    tables = 4 * (6 * scene.num_spheres + 14 * scene.num_triangles
-                  + 9 * scene.num_materials + 17)
-    nbytes = tables + 12 * height * width
-    if fused:
-        ops += hit_rounds * OPS_SWEEP
-        nbytes += 4 * (9 * scene.num_materials + 3) * height * width
-    return bound_of(ops, nbytes)
-
-
-def physical_ops(scene, height, width, spp, events) -> float:
-    """Float32 operations of the physical kernel's forward rounds: every
-    round scans the scene once, at least ``rounds - H W spp`` rounds hit and
-    shade, a diffuse vertex takes the cosine-weighted direction and any other
-    at least the mirror's, and the light samples and shadow scans are those
-    this run's data asked for (``count_events``)."""
-    scan = scene.num_spheres * OPS_SPHERE + scene.num_triangles * OPS_TRIANGLE
-    hit_rounds = max(events["rounds"] - height * width * spp, 0)
-    diffuse = events["diffuse_vertices"]
-    return (events["rounds"] * (scan + OPS_HIT_REST) + hit_rounds * OPS_PHYS_HIT
-            + diffuse * OPS_PHYS_DIFFUSE + max(hit_rounds - diffuse, 0) * OPS_PHYS_MIRROR
-            + events["light_samples"] * OPS_PHYS_LIGHT
-            + events["shadow_scans"] * (scan + scene.num_spheres + scene.num_triangles
-                                        + OPS_PHYS_SHADOW_REST))
-
-
-def bound_of(ops: float, nbytes: float):
-    """``(milliseconds, "operations" or "bytes")``: the larger of the two
-    times at the published peaks."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def physical_table_bytes(scene, words_per_material: int = 10) -> int:
-    """The reference tier's tables and the emitter tables (5 words a sphere,
-    5 a triangle, 1 a material, 2 counts)."""
-    return 4 * (11 * scene.num_spheres + 19 * scene.num_triangles
-                + words_per_material * scene.num_materials + 19)
-
-
-def bound_physical_ms(scene, height, width, spp, events):
-    """The physical kernel's bound, as ``bound_ms``, from ``physical_ops``.
-    Bytes: the tables and the image."""
-    return bound_of(physical_ops(scene, height, width, spp, events),
-                    physical_table_bytes(scene) + 12 * height * width)
-
-
-def bound_physical_fused_ms(scene, height, width, spp, events, fwd_events, n_planes,
-                            geom: bool, rough: bool):
-    """The fused physical kernel's bound: the forward kernel's operations for
-    the rounds this kernel ran (the forward kernel's own events at the same
-    seed count the diffuse vertices, light samples and shadow scans: the two
-    run the same rounds wherever no albedo is exactly black), one sweep per
-    hit round, the light sample's sweep terms and, with geometry planes, the
-    weight chain's adjoint per valid light sample (``count_events``). Bytes:
-    the forward kernel's, plus every plane once."""
-    hit_rounds = max(events["rounds"] - height * width * spp, 0)
-    valid = events["valid_samples"]
-    ops = (physical_ops(scene, height, width, spp, {**fwd_events, "rounds": events["rounds"]})
-           + hit_rounds * (OPS_PF_SWEEP + (OPS_PF_SWEEP_ROUGH if rough else 0))
-           + valid * (OPS_PF_SWEEP_VALID + ((OPS_CONE_ADJOINT + OPS_PF_GEO_PLANES) if geom else 0)))
-    return bound_of(ops, physical_table_bytes(scene) + (12 + 4 * n_planes) * height * width)
-
-
-def bound_physical_bwd_ms(scene, height, width, spp, events, fwd_events, n_em_cap: int):
-    """The two-pass kernel's bound: as the fused kernel's, with its own sweep
-    terms; it runs the fused kernel's rounds. Bytes: the tables with the raw
-    emission colours, the image's cotangent once, the two small outputs."""
-    hit_rounds = max(events["rounds"] - height * width * spp, 0)
-    valid = events["valid_samples"]
-    ops = (physical_ops(scene, height, width, spp, {**fwd_events, "rounds": events["rounds"]})
-           + hit_rounds * OPS_PB_SWEEP
-           + valid * (OPS_PB_SWEEP_VALID + ((OPS_CONE_ADJOINT + OPS_PB_GEO) if n_em_cap else 0)))
-    nbytes = (physical_table_bytes(scene, 13) + 12 * height * width
-              + 4 * (8 * (scene.num_materials + 1) + 4 * max(n_em_cap, 1)))
-    return bound_of(ops, nbytes)
-
-
 def light_fit_scene(pt, dev):
     """A black sphere light over a mostly diffuse sphere and ground under a
     black sky: the scene of the three CLI fits (the light-recovery scene of
@@ -444,6 +342,192 @@ def compare_cotangents(a, b, leaves, what: str) -> float:
     return worst
 
 
+def ulp_distance(a, b):
+    """|a - b| in float32 units in the last place: the distance between the
+    two values' places on the ordered line of float32 values."""
+    import torch
+
+    ia, ib = (x.contiguous().view(torch.int32).to(torch.int64) for x in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return (ia - ib).abs()
+
+
+def sass_global_loads(patterns: dict) -> dict:
+    """Global loads (LDG instructions) in the SASS of each kernel whose
+    mangled name contains ``patterns[key]``, from cuobjdump on the built
+    library."""
+    from path_tracer_c_tpu_torch.ops import build
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    loads, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            current = next((k for k, pat in patterns.items() if pat in name), None)
+            if current is not None:
+                loads[current] = 0
+        elif current is not None and re.search(r"\bLDG\b", line):
+            loads[current] += 1
+    if set(loads) != set(patterns):
+        raise AssertionError(f"SASS: kernels {sorted(set(patterns) - set(loads))} not found")
+    return loads
+
+
+def speed_of_light(dev, card, glossy, cam, specs) -> dict:
+    """Phase 14: B6, B7 and B8 against their twins; B1's warp lane-rounds
+    against the twin's; the speed-of-light path (the op rates and the
+    decomposition of B1's time) with its launches counted; the ALU rate's
+    saturation; the probes' times; and ``sol_report`` of B1-B5 from phase
+    13's times. ``specs``: kernel name -> (flops kind, events, keywords,
+    milliseconds). Returns the measured bounds of B1-B5, the new kernels'
+    entries, and B1's launches on this path."""
+    import torch
+
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import sol_probes as sp
+    from path_tracer_c_tpu_torch.utils import flops
+    from path_tracer_c_tpu_torch.utils.sol_decompose import sol_decompose
+
+    threads = flops.default_threads(dev)
+    x = torch.linspace(-1.0, 1.0, threads, device=dev)
+    log(f"calibration kernel vs plain twin ({threads} threads, {CALIB_CHECK_REPS}x"
+        f"{flops.CALIB_UNROLL} dependent steps, within {CALIB_ULPS} ulp):")
+    calib_err = 0.0
+    for kind in flops.CLASSES:
+        k = flops.calib_kernel(kind, CALIB_CHECK_REPS, x)
+        r = flops.calib_reference(kind, CALIB_CHECK_REPS, x)
+        torch.cuda.synchronize()
+        ulps = ulp_distance(k, r)
+        calib_err = max(calib_err, float((k - r).abs().max()))
+        log(f"  {kind}: exact {float((ulps == 0).double().mean()):.6f}, largest "
+            f"{int(ulps.max())} ulp, max |delta| {float((k - r).abs().max()):.3g}")
+        if not bool(torch.isfinite(k).all()) or int(ulps.max()) > CALIB_ULPS:
+            raise AssertionError(f"calib {kind}: outside {CALIB_ULPS} ulp of the twin")
+
+    log("null and micro probes vs plain twins (all must be equal):")
+    table = sp.micro_table(dev)
+    seed = torch.tensor([[7]], dtype=torch.int32, device=dev)
+    for h, w in ((19, 45), (100, 160), (H, W)):
+        compare_exact(sp.sol_null(glossy, cam, h, w), sp.sol_null_reference(glossy, cam, h, w),
+                      f"sol_null {h}x{w}")
+        ref = sp.sol_micro_reference(table, seed, h, w)
+        for hoisted in (False, True):
+            compare_exact(sp.sol_micro(table, seed, h, w, hoisted), ref,
+                          f"sol_micro {h}x{w} {'hoisted' if hoisted else 'reload'}")
+    loads = sass_global_loads({"reload": "sol_micro_kernelILi0E", "hoisted": "sol_micro_kernelILi8E"})
+    log(f"  SASS global loads: reload variant {loads['reload']}, hoisted variant "
+        f"{loads['hoisted']} (the table is {5 * sp.MICRO_NOBJ} floats)")
+    if not loads["reload"] < loads["hoisted"]:
+        raise AssertionError("sol_micro: the reload variant's loads were hoisted as well")
+
+    log("forward kernel's warp lane-rounds vs the plain twin's:")
+    for what, args, kw in (("glossy 19x45 4spp 8b (ragged)", (glossy, cam, 19, 45, 4, 8, 7), {}),
+                           ("glossy 100x160 4spp 8b jitter, offset 3",
+                            (glossy, cam, 100, 160, 4, 8, 7), dict(jitter=True, sample_offset=3)),
+                           (f"glossy {H}x{W} {SPP}spp {BOUNCES}b (main shape)",
+                            (glossy, cam, H, W, SPP, BOUNCES, 1), {})):
+        got = rk.render_kernel_round_counts(*args, **kw)
+        twin = rk.render_kernel_round_counts_reference(*args, **kw)
+        nominal = args[2] * args[3] * args[4] * (args[5] + 1)
+        log(f"  {what}: {got}, twin {twin}, nominal {nominal}")
+        if got != twin or got["thread_rounds"] != rk.render_kernel(*args, count_rounds=True, **kw)[1]:
+            raise AssertionError(f"{what}: round counts differ from the twin's or count_rounds'")
+        if not 0 < got["thread_rounds"] <= got["warp_lane_rounds"] <= nominal:
+            raise AssertionError(f"{what}: thread <= warp lane <= nominal rounds does not hold")
+
+    # The speed-of-light path: the four rates, then B1's decomposition.
+    probes = (flops.calib_kernel, sp.sol_null, sp.sol_micro, rk.render_kernel)
+    for fn in probes:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rates, samples = flops.measure_op_rates(dev, with_spread=True)
+    decomposition = sol_decompose(dev, rates=rates)
+    sol_seconds = time.perf_counter() - t0
+    n_calib, n_null, n_micro, n_fwd = (fn.launches for fn in probes)
+    log(f"speed-of-light path: measure_op_rates + sol_decompose in {sol_seconds:.1f} s launched "
+        f"calib {n_calib}, sol_null {n_null}, sol_micro {n_micro}, render_kernel {n_fwd} time(s)")
+    if min(n_calib, n_null, n_micro, n_fwd) < 1:
+        raise AssertionError("the speed-of-light path did not launch every kernel")
+    for cls in flops.CLASSES:
+        log(f"rate {cls}: {rates[cls]:.4e} op/s (pairs {min(samples[cls]):.4e} to "
+            f"{max(samples[cls]):.4e}) [{card}]")
+        if not rates[cls] > 0:
+            raise AssertionError(f"rate {cls} is not positive")
+    log("sol_decompose " + json.dumps(decomposition))
+    alu2 = flops.measure_op_rate("alu", device=dev, threads=2 * threads)
+    saturation = alu2 / rates["alu"]
+    log(f"rate alu at {2 * threads} threads: {alu2:.4e} op/s, {saturation:.4f} x the rate at "
+        f"{threads} [{card}]")
+    if abs(saturation - 1.0) > 0.05:
+        raise AssertionError("the ALU rate does not saturate at the default launch size")
+
+    # Times of the new kernels and their twins.
+    xs = torch.full((threads,), 1.0, device=dev)
+    calib_ms = median_ms(lambda s: flops.calib_kernel("alu", CALIB_TIMED_REPS, xs))
+    calib_twin_ms = median_ms(lambda s: flops.calib_reference("alu", CALIB_TIMED_REPS, xs))
+    calib_full_ms = median_ms(lambda s: flops.calib_kernel("alu", flops.CALIB_REPS["alu"], xs))
+    null_call_ms = median_ms(lambda s: sp.sol_null(glossy, cam, H, W))
+    launch = sp.sol_null_launcher(glossy, cam, H, W)
+    null_ms = median_ms(lambda s: [launch() for _ in range(20)]) / 20  # the kernel alone
+    null_twin_ms = median_ms(lambda s: sp.sol_null_reference(glossy, cam, H, W))
+    micro_ms = median_ms(lambda s: sp.sol_micro(table, seed, H, W, False))
+    hoisted_ms = median_ms(lambda s: sp.sol_micro(table, seed, H, W, True))
+    micro_twin_ms = median_ms(lambda s: sp.sol_micro_reference(table, seed, H, W))
+    where = f"glossy {H}x{W}"
+    calib_at = f"alu chain, {threads} threads, {CALIB_TIMED_REPS}x{flops.CALIB_UNROLL} steps"
+    log(f"time calib ({calib_at}): {calib_ms:.4f} ms, twin {calib_twin_ms:.3f} ms; at "
+        f"{flops.CALIB_REPS['alu']}x{flops.CALIB_UNROLL} steps {calib_full_ms:.3f} ms [{card}]")
+    log(f"time sol_null {where}: {null_ms:.4f} ms a launch on packed operands, {null_call_ms:.4f} "
+        f"ms a call, twin {null_twin_ms:.4f} ms; sol_micro: "
+        f"reload {micro_ms:.4f} ms, hoisted {hoisted_ms:.4f} ms, twin {micro_twin_ms:.3f} ms "
+        f"[{card}]")
+
+    # sol_report of B1-B5 at phase 13's times, and every kernel's bound at the
+    # measured rates.
+    transc = {c: rates[c] for c in flops.CLASSES[1:]}
+    measured = {}
+    for name, (kind, events, kw, ms) in specs.items():
+        rep = flops.sol_report(kind, glossy, H, W, SPP, BOUNCES, ms * 1e-3, events, **kw,
+                               alu_rate=rates["alu"], transc_rate=transc)
+        counts = flops.kernel_op_counts(kind, glossy, H, W, SPP, BOUNCES, events, **kw)
+        bound, by = flops.measured_bound_ms(counts, rates)
+        measured[name] = {"measured_bound_ms": bound, "measured_bound_by": by,
+                          "sol_fraction": bound / ms}
+        log(f"sol_report {name} ({kind}): {ms:.3f} ms, {rep['alu_ops']:.4e} alu and "
+            f"{rep['sqrt_ops']:.4e} sqrt ops, sol {rep['sol_seconds'] * 1e3:.3f} ms, "
+            f"sol_fraction {rep['sol_fraction']:.4f}; bound at the measured rates {bound:.3f} ms "
+            f"by {by} [{card}]")
+
+    def entry(name, source, replaces, launches, path, err, ms, plain_ms, counts, timed_at, **extra):
+        bound, by = flops.bound_ms(counts)
+        mbound, mby = flops.measured_bound_ms(counts, rates)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "launches_by_path": {path: launches}, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None, "measured_bound_ms": mbound, "measured_bound_by": mby,
+                "sol_fraction": mbound / ms, "timed_at": timed_at, **extra}
+
+    entries = [
+        entry("render_calib", flops.SOURCE_CALIB, flops.REPLACES_CALIB, n_calib,
+              "measure_op_rates", calib_err, calib_ms, calib_twin_ms,
+              flops.calib_ops("alu", CALIB_TIMED_REPS, threads), calib_at,
+              ms_default_reps=calib_full_ms, rates=rates, rate_samples=samples,
+              alu_saturation=saturation),
+        entry("sol_null", sp.SOURCE, sp.REPLACES, n_null, "sol_decompose", 0.0, null_ms,
+              null_twin_ms, flops.probe_op_counts("sol_null", H, W),
+              where + ", 20 launches back to back on operands packed once", ms_call=null_call_ms,
+              per_block_startup_us=decomposition["per_block_startup_us"]),
+        entry("sol_micro", sp.SOURCE, sp.REPLACES_MICRO, n_micro, "sol_decompose", 0.0, micro_ms,
+              micro_twin_ms, flops.probe_op_counts("sol_micro", H, W), where + " reload variant",
+              ms_hoisted=hoisted_ms, sass_global_loads=loads,
+              per_table_load_ns=decomposition["per_table_load_ns"]),
+    ]
+    return {"measured": measured, "entries": entries, "fwd_launches": n_fwd}
+
+
 def main() -> int:
     import torch
 
@@ -462,6 +546,7 @@ def main() -> int:
     from path_tracer_c_tpu_torch.scene.io import save_scene
     from path_tracer_c_tpu_torch.utils.bitmap import bitmap_bytes
     from path_tracer_c_tpu_torch.utils.config import FitConfig, RenderConfig, load
+    from path_tracer_c_tpu_torch.utils import flops
     from path_tracer_c_tpu_torch.utils.metrics import rays_per_render
 
     if "jax" in sys.modules:
@@ -973,13 +1058,22 @@ def main() -> int:
     fit_fus_ms = median_ms(lambda seed: rg.render_fused(
         spheres, cam, cfg.height, cfg.width, cfg.spp, cfg.max_bounces, seed))
 
-    fwd_bound, fwd_by = bound_ms(glossy, H, W, SPP, fwd_rounds, fused=False)
-    fus_bound, fus_by = bound_ms(glossy, H, W, SPP, fus_rounds, fused=True)
-    phy_bound, phy_by = bound_physical_ms(glossy, H, W, SPP, phys_events)
-    n_planes = 9 * glossy.num_materials + 3 + 12 * n_live
-    pf_bound, pf_by = bound_physical_fused_ms(glossy, H, W, SPP, pf_events, phys_events,
-                                              n_planes, geom=True, rough=False)
-    pb_bound, pb_by = bound_physical_bwd_ms(glossy, H, W, SPP, pf_events, phys_events, n_live)
+    # Each kernel's operations and bytes at the main shape, from this run's
+    # executed rounds and events (utils/flops.py), and the data-sheet bound.
+    # kernel -> (flops kind, events, keywords, milliseconds)
+    specs = {
+        "render_fwd": ("forward", {"rounds": fwd_rounds}, {}, fwd_ms),
+        "render_fused": ("fused", {"rounds": fus_rounds}, {}, fus_ms),
+        "render_phys": ("physical", phys_events, {}, phy_ms),
+        "render_phys_fused": ("physical_fused_geom", pf_events,
+                              dict(fwd_events=phys_events, n_em_cap=n_live), pf_geo_ms),
+        "render_phys_bwd": ("physical_bwd", pf_events,
+                            dict(fwd_events=phys_events, n_em_cap=n_live), pb_ms),
+    }
+    (fwd_bound, fwd_by), (fus_bound, fus_by), (phy_bound, phy_by), (pf_bound, pf_by), (
+        pb_bound, pb_by) = (
+        flops.bound_ms(flops.kernel_op_counts(kind, glossy, H, W, SPP, BOUNCES, events, **kw))
+        for kind, events, kw, _ in specs.values())
     where = f"glossy {H}x{W} {SPP}spp {BOUNCES}b"
     for what, ms in (("forward kernel", fwd_ms), ("forward kernel, again after the others",
                                                    fwd_ms2),
@@ -1017,12 +1111,16 @@ def main() -> int:
         f"{cfg.width}x{cfg.height} {cfg.spp}spp {cfg.max_bounces}b: {step_ms:.3f} ms; "
         f"its fused kernel alone {fit_fus_ms:.3f} ms [{card}]")
 
+    # -- 14. speed of light --
+    sol = speed_of_light(dev, card, glossy, cam, specs)
+
     # launches: the main paths' runs; every time, bound and round count: the
     # glossy shape named in "timed_at".
     common = {"route": "cuda", "library_ms": None, "timed_at": where}
-    log(json.dumps({"kernels": [
+    kernels = [
         {"name": "render_fwd", "source": rk.SOURCE, "replaces": rk.REPLACES,
-         "launches": fwd_launches, "launches_by_path": {"render": fwd_launches},
+         "launches": fwd_launches + sol["fwd_launches"],
+         "launches_by_path": {"render": fwd_launches, "sol_decompose": sol["fwd_launches"]},
          "max_abs_err": max_err, "ms": fwd_ms,
          "plain_ms": fwd_twin_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
          "executed_rounds": fwd_rounds, **common},
@@ -1050,7 +1148,10 @@ def main() -> int:
          "max_abs_err": pb_err, "max_abs_err_is": "largest |delta| over a leaf's largest entry",
          "ms": pb_ms, "plain_ms": pb_twin_ms, "bound_ms": pb_bound, "bound_by": pb_by,
          "executed_rounds": pf_events["rounds"], "events": pf_events, **common},
-    ]}))
+    ]
+    for entry in kernels:
+        entry.update(sol["measured"][entry["name"]])
+    log(json.dumps({"kernels": kernels + sol["entries"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

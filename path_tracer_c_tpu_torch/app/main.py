@@ -7,7 +7,10 @@ kernel (``--engine cuda``, the default) or the eager integrator
 (``--engine core``). Physical tier (importance-sampled BRDF, next-event
 estimation): its hand CUDA kernel (``--engine physical``) or its eager
 integrator (``--engine physical_core``); ``--tri-nee`` adds emissive
-triangles to the physical tier's light sampling. ``fit``: render a target
+triangles to the physical tier's light sampling; ``--bounce-stats`` logs
+and prints the per-bounce event histogram of a separate render of at most 4
+spp (the physical tier's, with its light-sample counts, for the physical
+engines). ``fit``: render a target
 with the true scene, corrupt it, and recover it with Adam. ``--mode
 materials`` (the default) corrupts albedo and emission strength and fits on
 the gradient of the fused CUDA kernel (``--engine cuda``), of the eager
@@ -172,8 +175,28 @@ def cmd_render(args):
                 seconds=t.seconds, rays_per_sec=rps)
     print(f"spp {cfg.spp}  {t.seconds:.2f}s  {rps:.3e} rays/s  "
           f"({cfg.engine} on {device})")
+    if args.bounce_stats:
+        _bounce_stats(cfg, scene, camera, metrics)
     bitmap.write_bitmap(cfg.output, u8, y_inverted=True)
     print(f"wrote {cfg.output} ({cfg.width}x{cfg.height}, {cfg.spp} spp)")
+
+
+def _bounce_stats(cfg, scene, camera, metrics):
+    """The per-bounce event histogram, counted on a render of its own at
+    ``min(spp, 4)`` samples by the engine's tier, logged as a
+    ``bounce_histogram`` record with that spp and the engine, and printed."""
+    from ..models.integrator import render_bounce_stats
+    from ..models.physical import render_bounce_stats_physical
+
+    stats_spp = min(cfg.spp, 4)
+    args = (scene, camera, cfg.height, cfg.width, stats_spp, cfg.max_bounces, cfg.seed)
+    if cfg.engine in _PHYSICAL_ENGINES:
+        stats = render_bounce_stats_physical(*args, jitter=cfg.jitter)
+    else:
+        stats = render_bounce_stats(*args)
+    stats = {k: v.tolist() for k, v in stats.items()}
+    metrics.log("bounce_histogram", spp=stats_spp, engine=cfg.engine, **stats)
+    print(f"bounce histogram ({stats_spp} spp, per bounce): {stats}")
 
 
 def _named_engine(args):
@@ -329,6 +352,10 @@ def build_parser():
     r.add_argument("--tri-nee", action="store_true", dest="tri_nee",
                    help="physical engines: light-sample emissive triangles "
                         "too (default: the config's)")
+    r.add_argument("--bounce-stats", action="store_true", dest="bounce_stats",
+                   help="log and print the per-bounce event histogram (hits, "
+                        "misses, TIR deaths; light samples on the physical "
+                        "engines) of a render at min(spp, 4)")
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     r.set_defaults(fn=cmd_render)
 

@@ -29,7 +29,12 @@
 //
 // kCount is the TPU kernel's `count_rounds`, as a second instantiation so
 // that the timed kernel carries no counter: it adds the bounce rounds every
-// thread ran (thread-rounds) to *counter. Numerics: see pt_common.cuh.
+// thread ran (thread-rounds) to counter[0], and to counter[1] the rounds
+// every warp ran times its lanes in the image (warp lane-rounds): at the end
+// of each sample the warp's in-range lanes take the largest round count of
+// the sample (__reduce_max_sync), the warp's counterpart of the TPU's tile
+// rounds. The reduction makes the warp reconverge at every sample, so the
+// count does not depend on scheduling. Numerics: see pt_common.cuh.
 
 #include "pt_common.cuh"
 
@@ -37,14 +42,17 @@ namespace {
 
 using namespace ptc;
 
-// One pixel's radiance into `out`; returns the bounce rounds it ran.
+// One pixel's radiance into `out`; returns the bounce rounds it ran. The
+// counting instantiation also adds the warp's lane-rounds of each sample to
+// `warp_rounds` on the lowest lane of `lanes`, the warp's in-range lanes.
 template <bool kCount>
 __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
                                             float* __restrict__ out, int row,
                                             int col, int height, int width,
                                             int spp, int max_bounces,
                                             uint32_t seed, int sample_offset,
-                                            int jitter, float inv_spp) {
+                                            int jitter, float inv_spp,
+                                            unsigned lanes, int& warp_rounds) {
   const uint32_t pix = static_cast<uint32_t>(row * width + col);
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
@@ -58,6 +66,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
   int rounds = 0;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < spp; ++s) {
+    const int rounds0 = rounds;
     Path q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
                         static_cast<uint32_t>(s + sample_offset), seed, jitter);
     for (int bounce = 0; bounce <= max_bounces; ++bounce) {
@@ -73,6 +82,11 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
       if (q.tr == 0.0f && q.tg == 0.0f && q.tb == 0.0f) break;
     }
     shade_end(p, q);
+    if (kCount) {
+      const int widest = __reduce_max_sync(lanes, rounds - rounds0);
+      const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+      if (lane == __ffs(lanes) - 1) warp_rounds += widest * __popc(lanes);
+    }
     acc_r += q.ar;
     acc_g += q.ag;
     acc_b += q.ab;
@@ -96,15 +110,22 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                   float inv_spp) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  int rounds = 0;
-  if (col < width && row < height) {
+  const bool in_range = col < width && row < height;
+  // The warp's lanes inside the image, taken by all 32 lanes before the
+  // range test.
+  const unsigned lanes = kCount ? __ballot_sync(0xffffffffu, in_range) : 0u;
+  int rounds = 0, warp_rounds = 0;
+  if (in_range) {
     const Params p = *reinterpret_cast<const Params*>(par);
     const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
     rounds = render_pixel<kCount>(sc, p, out, row, col, height, width, spp,
                                   max_bounces, seed, sample_offset, jitter,
-                                  inv_spp);
+                                  inv_spp, lanes, warp_rounds);
   }
-  if (kCount) block_add(rounds, counter);
+  if (kCount) {
+    block_add(rounds, counter);
+    block_add(warp_rounds, counter + 1);
+  }
 }
 
 }  // namespace
@@ -112,8 +133,8 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
 // C entry, bound with ctypes. Pointers are device pointers of contiguous
 // float32/int32 tables and the kNumParams camera/sky floats, packed by
 // ops/render_kernel.py; `out` is (height, width, 3) float32. `counter` is
-// null, or one zeroed int64 that receives the executed thread-rounds (the
-// counting instantiation runs then). Launches on `stream` of device
+// null, or two zeroed int64 that receive the executed thread-rounds and warp
+// lane-rounds (the counting instantiation runs then). Launches on `stream` of device
 // `device` and returns cudaGetLastError().
 extern "C" int render_fwd(const float* sph, const int* sph_m, int n_sph,
                           const float* tri, const int* tri_m, int n_tri,

@@ -31,17 +31,19 @@ __all__ = [
     "trace_paths",
     "render_tile",
     "render_radiance",
+    "render_bounce_stats",
     "render_image_u8",
     "DEFAULT_EPS_OFFSET",
     "EPS_OFFSET_SCALE",
 ]
 
+_STAT_KEYS = ("hits", "misses", "tir_deaths")
 DEFAULT_EPS_OFFSET = _f32(1e-4)
 EPS_OFFSET_SCALE = _f32(4e-6)  # extra offset per unit |hit point|
 
 
 def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
-                count_rounds: bool = False):
+                count_rounds: bool = False, collect_stats: bool = False):
     """Incident radiance for a batch of rays.
 
     ``origins``/``directions`` are (N, 3) (unit directions), ``state`` the
@@ -49,7 +51,10 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
     final state)``; with ``count_rounds`` also the number of ray-rounds
     that began alive (an int64 scalar tensor): a ray stays alive until it
     misses or dies of total internal reflection, which is the fused
-    kernel's exit rule (``ops/render_grad.py``).
+    kernel's exit rule (``ops/render_grad.py``). With ``collect_stats``
+    the last item returned is a dict of per-bounce ``(max_bounces + 1,)``
+    int64 event counts: ``hits`` (rays shaded), ``misses`` (sky exits) and
+    ``tir_deaths`` (refracted rays that met total internal reflection).
 
     Differentiable by ``torch.autograd`` in the material leaves and the
     sky. Every random decision is detached: the branch compares against
@@ -64,6 +69,7 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
     total = torch.zeros_like(origins)
     alive = torch.ones((n,), dtype=torch.bool, device=origins.device)
     rounds = torch.zeros((), dtype=torch.int64, device=origins.device)
+    stats = {k: [] for k in _STAT_KEYS}
 
     for _ in range(max_bounces + 1):
         if count_rounds:
@@ -72,6 +78,7 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
         miss_now = alive & ~hit.mask
         total = total + torch.where(miss_now[:, None], thr * sky, 0.0)
         alive = alive & hit.mask
+        hit_now = alive
         live = alive[:, None]
 
         m = hit.material.long()
@@ -128,11 +135,15 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
         new_o = p + offs * side * hit.normal
         o = torch.where(live, new_o, o)
         d = torch.where(live, new_d, d)
+        if collect_stats:
+            for key, mask in zip(_STAT_KEYS, (hit_now, miss_now, hit_now & died)):
+                stats[key].append(mask.sum())
 
     total = total + torch.where(alive[:, None], thr * sky, 0.0)
-    if count_rounds:
-        return total, st, rounds
-    return total, st
+    out = (total, st) + ((rounds,) if count_rounds else ())
+    if collect_stats:
+        out += ({k: torch.stack(v) for k, v in stats.items()},)
+    return out
 
 
 def render_tile(
@@ -186,6 +197,27 @@ def render_radiance(
         scene, camera, height, width, spp, max_bounces, seed,
         jitter=jitter, sample_offset=sample_offset,
     )
+
+
+def render_bounce_stats(scene: Scene, camera: Camera, height: int, width: int,
+                        spp: int, max_bounces: int, seed):
+    """Per-bounce event histogram of a full render (no jitter): a dict of
+    ``(max_bounces + 1,)`` int64 tensors on the scene's device, summed over
+    pixels and samples, keyed ``hits``, ``misses`` and ``tir_deaths`` (see
+    ``trace_paths``). Samples run one after another, so memory stays
+    O(H * W) at any spp."""
+    device = scene.device
+    if camera.device != device:
+        raise ValueError(f"camera on {camera.device}, scene on {device}")
+    pix = pixel_indices(height, width, device)
+    o, d = primary_rays(camera, height, width)
+    acc = {k: torch.zeros(max_bounces + 1, dtype=torch.int64, device=device)
+           for k in _STAT_KEYS}
+    for s in range(spp):
+        st = _rng.seed_state(pix, s, seed)
+        stats = trace_paths(scene, o, d, st, max_bounces, collect_stats=True)[-1]
+        acc = {k: acc[k] + stats[k] for k in acc}
+    return acc
 
 
 def render_image_u8(radiance: torch.Tensor) -> torch.Tensor:

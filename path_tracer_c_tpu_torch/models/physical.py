@@ -48,7 +48,7 @@ from ..ops.sampling import reflect, refract
 from ..scene.scene import Scene
 from .integrator import DEFAULT_EPS_OFFSET, EPS_OFFSET_SCALE
 
-__all__ = ["trace_paths_physical", "render_physical"]
+__all__ = ["trace_paths_physical", "render_physical", "render_bounce_stats_physical"]
 
 _TWO_PI = _f32(2.0 * math.pi)
 _SIN2_CAP = _f32(1.0 - 1e-7)
@@ -59,8 +59,9 @@ _VIS_SLACK = _f32(1e-4)
 _NOT_PORTED = {
     "row_start": "A8 (row blocks)", "rows": "A8 (row blocks)",
     "remat": "A12", "vma_axes": "A11 (parallel layer)",
-    "collect_stats": "A12 (--bounce-stats)",
 }
+_STAT_KEYS = ("hits", "misses", "tir_deaths")
+_NEE_STAT_KEYS = ("nee_candidates", "nee_visible")
 
 
 def _refuse(kwargs):
@@ -116,6 +117,7 @@ def trace_paths_physical(
     rough_grad: bool = False,
     tri_nee: bool = False,
     count_rounds: bool = False,
+    collect_stats: bool = False,
     **unported,
 ):
     """Physical-tier radiance for a batch of rays: ``(radiance (N, 3),
@@ -134,6 +136,14 @@ def trace_paths_physical(
     ``count_rounds=True`` also returns the ray-rounds that began with
     nonzero throughput (an int64 scalar tensor): the rounds a thread of the
     CUDA kernel runs.
+
+    ``collect_stats=True`` also returns, last, a dict of per-bounce
+    ``(max_bounces + 1,)`` int64 event counts: ``hits``, ``misses`` and
+    ``tir_deaths`` as in ``models.integrator.trace_paths`` (here every
+    refraction that meets total internal reflection counts, as in the JAX
+    package), and with ``nee`` the diffuse vertices that attempted a light
+    sample (``nee_candidates``) and the shadow rays among them that reached
+    the emitter (``nee_visible``).
     """
     _refuse(unported)
     n = origins.shape[0]
@@ -160,10 +170,12 @@ def trace_paths_physical(
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     prev_diff = torch.zeros((n,), dtype=torch.bool, device=dev)
     rounds = torch.zeros((), dtype=torch.int64, device=dev)
+    stats = {k: [] for k in _STAT_KEYS + (_NEE_STAT_KEYS if nee else ())}
 
     for _ in range(max_bounces + 1):
         if count_rounds:
             rounds = rounds + (alive & (thr.detach() != 0.0).any(dim=-1)).sum()
+        alive_in = alive
         hit = trace(o, d, scene)
         miss_now = alive & ~hit.mask
         total = total + torch.where(miss_now[:, None], thr * sky, 0.0)
@@ -334,11 +346,19 @@ def trace_paths_physical(
         d = torch.where(live, new_d, d)
         if nee:
             prev_diff = torch.where(alive, choose_diff, prev_diff)
+        if collect_stats:
+            masks = [alive_in & hit.mask, miss_now, died]
+            if nee:
+                cand = alive & choose_diff & pool_ok & branch_ok & (cos_surf > 0.0)
+                masks += [cand, cand & visible]
+            for key, mask in zip(stats, masks):
+                stats[key].append(mask.sum())
 
     total = total + torch.where(alive[:, None], thr * sky, 0.0)
-    if count_rounds:
-        return total, st, rounds
-    return total, st
+    out = (total, st) + ((rounds,) if count_rounds else ())
+    if collect_stats:
+        out += ({k: torch.stack(v) for k, v in stats.items()},)
+    return out
 
 
 def render_physical(
@@ -384,3 +404,38 @@ def render_physical(
             rounds += int(out[2])
     img = (accum / spp).reshape(height, width, 3)
     return (img, rounds) if count_rounds else img
+
+
+def render_bounce_stats_physical(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed,
+    nee: bool = True,
+    jitter: bool = False,
+):
+    """Physical-tier per-bounce event histogram of a full render: a dict of
+    ``(max_bounces + 1,)`` int64 tensors on the scene's device, summed over
+    pixels and samples: the reference tier's ``hits``, ``misses`` and
+    ``tir_deaths`` and, with ``nee``, ``nee_candidates`` and ``nee_visible``
+    (see ``trace_paths_physical``). Samples run one after another."""
+    device = scene.device
+    if camera.device != device:
+        raise ValueError(f"camera on {camera.device}, scene on {device}")
+    pix = pixel_indices(height, width, device)
+    rays = primary_rays(camera, height, width)
+    keys = _STAT_KEYS + (_NEE_STAT_KEYS if nee else ())
+    acc = {k: torch.zeros(max_bounces + 1, dtype=torch.int64, device=device) for k in keys}
+    for s in range(spp):
+        st = _rng.seed_state(pix, s, seed)
+        if jitter:
+            o, d, st = primary_rays(camera, height, width, st)
+        else:
+            o, d = rays
+        stats = trace_paths_physical(scene, o, d, st, max_bounces, nee=nee,
+                                     collect_stats=True)[-1]
+        acc = {k: acc[k] + stats[k] for k in keys}
+    return acc

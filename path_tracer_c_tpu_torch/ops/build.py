@@ -20,7 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "load_library", "resource_usage"]
+__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "library_path", "load_library",
+           "resource_usage"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -61,6 +62,14 @@ _SIGNATURES = {
     # params, the image's cotangent, the two outputs, nee, tri_nee, n_em_cap
     # (csrc/render_phys_bwd.cu)
     "render_phys_bwd": (_SCENE[:-1] + [_P] * 8 + [_P] * 4 + [_I] * 3 + _RUN, ctypes.c_int),
+    # x, out, n, kind, reps, device index, stream (csrc/calib.cu)
+    "calib": ([_P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+    # the scene tables and params as render_fwd takes them, out, height,
+    # width, device index, stream (csrc/sol_probes.cu)
+    "sol_null": (_SCENE + [_P, _I, _I, _I, _P], ctypes.c_int),
+    # table, seed, out, height, width, objects, reps, hoisted, device index,
+    # stream
+    "sol_micro": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
 }
 
 
@@ -93,7 +102,8 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
-def _library_path() -> Path:
+def library_path() -> Path:
+    """The library built from the current sources and flags."""
     return build_dir() / f"libpt_kernels_{_digest(_sources())}.so"
 
 
@@ -101,7 +111,7 @@ def resource_usage() -> str:
     """What ptxas said of each kernel when the loaded library was built
     (``-Xptxas -v``): registers, stack frame, spill stores and loads."""
     load_library()
-    return _library_path().with_suffix(".ptxas.txt").read_text()
+    return library_path().with_suffix(".ptxas.txt").read_text()
 
 
 @functools.cache
@@ -110,7 +120,7 @@ def load_library() -> ctypes.CDLL:
     entry points' argument types. Raises if nvcc fails."""
     sources = _sources()
     out_dir = build_dir()
-    lib_path = _library_path()
+    lib_path = library_path()
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         # Build under a temporary name, then rename: a concurrent process

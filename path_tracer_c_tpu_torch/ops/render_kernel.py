@@ -25,7 +25,9 @@ from .camera import Camera, pixel_indices
 from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
 
-__all__ = ["render_kernel", "render_kernel_reference", "SOURCE", "REPLACES"]
+__all__ = ["render_kernel", "render_kernel_reference", "render_kernel_round_counts",
+           "render_kernel_round_counts_reference", "reference_pixel_rounds",
+           "warp_lane_rounds", "SOURCE", "REPLACES"]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_fwd.cu"
 REPLACES = "path_tracer_c_tpu/ops/pallas_kernels.py:453"
@@ -189,6 +191,20 @@ def render_kernel(
             scene, camera, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, count_rounds=count_rounds,
         )
+    out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
+                           sample_offset, jitter, count_rounds)
+    return (out, int(counter[0])) if count_rounds else out
+
+
+render_kernel.launches = 0
+
+
+def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+            count):
+    """Launch B1 on the scene's CUDA device; with ``count``, the counting
+    instantiation, whose two counters (thread-rounds, warp lane-rounds) come
+    back beside the image."""
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
     from .build import load_library
@@ -197,7 +213,7 @@ def render_kernel(
     operands = _scene_operands(scene)
     par = _camera_params(camera, scene, height, width)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    counter = torch.zeros((), dtype=torch.int64, device=device) if count_rounds else None
+    counter = torch.zeros(2, dtype=torch.int64, device=device) if count else None
     err = lib.render_fwd(
         *_table_args(operands), _ptr(par), _ptr(out), _ptr(counter),
         *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
@@ -205,10 +221,78 @@ def render_kernel(
     if err != 0:
         raise RuntimeError(f"render_fwd kernel launch failed: CUDA error {err}")
     render_kernel.launches += 1
-    return (out, int(counter)) if count_rounds else out
+    return out, counter
 
 
-render_kernel.launches = 0
+def render_kernel_round_counts(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    sample_offset: int = 0,
+    jitter: bool = False,
+) -> dict:
+    """The rounds B1 runs for one render: ``thread_rounds`` (as
+    ``count_rounds``) and ``warp_lane_rounds``, the rounds each warp runs
+    (the most any of its lanes runs in a sample) times its lanes in the
+    image, summed over warps and samples; their difference is the lane
+    slots lost to divergence. A warp is 32 consecutive columns of one row,
+    starting at a multiple of 32 (the launch's 32 x 8 blocks). CUDA tensors
+    run the kernel's counting instantiation (a launch: it counts in
+    ``render_kernel.launches``), CPU tensors the plain twin."""
+    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    if scene.device.type == "cpu":
+        return render_kernel_round_counts_reference(
+            scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter)
+    _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                         jitter, True)
+    thread_rounds, warp_rounds = counter.tolist()
+    return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
+
+
+def render_kernel_round_counts_reference(scene, camera, height, width, spp, max_bounces, seed,
+                                         sample_offset=0, jitter=False) -> dict:
+    """Plain twin of ``render_kernel_round_counts``, on the scene's device:
+    the twin's rounds of every pixel, grouped by warp one sample at a
+    time."""
+    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    counts = {"thread_rounds": 0, "warp_lane_rounds": 0}
+
+    def add(rounds):
+        counts["thread_rounds"] += int(rounds.sum())
+        counts["warp_lane_rounds"] += warp_lane_rounds(rounds[None])
+
+    _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+               on_sample=add)
+    return counts
+
+
+def warp_lane_rounds(rounds: torch.Tensor) -> int:
+    """Warp lane-rounds of per-(sample, pixel) round counts ``rounds``
+    (spp, H, W): each warp (32 columns of a row from a multiple of 32)
+    runs, in each sample, as many rounds as its longest lane, for each of
+    its lanes inside the image."""
+    spp, height, width = rounds.shape
+    n_warps = -(-width // 32)
+    padded = torch.zeros((spp, height, 32 * n_warps), dtype=rounds.dtype, device=rounds.device)
+    padded[..., :width] = rounds
+    widest = padded.reshape(spp, height, n_warps, 32).amax(dim=-1)
+    lanes = torch.clamp(width - 32 * torch.arange(n_warps, device=rounds.device), max=32)
+    return int((widest * lanes).sum())
+
+
+def reference_pixel_rounds(scene, camera, height, width, spp, max_bounces, seed,
+                           sample_offset=0, jitter=False) -> torch.Tensor:
+    """The plain twin's rounds of every (sample, pixel), (spp, H, W) int64:
+    those that begin with nonzero throughput, the rounds a thread of the
+    kernel runs."""
+    per_sample = []
+    _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+               on_sample=per_sample.append)
+    return torch.stack(per_sample)
 
 
 # -- the plain twin --------------------------------------------------------
@@ -411,6 +495,16 @@ def render_kernel_reference(
     ``count_rounds`` it also counts the rounds the kernel's threads run:
     those a path begins with nonzero throughput."""
     _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    rounds = []
+    img = _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                     jitter, on_sample=(lambda r: rounds.append(r.sum())) if count_rounds else None)
+    return (img, int(sum(rounds))) if count_rounds else img
+
+
+def _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+               on_sample=None):
+    """The twin's image; ``on_sample``, where given, receives each sample's
+    (H, W) int64 rounds of every pixel."""
     device = scene.device
     sph, sph_m, tri, tri_m, mat_tab = _scene_operands(scene)
     par = _camera_params(camera, scene, height, width)
@@ -426,7 +520,6 @@ def render_kernel_reference(
     one = torch.ones(n, dtype=torch.float32, device=device)
 
     acc = (zero, zero, zero)
-    rounds = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(spp):
         st = _rng.seed_state(pix, s + sample_offset, seed)
         d = pd
@@ -435,15 +528,17 @@ def render_kernel_reference(
             st, jy = _rng.uniform(st)
             d = _camera_dir(par, cols + jx, rows + jy, fw, fh)
         o, thr, rad = origin, (one, one, one), (zero, zero, zero)
+        rounds = torch.zeros(n, dtype=torch.int64, device=device)
         for _ in range(max_bounces + 1):
-            if count_rounds:
+            if on_sample is not None:
                 # A miss and a death by total internal reflection zero the
                 # throughput too, so this is the kernel's one exit test.
-                rounds = rounds + ((thr[0] != 0.0) | (thr[1] != 0.0) | (thr[2] != 0.0)).sum()
+                rounds = rounds + ((thr[0] != 0.0) | (thr[1] != 0.0) | (thr[2] != 0.0))
             hit = _closest_hit(sph, sph_m, tri, tri_m, o, d)
             mats = _fetch_materials(mat_tab, hit[2])
             o, d, thr, rad, st, _ = _shade(hit, mats, o, d, thr, rad, st, sky)
         acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
+        if on_sample is not None:
+            on_sample(rounds.reshape(height, width))
     inv = _f32(1.0 / spp)
-    img = torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
-    return (img, int(rounds)) if count_rounds else img
+    return torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 __all__ = ["rays_per_render", "Timer", "MetricsLogger", "throughput"]
 
@@ -59,3 +60,8 @@ class MetricsLogger:
             with open(self.path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         return rec
+
+    @staticmethod
+    def read(path) -> list[dict]:
+        """The records of a JSONL metrics file."""
+        return [json.loads(line) for line in Path(path).read_text().splitlines() if line.strip()]

@@ -1,0 +1,43 @@
+#!/usr/bin/env python3
+"""Decompose the PyTorch port's forward kernel time against its speed of light.
+
+Runs ``path_tracer_c_tpu_torch.utils.sol_decompose`` on one CUDA device at
+the bench workload (glossy, 1024^2, 64 spp, 8 bounces; ``--small``: 256^2,
+8 spp, 4 bounces) and prints one JSON line: B1's time, the per-class op
+rates kernel B6 measured, and the shares of the time taken by the counted
+operations, divergence, block start and end (B7), table loads (B8) and the
+remainder, with the card's name and power limit as nvidia-smi reports them.
+From the repository root:
+
+    python3 scripts/torch_sol_decompose.py [--small]
+
+Needs a CUDA device and the CUDA toolkit (the kernels are built on first
+use into build/kernels/); exits non-zero without them.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_sol_decompose: no CUDA device")
+    from path_tracer_c_tpu_torch.utils.sol_decompose import sol_decompose
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    out = sol_decompose("cuda", small="--small" in sys.argv)
+    print(json.dumps({**out, "card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

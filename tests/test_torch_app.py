@@ -111,7 +111,9 @@ def test_port_does_not_import_jax():
             "path_tracer_c_tpu_torch.ops.render_grad, path_tracer_c_tpu_torch.ops.build, "
             "path_tracer_c_tpu_torch.ops.render_physical, path_tracer_c_tpu_torch.models.physical, "
             "path_tracer_c_tpu_torch.ops.render_physical_grad, "
-            "path_tracer_c_tpu_torch.grad.diff, path_tracer_c_tpu_torch.utils.config; "
+            "path_tracer_c_tpu_torch.grad.diff, path_tracer_c_tpu_torch.utils.config, "
+            "path_tracer_c_tpu_torch.utils.flops, path_tracer_c_tpu_torch.utils.profiling, "
+            "path_tracer_c_tpu_torch.utils.sol_decompose, path_tracer_c_tpu_torch.ops.sol_probes; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'path_tracer_c_tpu' not in sys.modules, 'the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)

@@ -332,3 +332,67 @@ def test_physical_gradient_kernels_reject_bad_inputs(cuda_device):
     assert (pg.render_physical_fused.launches, pg.render_physical_bwd.launches) == launches
     out = pg.render_physical_fused(scene, cam, 8, 8, 1, pg.MAX_BOUNCES, 0)
     assert torch.equal(out[0], rp.render_physical_kernel(scene, cam, 8, 8, 1, pg.MAX_BOUNCES, 0))
+
+
+# -- the speed-of-light kernels ------------------------------------------------
+
+
+def ulps(a, b):
+    ia, ib = (x.contiguous().view(torch.int32).to(torch.int64) for x in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return (ia - ib).abs()
+
+
+@pytest.mark.parametrize("kind", ["alu", "sqrt", "trig", "explog"])
+def test_calibration_kernel_matches_twin(cuda_device, kind):
+    """Within 2 ulp (the card's cosf and log1pf against PyTorch's cos and
+    log1p); the alu and sqrt chains bit for bit."""
+    from path_tracer_c_tpu_torch.utils import flops
+
+    x = torch.linspace(-1.0, 1.0, 5000, device=cuda_device)
+    launches = flops.calib_kernel.launches
+    k = flops.calib_kernel(kind, 4, x)
+    r = flops.calib_reference(kind, 4, x)
+    assert flops.calib_kernel.launches == launches + 1
+    assert bool(torch.isfinite(k).all()) and int(ulps(k, r).max()) <= 2
+    if kind in ("alu", "sqrt"):
+        assert torch.equal(k, r)
+
+
+def test_op_rates_are_positive(cuda_device):
+    from path_tracer_c_tpu_torch.utils import flops
+
+    for kind in ("alu", "sqrt"):
+        rate, samples = flops.measure_op_rate(kind, reps=64, iters=2, with_spread=True,
+                                              device=cuda_device)
+        assert rate > 0 and len(samples) == 2
+
+
+@pytest.mark.parametrize("h, w", [(19, 45), (100, 160)])
+def test_probes_equal_their_twins(cuda_device, h, w):
+    from path_tracer_c_tpu_torch.ops import sol_probes as sp
+
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    launches = sp.sol_null.launches, sp.sol_micro.launches
+    assert torch.equal(sp.sol_null(scene, cam, h, w), sp.sol_null_reference(scene, cam, h, w))
+    table, seed = sp.micro_table(cuda_device), torch.tensor([[7]], dtype=torch.int32,
+                                                              device=cuda_device)
+    ref = sp.sol_micro_reference(table, seed, h, w)
+    for hoisted in (False, True):
+        assert torch.equal(sp.sol_micro(table, seed, h, w, hoisted), ref)
+    assert (sp.sol_null.launches, sp.sol_micro.launches) == (launches[0] + 1, launches[1] + 2)
+
+
+@pytest.mark.parametrize("h, w, kw", [(19, 45, {}), (100, 160, dict(jitter=True, sample_offset=3))])
+def test_warp_lane_rounds_match_twin(cuda_device, h, w, kw):
+    """The counting instantiation's warp lane-rounds equal the twin's, its
+    thread-rounds count_rounds', and its image is unchanged."""
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    args = (scene, cam, h, w, 4, 8, 7)
+    got = rk.render_kernel_round_counts(*args, **kw)
+    assert got == rk.render_kernel_round_counts_reference(*args, **kw)
+    img, n = rk.render_kernel(*args, count_rounds=True, **kw)
+    assert n == got["thread_rounds"] == rk.render_kernel_reference(*args, count_rounds=True, **kw)[1]
+    assert torch.equal(img, rk.render_kernel(*args, **kw))
+    assert 0 < got["thread_rounds"] <= got["warp_lane_rounds"] <= h * w * 4 * 9

@@ -153,7 +153,20 @@ def test_tri_nee_reduces_variance_and_keeps_the_mean():
 
 @pytest.mark.parametrize("name", ["row_start", "rows", "remat", "vma_axes", "collect_stats"])
 def test_unported_arguments_are_refused_by_name(name):
+    """Arguments still to be ported are refused with their ROADMAP item.
+    ``collect_stats`` is ported: ``trace_paths_physical`` takes it, and
+    ``render_physical``, like the JAX function, has no such argument."""
     pscene = carry(jdemo.diffuse_sphere_scene())
+    if name == "collect_stats":
+        o, d = P.primary_rays(PCAM, 2, 2)
+        from path_tracer_c_tpu_torch.ops import rng
+
+        st = rng.seed_state(torch.arange(4), 0, 0)
+        stats = trace_paths_physical(pscene, o, d, st, 1, collect_stats=True)[-1]
+        assert set(stats) == {"hits", "misses", "tir_deaths", "nee_candidates", "nee_visible"}
+        with pytest.raises(TypeError):
+            render_physical(pscene, PCAM, 8, 8, 1, 1, 0, collect_stats=1)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
         render_physical(pscene, PCAM, 8, 8, 1, 1, 0, **{name: 1})
     with pytest.raises(TypeError):
