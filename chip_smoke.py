@@ -25,7 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    mixed scene (emission, glass, diffuse) and a scene whose only material
    is exactly black, and at the shapes of both gradient main paths (glossy
    at 1024x1024; the 33 materials of the fit's configuration at its own
-   size). ``count_rounds`` of both kernels must equal their twins'.
+   size), a ragged size with no bounce and one at the bounce cap.
+   ``count_rounds`` of both kernels must equal their twins', and B2's
+   thread- and warp lane-rounds (per sample, its schedule) the twin's.
 6. the gradient against autograd: ``render_kernel_vjp`` + ``backward`` on
    the card against ``torch.autograd`` through the eager integrator.
 7. the gradient main path: ``loss_and_grad(engine="cuda")`` on the glossy
@@ -51,8 +53,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    geometry, triangle-emitter vertices) its twin's value for value, on
    cornell, glossy, the mixed and black scenes and the triangle-and-sphere-lit
    scene, with next-event estimation off, jitter on and off, a sample offset,
-   ``rough_grad``, caps below, at and above the live emitter counts; the
-   counted rounds and valid light samples must equal the twin's.
+   ``rough_grad``, caps below, at and above the live emitter counts, a
+   ragged size with no bounce and one at the bounce cap; the counted rounds
+   and valid light samples, and the thread- and warp lane-rounds, must equal
+   the twin's.
 11. two-pass kernel against its plain twin and against the fused kernel's
    contraction, at the tolerance stated at ``BWD_RTOL``; then
    ``render_physical_kernel_vjp`` + ``backward`` against ``torch.autograd``
@@ -80,7 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    shape; the ALU rate at twice the launch size within 5% of the rate at the
    default size; the probes' times; ``sol_report`` of the five render
    kernels at phase 13's times, and every kernel's bound at the measured
-   rates.
+   rates; B2's and B4's measurement instantiations against the kernels
+   (images, and but for the sinks planes, value for value); the
+   decompositions of B2's and B4's times (``fused_decompose``), with the
+   twins' warp lane-rounds at the main shape under both schedules.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -376,20 +383,23 @@ def sass_global_loads(patterns: dict) -> dict:
     return loads
 
 
-def speed_of_light(dev, card, glossy, cam, specs) -> dict:
+def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
     """Phase 14: B6, B7 and B8 against their twins; B1's warp lane-rounds
     against the twin's; the speed-of-light path (the op rates and the
     decomposition of B1's time) with its launches counted; the ALU rate's
-    saturation; the probes' times; and ``sol_report`` of B1-B5 from phase
-    13's times. ``specs``: kernel name -> (flops kind, events, keywords,
-    milliseconds). Returns the measured bounds of B1-B5, the new kernels'
-    entries, and B1's launches on this path."""
+    saturation; the probes' times; ``sol_report`` of B1-B5 from phase 13's
+    times; and the decompositions of B2's and B4's times. ``specs``: kernel
+    name -> (flops kind, events, keywords, milliseconds); ``twin_rounds``:
+    ``round_groupings`` of B2's and B4's twins at the main shape, by
+    ``fused_decompose`` kind. Returns the measured bounds of B1-B5, B2's and
+    B4's rounds and decompositions, the new kernels' entries, and B1's
+    launches on this path."""
     import torch
 
     from path_tracer_c_tpu_torch.ops import render_kernel as rk
     from path_tracer_c_tpu_torch.ops import sol_probes as sp
     from path_tracer_c_tpu_torch.utils import flops
-    from path_tracer_c_tpu_torch.utils.sol_decompose import sol_decompose
+    from path_tracer_c_tpu_torch.utils.sol_decompose import fused_decompose, sol_decompose
 
     threads = flops.default_threads(dev)
     x = torch.linspace(-1.0, 1.0, threads, device=dev)
@@ -464,6 +474,41 @@ def speed_of_light(dev, card, glossy, cam, specs) -> dict:
     if abs(saturation - 1.0) > 0.05:
         raise AssertionError("the ALU rate does not saturate at the default launch size")
 
+    # The measurement instantiations that price B2's and B4's time compute
+    # the kernels' image and, but for the sinks, their planes.
+    from path_tracer_c_tpu_torch.ops import render_grad as rg
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+
+    log("B2's and B4's measurement instantiations vs the kernels (all must be equal):")
+    for h, w, bounces in ((37, 45, 3), (100, 160, 8)):
+        args = (glossy, cam, h, w, 4, bounces, 7)
+        out = {"B2": rg.render_fused(*args, jitter=True),
+               "B4": pg.render_physical_fused(*args, n_em_cap=1)}
+        for variant in rg.VARIANTS.keys() | pg.VARIANTS.keys():
+            if variant == "registers" and bounces >= rg.REGISTER_ROUNDS:
+                continue
+            got = {}
+            if variant in rg.VARIANTS:
+                got["B2"] = rg.render_fused_variant(*args, variant, jitter=True)
+            if variant in pg.VARIANTS:
+                got["B4"] = pg.render_physical_fused_variant(*args, variant, n_em_cap=1)
+            for name, v in got.items():
+                what = f"{name} {variant} glossy {h}x{w} 4spp {bounces}b"
+                compare_exact(v[0], out[name][0], what + " image")
+                if variant != "sink":
+                    for a, b in zip(v[1:], out[name][1:]):
+                        compare_exact(a, b, what + " planes")
+
+    # Where B2's and B4's times go, at the measured rates.
+    fused_parts = {}
+    for kind, name in (("fused", "render_fused"), ("physical_fused", "render_phys_fused")):
+        d = fused_decompose(kind, dev, rates=rates, twin_counts=twin_rounds[kind])
+        log(f"fused_decompose {kind} [{card}] " + json.dumps(d))
+        fused_parts[name] = {
+            "warp_lane_rounds": d["warp_lane_rounds"],
+            "warp_lane_rounds_regen": d["warp_lane_rounds_regen"],
+            "decomposition": {k: v for k, v in d.items() if k.endswith("_fraction")}}
+
     # Times of the new kernels and their twins.
     xs = torch.full((threads,), 1.0, device=dev)
     calib_ms = median_ms(lambda s: flops.calib_kernel("alu", CALIB_TIMED_REPS, xs))
@@ -525,7 +570,7 @@ def speed_of_light(dev, card, glossy, cam, specs) -> dict:
               ms_hoisted=hoisted_ms, sass_global_loads=loads,
               per_table_load_ns=decomposition["per_table_load_ns"]),
     ]
-    return {"measured": measured, "entries": entries, "fwd_launches": n_fwd}
+    return {"measured": measured, "fused": fused_parts, "entries": entries, "fwd_launches": n_fwd}
 
 
 def main() -> int:
@@ -634,18 +679,32 @@ def main() -> int:
     cases.append((f"spheres32 {cfg.height}x{cfg.width} {cfg.spp}spp {cfg.max_bounces}b "
                   f"{spheres.num_materials} materials (the fit's shape)",
                   (spheres, cam, cfg.height, cfg.width, cfg.spp, cfg.max_bounces, 1), {}))
-    cases.append((f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b (main shape)",
-                  (glossy, cam, H, W, SPP, BOUNCES, 1), {}))
+    cases.append(("glossy_scene 19x45 4spp 0b (ragged, no bounce)",
+                  (scenes["glossy_scene"], cam, 19, 45, 4, 0, 7), {}))
+    cases.append((f"mixed_scene 37x45 2spp {rg.MAX_BOUNCES}b jitter (ragged, the bounce cap)",
+                  (scenes["mixed_scene"], cam, 37, 45, 2, rg.MAX_BOUNCES, 7), dict(jitter=True)))
+    main_args = (glossy, cam, H, W, SPP, BOUNCES, 1)
+    cases.append((f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b (main shape)", main_args, {}))
     jac_err = 0.0
     for what, args, kw in cases:
         img, jac = rg.render_fused(*args, **kw)
         if not torch.equal(img, rk.render_kernel(*args, **kw)):
             raise AssertionError(f"{what}: fused image differs from render_kernel's")
-        r_img, r_jac = rg.render_fused_reference(*args, **kw)
+        pixel_rounds = []
+        r_img, r_jac = rg.render_fused_reference(*args, on_sample=pixel_rounds.append, **kw)
         torch.cuda.synchronize()
         compare_exact(img, r_img, what + " image")
         jac_err = max(jac_err, compare_exact(jac, r_jac, what + " Jacobian"))
         del img, jac, r_img, r_jac
+        twin = rk.round_groupings(torch.stack(pixel_rounds))
+        del pixel_rounds
+        got = rg.render_fused_round_counts(*args, **kw)
+        log(f"    rounds {got}, equal to the twin's; path regeneration would run "
+            f"{twin['warp_lane_rounds_regen']} warp lane-rounds")
+        if any(got[k] != twin[k] for k in got):
+            raise AssertionError(f"{what}: rounds {got}, twin {twin}")
+        if args is main_args:
+            fused_twin_rounds = twin
     for name in ("glossy_scene", "black_albedo_scene"):
         args = (scenes[name], cam, 100, 160, 4, 8, 7)
         kw = dict(sample_offset=3, jitter=True, count_rounds=True)
@@ -814,13 +873,19 @@ def main() -> int:
         ("tri_light_scene", dict(tri_nee=True, n_em_cap=3, tri_em_cap=1, jitter=False)),
         ("mixed_scene", dict(tri_nee=True, n_em_cap=1, tri_em_cap=1, sample_offset=64)),
         ("black_albedo_scene", dict(n_em_cap=1)),
+        ("glossy_scene", dict(n_em_cap=1), (19, 45, 4, 0)),  # ragged, no bounce
+        ("tri_light_scene", dict(tri_nee=True, n_em_cap=1, tri_em_cap=2),
+         (37, 45, 2, pg.MAX_BOUNCES)),  # ragged, the bounce cap
     ]
     pf_err = 0.0
-    for name, kw in pf_cases:
-        args = (phys_scenes[name], cam, 100, 160, 4, 8, 7)
-        what = f"{name} 100x160 4spp 8b {kw}"
+    for name, kw, *shape in pf_cases:
+        h, w, spp, bounces = shape[0] if shape else (100, 160, 4, 8)
+        args = (phys_scenes[name], cam, h, w, spp, bounces, 7)
+        what = f"{name} {h}x{w} {spp}spp {bounces}b {kw}"
         out = pg.render_physical_fused(*args, count_events=True, **kw)
-        ref = pg.render_physical_fused_reference(*args, count_events=True, **kw)
+        pixel_rounds = []
+        ref = pg.render_physical_fused_reference(*args, count_events=True,
+                                                 on_sample=pixel_rounds.append, **kw)
         fwd_kw = {k: v for k, v in kw.items() if k in fwd_keys}
         b3, n_fwd = rp.render_physical_kernel(*args, count_rounds=True, **fwd_kw)
         torch.cuda.synchronize()
@@ -835,7 +900,13 @@ def main() -> int:
             raise AssertionError(f"{what}: events {out[-1]}, twin {ref[-1]}, forward rounds {n_fwd}")
         if not all(torch.equal(a, b) for a, b in zip(pg.render_physical_fused(*args, **kw), out)):
             raise AssertionError(f"{what}: the counting instantiation's outputs differ")
-        log(f"    events {out[-1]} (forward kernel: {n_fwd} rounds), equal to the twin's")
+        twin = rk.round_groupings(torch.stack(pixel_rounds))
+        got = pg.render_physical_fused_round_counts(*args, **fwd_kw)
+        if any(got[k] != twin[k] for k in got):
+            raise AssertionError(f"{what}: rounds {got}, twin {twin}")
+        log(f"    events {out[-1]} (forward kernel: {n_fwd} rounds), rounds {got}, equal to the "
+            f"twin's; path regeneration would run {twin['warp_lane_rounds_regen']} warp "
+            f"lane-rounds")
 
     # -- 11. two-pass kernel against its twin and the fused contraction; the
     # gradient against autograd --
@@ -944,13 +1015,22 @@ def main() -> int:
     geo_kw = dict(n_em_cap=n_live)
     pf_main = pg.render_physical_fused(glossy, cam, H, W, SPP, BOUNCES, 1, count_events=True, **geo_kw)
     pf_events = pf_main[-1]
+    pixel_rounds = []
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     pf_twin = pg.render_physical_fused_reference(glossy, cam, H, W, SPP, BOUNCES, 1,
-                                                 count_events=True, **geo_kw)
+                                                 count_events=True, on_sample=pixel_rounds.append,
+                                                 **geo_kw)
     end.record()
     torch.cuda.synchronize()
     pf_twin_ms = start.elapsed_time(end)
+    phys_fused_twin_rounds = rk.round_groupings(torch.stack(pixel_rounds))
+    del pixel_rounds
+    got = pg.render_physical_fused_round_counts(glossy, cam, H, W, SPP, BOUNCES, 1)
+    if any(got[k] != phys_fused_twin_rounds[k] for k in got):
+        raise AssertionError(f"main shape: rounds {got}, twin {phys_fused_twin_rounds}")
+    log(f"    rounds {got}, equal to the twin's; path regeneration would run "
+        f"{phys_fused_twin_rounds['warp_lane_rounds_regen']} warp lane-rounds")
     where_main = f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b {geo_kw} (main shape)"
     compare_exact(pf_main[0], pf_twin[0], where_main + " image")
     pf_err = max(pf_err, compare_exact(pf_main[1], pf_twin[1], where_main + " material and sky planes"))
@@ -1112,7 +1192,8 @@ def main() -> int:
         f"its fused kernel alone {fit_fus_ms:.3f} ms [{card}]")
 
     # -- 14. speed of light --
-    sol = speed_of_light(dev, card, glossy, cam, specs)
+    sol = speed_of_light(dev, card, glossy, cam, specs,
+                         {"fused": fused_twin_rounds, "physical_fused": phys_fused_twin_rounds})
 
     # launches: the main paths' runs; every time, bound and round count: the
     # glossy shape named in "timed_at".
@@ -1151,6 +1232,7 @@ def main() -> int:
     ]
     for entry in kernels:
         entry.update(sol["measured"][entry["name"]])
+        entry.update(sol["fused"].get(entry["name"], {}))
     log(json.dumps({"kernels": kernels + sol["entries"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -191,7 +191,7 @@ def _bounce_stats(cfg, scene, camera, metrics):
     stats_spp = min(cfg.spp, 4)
     args = (scene, camera, cfg.height, cfg.width, stats_spp, cfg.max_bounces, cfg.seed)
     if cfg.engine in _PHYSICAL_ENGINES:
-        stats = render_bounce_stats_physical(*args, jitter=cfg.jitter)
+        stats = render_bounce_stats_physical(*args, jitter=cfg.jitter, tri_nee=cfg.tri_nee)
     else:
         stats = render_bounce_stats(*args)
     stats = {k: v.tolist() for k, v in stats.items()}

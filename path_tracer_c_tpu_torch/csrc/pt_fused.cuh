@@ -1,0 +1,141 @@
+// What the two fused primal + Jacobian kernels (render_fused.cu,
+// render_phys_fused.cu) take as template policies: where a thread keeps its
+// per-bounce records, where its plane adds go, and how its two loops over
+// the rounds of a sample run. The timed kernels and their measurement
+// instantiations are one body, render_pixel, under different policies, so
+// that the difference of two instantiations' times prices one thing of the
+// kernel itself (utils/sol_decompose.fused_decompose).
+//
+// A fused kernel's thread owns one pixel. For each of its samples it runs
+// forward rounds that store per-bounce records until the path ends (a miss,
+// a structural death, or the bounce budget), then a sweep over those records
+// from the last round down, which adds into the pixel's Jacobian planes.
+
+#pragma once
+
+#include "pt_common.cuh"
+
+namespace ptc {
+
+// The threads of a fused kernel's block (32 x 8).
+constexpr int kBlockThreads = 256;
+
+// One field of a thread's per-bounce records in dynamic shared memory: round
+// b at p[b * kBlockThreads], the block's threads side by side, so that a
+// warp's 32 accesses to one round fall in distinct banks.
+template <class T>
+struct SmemField {
+  T* p;
+  __device__ __forceinline__ T& operator[](int b) const { return p[b * kBlockThreads]; }
+};
+
+// The thread's slot in a field of `rounds` rounds that starts at `base`;
+// returns the field and moves `base` past it.
+template <class T>
+__device__ __forceinline__ SmemField<T> smem_field(unsigned char*& base, int rounds) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  SmemField<T> f{reinterpret_cast<T*>(base) + tid};
+  base += sizeof(T) * static_cast<size_t>(rounds) * kBlockThreads;
+  return f;
+}
+
+// Add `v` into a Jacobian plane at `p`: the kernels' read-modify-write of
+// device memory.
+struct PlaneAdds {
+  __device__ __forceinline__ void add(float* p, float v) { *p += v; }
+  __device__ __forceinline__ void flush(float*) {}
+};
+
+// The measurement instantiation's stand-in for PlaneAdds: the same values, in
+// the same order, summed into one register and stored once at the pixel's end
+// (flush), so that the difference of the two prices the planes' memory
+// traffic. Its planes are not the Jacobian.
+struct PlaneSink {
+  float sum = 0.0f;
+  __device__ __forceinline__ void add(float*, float v) { sum += v; }
+  __device__ __forceinline__ void flush(float* p) { *p = sum; }
+};
+
+// An instantiation of a fused kernel: its per-bounce records (`Records`,
+// which has a `place(base, rounds)` and, where they live in dynamic shared
+// memory, kShared), its plane adds (PlaneAdds or PlaneSink), kUnroll (0: the
+// loops over the rounds run to the run-time bounce budget; n > 0: they are
+// unrolled to n rounds, so that every record index is a constant and records
+// of n entries stay in registers) and the blocks a multiprocessor that ptxas
+// budgets its registers for.
+template <class Records_, class Adds_, int kUnroll_, int kMinBlocks_>
+struct Policy {
+  using Records = Records_;
+  using Adds = Adds_;
+  static constexpr int kUnroll = kUnroll_;
+  static constexpr int kMinBlocks = kMinBlocks_;
+};
+
+// The measurement instantiations of both kernels, which no user path runs,
+// each one policy away from the timed kernel: the plane adds into a PlaneSink;
+// the records in registers (kRegisterRounds rounds: max_bounces <= 3, config
+// 4's fit shape; one block a multiprocessor, so that they fit); the records
+// where the kernel does not keep them (B2: local memory; B4: shared memory).
+enum Variant : int {
+  kVarSink = 0,
+  kVarRegisters = 1,
+  kVarRecordsMoved = 2,
+};
+constexpr int kRegisterRounds = 4;
+
+// The forward rounds of one sample: round(b) for b = 0, 1, ... until it
+// returns true (the path ended) or b reaches max_bounces; returns the rounds
+// run. With kUnroll > 0 the loop is unrolled to kUnroll rounds (max_bounces <
+// kUnroll, which the caller checks).
+template <int kUnroll, class Round>
+__device__ __forceinline__ int forward_rounds(int max_bounces, Round&& round) {
+  int n = 0;
+  if constexpr (kUnroll == 0) {
+    for (int b = 0; b <= max_bounces; ++b) {
+      n = b + 1;
+      if (round(b)) break;
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < kUnroll; ++b) {
+      n = b + 1;
+      if (round(b) || b == max_bounces) break;
+    }
+  }
+  return n;
+}
+
+// The sweep of one sample: step(b) for b = n_rounds - 1 down to 0, unrolled
+// as forward_rounds.
+template <int kUnroll, class Step>
+__device__ __forceinline__ void sweep_rounds(int n_rounds, Step&& step) {
+  if constexpr (kUnroll == 0) {
+    for (int b = n_rounds - 1; b >= 0; --b) step(b);
+  } else {
+#pragma unroll
+    for (int b = kUnroll - 1; b >= 0; --b)
+      if (b < n_rounds) step(b);
+  }
+}
+
+// The warp lane-rounds of one sample (the counting instantiations): the warp's
+// in-range `lanes` wait for the longest lane's `n_rounds`, so the warp runs
+// that many rounds times their number; added to `warp_rounds` of the first
+// of them. Every lane of `lanes` must call it.
+__device__ __forceinline__ void count_warp_rounds(unsigned lanes, int n_rounds,
+                                                  int& warp_rounds) {
+  const int widest = __reduce_max_sync(lanes, n_rounds);
+  const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+  if (lane == __ffs(lanes) - 1) warp_rounds += widest * __popc(lanes);
+}
+
+// The dynamic shared memory the records of max_bounces + 1 rounds of
+// `round_bytes` each take in a block, made the limit of `kernel`.
+template <class Kernel>
+cudaError_t records_smem(Kernel kernel, int max_bounces, int round_bytes, size_t& bytes) {
+  bytes = static_cast<size_t>(max_bounces + 1) * kBlockThreads * round_bytes;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace ptc

@@ -539,18 +539,21 @@ __device__ __forceinline__ void tri_w_adjoint(const float* tp, float sox, float 
 // The forward rounds' per-bounce stores of the two gradient kernels: the
 // throughput before the round, the hit material, the event bits, and of a
 // valid light sample its weight and emitter row. Thread-private arrays of a
-// compile-time size (the compiler places them in local memory, as in
-// render_fused.cu): max_bounces + 1 <= kMaxRounds, and the wrappers raise
-// above it.
+// compile-time size, which the compiler places in local memory: B4 and B5
+// keep them so, max_bounces + 1 <= kMaxRounds, and the wrappers raise above
+// it. Only B4's measurement instantiations keep them elsewhere: in registers
+// (RoundStoresN with a small kN) or in shared memory (render_phys_fused.cu).
 constexpr int kMaxRounds = 32;
 
-struct RoundStores {
-  float pr[kMaxRounds], pg[kMaxRounds], pb[kMaxRounds];
-  float w[kMaxRounds];
-  int mat[kMaxRounds];
-  int row[kMaxRounds];
-  unsigned char ev[kMaxRounds];
+template <int kN>
+struct RoundStoresN {
+  float pr[kN], pg[kN], pb[kN];
+  float w[kN];
+  int mat[kN];
+  int row[kN];
+  unsigned char ev[kN];
 };
+using RoundStores = RoundStoresN<kMaxRounds>;
 
 // What a swept hit round contributes per unit of throughput, read back from
 // the stores and the tables: the material, the light sample's radiance term
@@ -565,8 +568,9 @@ struct SweptHit {
   bool valid;
 };
 
+template <class Stores>
 __device__ __forceinline__ SweptHit swept_hit(const Tables& sc, const Emitters& em,
-                                              const RoundStores& st, int b) {
+                                              const Stores& st, int b) {
   SweptHit s;
   s.mt = fetch_material(sc, st.mat[b]);
   s.valid = (st.ev[b] & kEvValid) != 0;

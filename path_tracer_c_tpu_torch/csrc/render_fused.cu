@@ -39,23 +39,42 @@
 //    planes (torch.zeros); the kernel only adds. The 3 sky planes are kept
 //    in registers and stored once;
 //  * the forward rounds store, per bounce, the throughput before it, the
-//    material index and one byte of events: 17 bytes, in a thread-private
-//    array that the compiler places in local memory (L1-cached, laid out
-//    so that a warp's accesses coalesce). Albedo, emission and transparency
-//    are read again from the material table in the sweep rather than
-//    stored. max_bounces is a run-time value, so the array has a
-//    compile-time size: kMaxRounds rounds, and the wrapper raises above
-//    it. Scratch in device memory allocated by the wrapper would lift the
-//    cap, at H * W * (B + 1) * 17 bytes a launch and without the L1;
+//    material index (int16) and one byte of events: 15 bytes, in dynamic
+//    shared memory sized by max_bounces + 1 at launch (35 KB a block at 8
+//    bounces, 123 KB at the cap), a field an array with the block's threads
+//    side by side, so that a warp's accesses fall in distinct banks: the
+//    kernel ran 3.4% under its parent with them in local memory at 1024^2,
+//    64 spp, 8 bounces, and 1.2% under it at 256^2, 8 spp, 3 bounces
+//    (PERF.md). Albedo, emission and transparency are read again from the
+//    material table in the sweep rather than stored. The wrapper raises
+//    above kMaxRounds rounds and 32767 materials;
 //  * the bounce loop ends only on a structural death, a miss or total
 //    internal reflection, never on zero throughput: a path that an
 //    exactly black albedo killed still owes d_albedo = g * P_b * T_b, built
 //    from the rounds after it. Those extra rounds add exact zeros to the
 //    radiance. The sweep visits only the rounds the thread ran.
 //
-// kCount: see render_fwd.cu. Numerics: see pt_common.cuh.
+// kCount is the TPU kernel's `count_rounds`, as a second instantiation so
+// that the timed kernel carries no counter: it adds the bounce rounds every
+// thread ran (thread-rounds) to counter[0], and to counter[1] the warp
+// lane-rounds, as render_fwd.cu counts them: after each sample's forward
+// rounds a warp's in-range lanes take the longest lane's rounds
+// (__reduce_max_sync), times their number. Every lane of a warp waits at
+// the end of a sample for its longest path; PERF.md has the share of lane
+// slots that idles so.
+//
+// The kernel is built for four blocks of 256 threads a multiprocessor
+// (__launch_bounds__(256, 4)): 64 registers a thread, as ptxas chose unasked,
+// with fewer spills (PERF.md).
+//
+// render_pixel takes its records, its plane adds and its loops as a policy
+// (pt_fused.cuh): render_fused_variant launches the measurement
+// instantiations, each one policy away from the kernel (the plane adds into
+// one register, the records in registers, the records in local memory). No
+// user path runs them; they price parts of the kernel's time (PERF.md).
+// Numerics: see pt_common.cuh.
 
-#include "pt_common.cuh"
+#include "pt_fused.cuh"
 
 namespace {
 
@@ -63,19 +82,60 @@ using namespace ptc;
 
 // Most bounce rounds a thread can store: max_bounces + 1 <= kMaxRounds.
 constexpr int kMaxRounds = 32;
+// Most materials: the records in shared memory hold a material as int16.
+constexpr int kMaxMaterials = 32767;
 
 constexpr unsigned char kEvMiss = 4;  // beside kRefracted and kDied
 
+// The per-bounce records of a sample: the throughput before the round, the
+// material it hit and its events. The kernel keeps them in dynamic shared
+// memory, sized by max_bounces + 1 at launch (SharedRecords); its
+// measurement instantiations in thread-private arrays of kN rounds
+// (LocalRecords: local memory, or registers where every index is a
+// constant).
+template <int kN>
+struct LocalRecords {
+  static constexpr bool kShared = false;
+  float pr[kN], pg[kN], pb[kN];
+  int mat[kN];
+  unsigned char ev[kN];
+  __device__ __forceinline__ void place(unsigned char*, int) {}
+};
+
+struct SharedRecords {
+  static constexpr bool kShared = true;
+  static constexpr int kRoundBytes = 3 * 4 + 2 + 1;
+  SmemField<float> pr, pg, pb;
+  SmemField<short> mat;
+  SmemField<unsigned char> ev;
+  // The fields of `rounds` rounds, one after another from `base`.
+  __device__ __forceinline__ void place(unsigned char* base, int rounds) {
+    pr = smem_field<float>(base, rounds);
+    pg = smem_field<float>(base, rounds);
+    pb = smem_field<float>(base, rounds);
+    mat = smem_field<short>(base, rounds);
+    ev = smem_field<unsigned char>(base, rounds);
+  }
+};
+
+// The timed kernel, and its measurement instantiations (pt_fused.cuh).
+using KernelPolicy = Policy<SharedRecords, PlaneAdds, 0, 4>;
+using SinkPolicy = Policy<SharedRecords, PlaneSink, 0, 4>;
+using RegistersPolicy = Policy<LocalRecords<kRegisterRounds>, PlaneAdds, kRegisterRounds, 1>;
+using MovedPolicy = Policy<LocalRecords<kMaxRounds>, PlaneAdds, 0, 4>;
+
 // One pixel's radiance into `img` and Jacobian into the planes of `jac`
-// (plane stride `hw`); returns the bounce rounds it ran.
-template <bool kCount>
+// (plane stride `hw`); returns the bounce rounds it ran. `smem` is the
+// block's dynamic shared memory.
+template <bool kCount, class Pol>
 __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
                                             float* __restrict__ img,
                                             float* __restrict__ jac, size_t hw,
                                             int row, int col, int height,
                                             int width, int spp, int max_bounces,
                                             uint32_t seed, int sample_offset,
-                                            int jitter, float inv_spp) {
+                                            int jitter, float inv_spp, unsigned lanes,
+                                            int& warp_rounds, unsigned char* smem) {
   const uint32_t pix = static_cast<uint32_t>(row * width + col);
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
@@ -87,9 +147,9 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
   camera_dir(p, fcol + 0.5f, frow + 0.5f, fw, fh, pdx, pdy, pdz);
 
   // Per-bounce stores of the current sample.
-  float st_pr[kMaxRounds], st_pg[kMaxRounds], st_pb[kMaxRounds];
-  int st_mat[kMaxRounds];
-  unsigned char st_ev[kMaxRounds];
+  typename Pol::Records st;
+  st.place(smem, max_bounces + 1);
+  typename Pol::Adds adds;
 
   int rounds = 0;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -99,25 +159,26 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
     Path q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
                         static_cast<uint32_t>(s + sample_offset), seed, jitter);
     // -- forward rounds, storing what the sweep needs --
-    int n_rounds = 0;
-    for (int bounce = 0; bounce <= max_bounces; ++bounce) {
-      if (kCount) ++rounds;
-      n_rounds = bounce + 1;
+    const int n_rounds = forward_rounds<Pol::kUnroll>(max_bounces, [&](int bounce) {
       const Hit h = closest_hit(sc, q);
-      st_pr[bounce] = q.tr;
-      st_pg[bounce] = q.tg;
-      st_pb[bounce] = q.tb;
-      st_mat[bounce] = h.m;
+      st.pr[bounce] = q.tr;
+      st.pg[bounce] = q.tg;
+      st.pb[bounce] = q.tb;
+      st.mat[bounce] = h.m;
       if (!(h.t < inf)) {
-        st_ev[bounce] = kEvMiss;
+        st.ev[bounce] = kEvMiss;
         shade_miss(p, q);
-        break;
+        return true;
       }
       const Material mt = fetch_material(sc, h.m);
       const int event = shade(h, mt, q);
-      st_ev[bounce] = static_cast<unsigned char>(event);
+      st.ev[bounce] = static_cast<unsigned char>(event);
       // Structural death only; zero throughput goes on (see above).
-      if (event & kDied) break;
+      return (event & kDied) != 0;
+    });
+    if (kCount) {
+      rounds += n_rounds;
+      count_warp_rounds(lanes, n_rounds, warp_rounds);
     }
     // The sky at the end of the budget, summed into the sample's radiance
     // before the accumulator, as the forward kernel does.
@@ -131,9 +192,9 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
 
     // -- sweep: last round down to 0, carrying T --
     float t_r = p.sky_r, t_g = p.sky_g, t_b = p.sky_b;
-    for (int b = n_rounds - 1; b >= 0; --b) {
-      const float pr = st_pr[b], pg = st_pg[b], pb = st_pb[b];
-      const int event = st_ev[b];
+    sweep_rounds<Pol::kUnroll>(n_rounds, [&](int b) {
+      const float pr = st.pr[b], pg = st.pg[b], pb = st.pb[b];
+      const int event = st.ev[b];
       if (event & kEvMiss) {
         k_r += pr;
         k_g += pg;
@@ -141,9 +202,9 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
         t_r = p.sky_r;
         t_g = p.sky_g;
         t_b = p.sky_b;
-        continue;
+        return;
       }
-      const int m = st_mat[b];
+      const int m = st.mat[b];
       const Material mt = fetch_material(sc, m);
       // A path that died here collects nothing downstream.
       const float th_r = (event & kDied) ? 0.0f : t_r;
@@ -155,20 +216,20 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
                            : -1.0f / fmaxf(1.0f - mt.trn, kRatioFloor);
       if (m >= 0 && m < sc.n_mat) {
         float* j = jpix + static_cast<size_t>(9 * m) * hw;
-        j[0] += ca_r;
-        j[hw] += ca_g;
-        j[2 * hw] += ca_b;
-        j[3 * hw] += pr;
-        j[4 * hw] += pg;
-        j[5 * hw] += pb;
-        j[6 * hw] += ca_r * dr;
-        j[7 * hw] += ca_g * dr;
-        j[8 * hw] += ca_b * dr;
+        adds.add(j, ca_r);
+        adds.add(j + hw, ca_g);
+        adds.add(j + 2 * hw, ca_b);
+        adds.add(j + 3 * hw, pr);
+        adds.add(j + 4 * hw, pg);
+        adds.add(j + 5 * hw, pb);
+        adds.add(j + 6 * hw, ca_r * dr);
+        adds.add(j + 7 * hw, ca_g * dr);
+        adds.add(j + 8 * hw, ca_b * dr);
       }
       t_r = mt.em_r + mt.alb_r * th_r;
       t_g = mt.em_g + mt.alb_g * th_g;
       t_b = mt.em_b + mt.alb_b * th_b;
-    }
+    });
   }
   float* o = img + 3 * static_cast<size_t>(pix);
   o[0] = acc_r * inv_spp;
@@ -178,11 +239,12 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
   k[0] = k_r;
   k[hw] = k_g;
   k[2 * hw] = k_b;
+  adds.flush(jpix);
   return rounds;
 }
 
-template <bool kCount>
-__global__ void __launch_bounds__(256)
+template <bool kCount, class Pol>
+__global__ void __launch_bounds__(256, Pol::kMinBlocks)
 render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                     int n_sph, const float* __restrict__ tri,
                     const int* __restrict__ tri_m, int n_tri,
@@ -194,16 +256,54 @@ render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m
                     float inv_spp) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  int rounds = 0;
-  if (col < width && row < height) {
+  const bool in_range = col < width && row < height;
+  // The warp's lanes inside the image, taken by all 32 lanes before the
+  // range test.
+  const unsigned lanes = kCount ? __ballot_sync(0xffffffffu, in_range) : 0u;
+  extern __shared__ float4 smem[];
+  int rounds = 0, warp_rounds = 0;
+  if (in_range) {
     const Params p = *reinterpret_cast<const Params*>(par);
     const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
     const size_t hw = static_cast<size_t>(height) * static_cast<size_t>(width);
-    rounds = render_pixel<kCount>(sc, p, img, jac, hw, row, col, height, width,
-                                  spp, max_bounces, seed, sample_offset, jitter,
-                                  inv_spp);
+    rounds = render_pixel<kCount, Pol>(sc, p, img, jac, hw, row, col, height, width,
+                                       spp, max_bounces, seed, sample_offset, jitter,
+                                       inv_spp, lanes, warp_rounds,
+                                       reinterpret_cast<unsigned char*>(smem));
   }
-  if (kCount) block_add(rounds, counter);
+  if (kCount) {
+    block_add(rounds, counter);
+    block_add(warp_rounds, counter + 1);
+  }
+}
+
+// Launch render_fused_kernel<kCount, Pol>; returns cudaGetLastError(), or
+// cudaErrorInvalidValue where max_bounces + 1 exceeds the records or n_mat
+// the int16 of shared-memory records.
+template <bool kCount, class Pol>
+int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
+           int n_tri, const float* mat, int n_mat, const float* par, float* img, float* jac,
+           unsigned long long* counter, int height, int width, int spp, int max_bounces,
+           unsigned int seed, int sample_offset, int jitter, int device, void* stream) {
+  constexpr int kRounds = Pol::kUnroll ? Pol::kUnroll : kMaxRounds;
+  if (max_bounces + 1 > kRounds || (Pol::Records::kShared && n_mat > kMaxMaterials))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
+  const dim3 block(32, 8);
+  const dim3 grid((width + block.x - 1) / block.x,
+                  (height + block.y - 1) / block.y);
+  size_t smem = 0;
+  if constexpr (Pol::Records::kShared) {
+    err = records_smem(render_fused_kernel<kCount, Pol>, max_bounces,
+                       Pol::Records::kRoundBytes, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  render_fused_kernel<kCount, Pol><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, counter,
+      height, width, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -213,10 +313,11 @@ extern "C" int render_fused_max_bounces() { return kMaxRounds - 1; }
 
 // C entry, bound with ctypes. Tables and `par` as for render_fwd; `img` is
 // (height, width, 3) float32; `jac` is (9 * n_mat + 3, height, width)
-// float32 and must arrive zero-filled; `counter` is null, or one zeroed
-// int64 that receives the executed thread-rounds. Launches on `stream` of
-// device `device` and returns cudaGetLastError(), or cudaErrorInvalidValue
-// if max_bounces is above the cap.
+// float32 and must arrive zero-filled; `counter` is null, or two zeroed
+// int64 that receive the executed thread-rounds and the warp lane-rounds
+// (the counting instantiation runs then). Launches on `stream` of device
+// `device` and returns cudaGetLastError(), or cudaErrorInvalidValue if
+// max_bounces is above the cap or n_mat above 32767.
 extern "C" int render_fused(const float* sph, const int* sph_m, int n_sph,
                             const float* tri, const int* tri_m, int n_tri,
                             const float* mat, int n_mat, const float* par,
@@ -224,16 +325,27 @@ extern "C" int render_fused(const float* sph, const int* sph_m, int n_sph,
                             int height, int width, int spp, int max_bounces,
                             unsigned int seed, int sample_offset, int jitter,
                             int device, void* stream) {
-  if (max_bounces + 1 > kMaxRounds) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
-  auto kernel = counter ? render_fused_kernel<true> : render_fused_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, counter,
-      height, width, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
-  return static_cast<int>(cudaGetLastError());
+  auto go = counter ? launch<true, KernelPolicy> : launch<false, KernelPolicy>;
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, counter, height,
+            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
+}
+
+// A measurement instantiation of render_fused (pt_fused.cuh `Variant`), with
+// its arguments but no counter. Returns cudaErrorInvalidValue for an unknown
+// variant, or where max_bounces + 1 exceeds the variant's records.
+extern "C" int render_fused_variant(int variant, const float* sph, const int* sph_m,
+                                    int n_sph, const float* tri, const int* tri_m, int n_tri,
+                                    const float* mat, int n_mat, const float* par, float* img,
+                                    float* jac, int height, int width, int spp,
+                                    int max_bounces, unsigned int seed, int sample_offset,
+                                    int jitter, int device, void* stream) {
+  decltype(&launch<false, KernelPolicy>) go = nullptr;
+  switch (variant) {
+    case kVarSink: go = launch<false, SinkPolicy>; break;
+    case kVarRegisters: go = launch<false, RegistersPolicy>; break;
+    case kVarRecordsMoved: go = launch<false, MovedPolicy>; break;
+  }
+  if (!go) return static_cast<int>(cudaErrorInvalidValue);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, nullptr, height,
+            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
 }

@@ -60,8 +60,10 @@
 //  * per bounce a thread stores the throughput before it, the material, one
 //    byte of events and, of the light sample, its weight and the emitter's
 //    row: 25 bytes (pt_phys.cuh `RoundStores`), where the TPU kernel stores 22
-//    planes. Albedo, emission, the emitter's radiance and material, dr and drg
-//    are read or recomputed from the tables in the sweep;
+//    planes, in local memory: in shared memory (23 bytes with an int16
+//    material, 53 KB a block at 8 bounces) the kernel ran 4-6% slower
+//    (PERF.md). Albedo, emission, the emitter's radiance and material, dr and
+//    drg are read or recomputed from the tables in the sweep;
 //  * a thread adds into the planes of the material it hit and of the emitter
 //    it sampled, and into the geometry planes of the one ordinal it sampled,
 //    where the TPU kernel loops over every material and ordinal under masks.
@@ -80,7 +82,19 @@
 //    it spills 164 bytes and the kernel is 19% faster without geometry
 //    planes and 13% faster with them (PERF.md): what holds the kernel is
 //    latency that more resident warps hide, not the spills' traffic.
+//
+// kCount: the counting instantiation adds the thread-rounds to counter[0],
+// the light samples that counted to counter[1] and the warp lane-rounds
+// (render_fused.cu: per sample, every lane waiting for the sample's longest
+// path) to counter[2].
+//
+// render_pixel takes its records, its plane adds and its loops as a policy
+// (pt_fused.cuh), as render_fused.cu's: render_phys_fused_variant launches
+// the measurement instantiations, built without tri_nee and rough_grad (the
+// plane adds, the geometry planes' included, into one register; the records
+// in registers; the records in shared memory). No user path runs them.
 
+#include "pt_fused.cuh"
 #include "pt_phys.cuh"
 
 namespace {
@@ -96,16 +110,54 @@ struct Planes {
   int n_em_cap, tri_em_cap;
 };
 
+// The per-bounce records of a sample. The kernel keeps RoundStores in local
+// memory (LocalStores<kMaxRounds>); LocalStores<kRegisterRounds> with its
+// loops unrolled keeps them in registers, and SharedStores keeps them in
+// dynamic shared memory sized by max_bounces + 1 at launch, mat narrowed to
+// int16 (measurement instantiations).
+template <int kN>
+struct LocalStores : RoundStoresN<kN> {
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void place(unsigned char*, int) {}
+};
+
+struct SharedStores {
+  static constexpr bool kShared = true;
+  static constexpr int kRoundBytes = 5 * 4 + 2 + 1;
+  SmemField<float> pr, pg, pb, w;
+  SmemField<int> row;
+  SmemField<short> mat;
+  SmemField<unsigned char> ev;
+  // The fields of `rounds` rounds, one after another from `base`.
+  __device__ __forceinline__ void place(unsigned char* base, int rounds) {
+    pr = smem_field<float>(base, rounds);
+    pg = smem_field<float>(base, rounds);
+    pb = smem_field<float>(base, rounds);
+    w = smem_field<float>(base, rounds);
+    row = smem_field<int>(base, rounds);
+    mat = smem_field<short>(base, rounds);
+    ev = smem_field<unsigned char>(base, rounds);
+  }
+};
+
+// The timed kernel, and its measurement instantiations (pt_fused.cuh).
+using KernelPolicy = Policy<LocalStores<kMaxRounds>, PlaneAdds, 0, 4>;
+using SinkPolicy = Policy<LocalStores<kMaxRounds>, PlaneSink, 0, 4>;
+using RegistersPolicy = Policy<LocalStores<kRegisterRounds>, PlaneAdds, kRegisterRounds, 1>;
+using MovedPolicy = Policy<SharedStores, PlaneAdds, 0, 4>;
+
 // One pixel's radiance into `img` and Jacobian planes into `pl`; returns the
 // bounce rounds it ran and adds to `n_valid` the light samples that counted.
-template <bool kCount, bool kTriNee, bool kRough>
+// `smem` is the block's dynamic shared memory.
+template <bool kCount, bool kTriNee, bool kRough, class Pol>
 __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em,
                                             const Params& p, float* __restrict__ img,
                                             const Planes& pl, int row, int col,
                                             int height, int width, int spp,
                                             int max_bounces, uint32_t seed,
                                             int sample_offset, int jitter, bool nee,
-                                            float inv_spp, int& n_valid) {
+                                            float inv_spp, unsigned lanes, int& n_valid,
+                                            int& warp_rounds, unsigned char* smem) {
   constexpr int kMatPlanes = kRough ? 12 : 9;
   const uint32_t pix = static_cast<uint32_t>(row * width + col);
   const float fw = static_cast<float>(width);
@@ -118,7 +170,9 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
   float pdx, pdy, pdz;
   camera_dir(p, fcol + 0.5f, frow + 0.5f, fw, fh, pdx, pdy, pdz);
 
-  RoundStores st;
+  typename Pol::Records st;
+  st.place(smem, max_bounces + 1);
+  typename Pol::Adds adds;
   int rounds = 0;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   float k_r = 0.0f, k_g = 0.0f, k_b = 0.0f;  // the sky planes
@@ -128,10 +182,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
                         static_cast<uint32_t>(s + sample_offset), seed, jitter);
     bool prevd = false;
     // -- forward rounds, storing what the sweep needs --
-    int n_rounds = 0;
-    for (int bounce = 0; bounce <= max_bounces; ++bounce) {
-      if (kCount) ++rounds;
-      n_rounds = bounce + 1;
+    const int n_rounds = forward_rounds<Pol::kUnroll>(max_bounces, [&](int bounce) {
       const Hit h = closest_hit(sc, q);
       const float pr = q.tr, pg = q.tg, pb = q.tb;
       st.pr[bounce] = pr;
@@ -141,7 +192,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
       if (!(h.t < inf)) {
         st.ev[bounce] = kEvMiss;
         shade_miss(p, q);
-        break;
+        return true;
       }
       const Material mt = fetch_material(sc, h.m);
       const BounceRecord rec = shade_phys<false, kTriNee>(
@@ -164,9 +215,9 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
             float* j = pl.jgeo + static_cast<size_t>(12 * ls.ord) * hw + pix;
 #pragma unroll
             for (int comp = 0; comp < 4; ++comp) {
-              j[(3 * comp) * hw] += f_r * dw[comp];
-              j[(3 * comp + 1) * hw] += f_g * dw[comp];
-              j[(3 * comp + 2) * hw] += f_b * dw[comp];
+              adds.add(j + (3 * comp) * hw, f_r * dw[comp]);
+              adds.add(j + (3 * comp + 1) * hw, f_g * dw[comp]);
+              adds.add(j + (3 * comp + 2) * hw, f_b * dw[comp]);
             }
           }
         } else if (kTriNee && ls.ord < pl.tri_em_cap) {
@@ -176,14 +227,18 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
           float* j = pl.jtri + static_cast<size_t>(27 * ls.ord) * hw + pix;
 #pragma unroll
           for (int comp = 0; comp < 9; ++comp) {
-            j[(3 * comp) * hw] += f_r * dw[comp];
-            j[(3 * comp + 1) * hw] += f_g * dw[comp];
-            j[(3 * comp + 2) * hw] += f_b * dw[comp];
+            adds.add(j + (3 * comp) * hw, f_r * dw[comp]);
+            adds.add(j + (3 * comp + 1) * hw, f_g * dw[comp]);
+            adds.add(j + (3 * comp + 2) * hw, f_b * dw[comp]);
           }
         }
       }
       // Structural death only; zero throughput goes on (see above).
-      if (rec.event & kDied) break;
+      return (rec.event & kDied) != 0;
+    });
+    if (kCount) {
+      rounds += n_rounds;
+      count_warp_rounds(lanes, n_rounds, warp_rounds);
     }
     // The sky at the end of the budget, summed into the sample's radiance
     // before the accumulator, as the forward kernel does.
@@ -197,7 +252,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
 
     // -- sweep: last round down to 0, carrying S --
     float s_r = p.sky_r, s_g = p.sky_g, s_b = p.sky_b;
-    for (int b = n_rounds - 1; b >= 0; --b) {
+    sweep_rounds<Pol::kUnroll>(n_rounds, [&](int b) {
       const float pr = st.pr[b], pg = st.pg[b], pb = st.pb[b];
       const int event = st.ev[b];
       if (event & kEvMiss) {
@@ -207,7 +262,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
         s_r = p.sky_r;
         s_g = p.sky_g;
         s_b = p.sky_b;
-        continue;
+        return;
       }
       const int m = st.mat[b];
       const SweptHit sh = swept_hit(sc, em, st, b);
@@ -220,36 +275,36 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
       const bool addle = (event & kEvAddLe) != 0;
       if (m >= 0 && m < sc.n_mat) {
         float* j = jpix + static_cast<size_t>(kMatPlanes * m) * hw;
-        j[0] += ca_r;
-        j[hw] += ca_g;
-        j[2 * hw] += ca_b;
+        adds.add(j, ca_r);
+        adds.add(j + hw, ca_g);
+        adds.add(j + 2 * hw, ca_b);
         if (addle) {
-          j[3 * hw] += pr;
-          j[4 * hw] += pg;
-          j[5 * hw] += pb;
+          adds.add(j + 3 * hw, pr);
+          adds.add(j + 4 * hw, pg);
+          adds.add(j + 5 * hw, pb);
         }
         const float dr = ratio_dr(mt, event);
-        j[6 * hw] += ca_r * dr;
-        j[7 * hw] += ca_g * dr;
-        j[8 * hw] += ca_b * dr;
+        adds.add(j + 6 * hw, ca_r * dr);
+        adds.add(j + 7 * hw, ca_g * dr);
+        adds.add(j + 8 * hw, ca_b * dr);
         if (kRough) {
           const float drg = lobe_drg(mt, event);
-          j[9 * hw] += ca_r * drg;
-          j[10 * hw] += ca_g * drg;
-          j[11 * hw] += ca_b * drg;
+          adds.add(j + 9 * hw, ca_r * drg);
+          adds.add(j + 10 * hw, ca_g * drg);
+          adds.add(j + 11 * hw, ca_b * drg);
         }
       }
       if (sh.valid && sh.emat >= 0 && sh.emat < sc.n_mat) {
         // The sampled emitter's emission, into its own material's planes.
         float* j = jpix + static_cast<size_t>(kMatPlanes * sh.emat + 3) * hw;
-        j[0] += sh.emw_r;
-        j[hw] += sh.emw_g;
-        j[2 * hw] += sh.emw_b;
+        adds.add(j, sh.emw_r);
+        adds.add(j + hw, sh.emw_g);
+        adds.add(j + 2 * hw, sh.emw_b);
       }
       s_r = (addle ? mt.em_r : 0.0f) + mt.alb_r * sh_r;
       s_g = (addle ? mt.em_g : 0.0f) + mt.alb_g * sh_g;
       s_b = (addle ? mt.em_b : 0.0f) + mt.alb_b * sh_b;
-    }
+    });
   }
   float* o = img + 3 * static_cast<size_t>(pix);
   o[0] = acc_r * inv_spp;
@@ -259,11 +314,12 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
   k[0] = k_r;
   k[hw] = k_g;
   k[2 * hw] = k_b;
+  adds.flush(jpix);
   return rounds;
 }
 
-template <bool kCount, bool kTriNee, bool kRough>
-__global__ void __launch_bounds__(256, 4)
+template <bool kCount, bool kTriNee, bool kRough, class Pol>
+__global__ void __launch_bounds__(256, Pol::kMinBlocks)
 render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                          int n_sph, const float* __restrict__ tri,
                          const int* __restrict__ tri_m, int n_tri,
@@ -283,8 +339,13 @@ render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ 
                          float inv_spp) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  int rounds = 0, n_valid = 0;
-  if (col < width && row < height) {
+  const bool in_range = col < width && row < height;
+  // The warp's lanes inside the image, taken by all 32 lanes before the
+  // range test.
+  const unsigned lanes = kCount ? __ballot_sync(0xffffffffu, in_range) : 0u;
+  extern __shared__ float4 smem[];
+  int rounds = 0, n_valid = 0, warp_rounds = 0;
+  if (in_range) {
     const Params p = *reinterpret_cast<const Params*>(par);
     const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
     const Emitters em = {em_list, le_sph, tri_list, le_tri, tri_area, mat_est,
@@ -292,20 +353,61 @@ render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ 
     const Planes pl = {jac, jgeo, jtri,
                        static_cast<size_t>(height) * static_cast<size_t>(width),
                        n_em_cap, tri_em_cap};
-    rounds = render_pixel<kCount, kTriNee, kRough>(
+    rounds = render_pixel<kCount, kTriNee, kRough, Pol>(
         sc, em, p, img, pl, row, col, height, width, spp, max_bounces, seed,
-        sample_offset, jitter, nee != 0, inv_spp, n_valid);
+        sample_offset, jitter, nee != 0, inv_spp, lanes, n_valid, warp_rounds,
+        reinterpret_cast<unsigned char*>(smem));
   }
   if (kCount) {
     block_add(rounds, counter);
     block_add(n_valid, counter + 1);
+    block_add(warp_rounds, counter + 2);
   }
 }
 
+// Launch render_phys_fused_kernel<kCount, kTriNee, kRough, Pol>; returns
+// cudaGetLastError(), or cudaErrorInvalidValue where max_bounces + 1 exceeds
+// the records, n_mat the int16 of shared-memory records, or a cap has no
+// planes.
+template <bool kCount, bool kTriNee, bool kRough, class Pol>
+int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
+           int n_tri, const float* mat, int n_mat, const int* em_list, const float* le_sph,
+           const int* tri_list, const float* le_tri, const float* tri_area,
+           const float* mat_est, const int* counts, const float* par, float* img, float* jac,
+           float* jgeo, float* jtri, unsigned long long* counter, int nee, int n_em_cap,
+           int tri_em_cap, int height, int width, int spp, int max_bounces, unsigned int seed,
+           int sample_offset, int jitter, int device, void* stream) {
+  constexpr int kRounds = Pol::kUnroll ? Pol::kUnroll : kMaxRounds;
+  if (max_bounces + 1 > kRounds || (Pol::Records::kShared && n_mat > 32767) ||
+      n_em_cap < 0 || tri_em_cap < 0 || (n_em_cap > 0 && !jgeo) ||
+      (tri_em_cap > 0 && (!jtri || !kTriNee)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
+  const dim3 block(32, 8);
+  const dim3 grid((width + block.x - 1) / block.x,
+                  (height + block.y - 1) / block.y);
+  const auto kernel = render_phys_fused_kernel<kCount, kTriNee, kRough, Pol>;
+  size_t smem = 0;
+  if constexpr (Pol::Records::kShared) {
+    err = records_smem(kernel, max_bounces, Pol::Records::kRoundBytes, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+      le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, jtri, counter, nee,
+      n_em_cap, tri_em_cap, height, width, spp, max_bounces, seed, sample_offset,
+      jitter, inv_spp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using LaunchFn = decltype(&launch<false, false, false, KernelPolicy>);
+
 template <bool kCount, bool kTriNee>
-auto pick_rough(int rough_grad) {
-  return rough_grad ? render_phys_fused_kernel<kCount, kTriNee, true>
-                    : render_phys_fused_kernel<kCount, kTriNee, false>;
+LaunchFn pick_rough(int rough_grad) {
+  return rough_grad ? launch<kCount, kTriNee, true, KernelPolicy>
+                    : launch<kCount, kTriNee, false, KernelPolicy>;
 }
 
 }  // namespace
@@ -320,8 +422,8 @@ extern "C" int render_phys_grad_max_bounces() { return kMaxRounds - 1; }
 // (12 * n_em_cap, height, width) or null when n_em_cap is 0; `jtri` is (27 *
 // tri_em_cap, height, width) or null when tri_em_cap is 0 (it must be 0
 // without `tri_nee`). The planes must arrive zero-filled. `counter` is null,
-// or two zeroed int64 that receive the executed thread-rounds and the light
-// samples that counted. Launches on
+// or three zeroed int64 that receive the executed thread-rounds, the light
+// samples that counted and the warp lane-rounds. Launches on
 // `stream` of device `device` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue if max_bounces is above the cap or a cap has no planes.
 extern "C" int render_phys_fused(const float* sph, const int* sph_m, int n_sph,
@@ -337,22 +439,39 @@ extern "C" int render_phys_fused(const float* sph, const int* sph_m, int n_sph,
                                  int height, int width, int spp, int max_bounces,
                                  unsigned int seed, int sample_offset, int jitter,
                                  int device, void* stream) {
-  if (max_bounces + 1 > kMaxRounds || n_em_cap < 0 || tri_em_cap < 0 ||
-      (n_em_cap > 0 && !jgeo) || (tri_em_cap > 0 && (!jtri || !tri_nee)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
-  auto kernel = counter
+  const LaunchFn go = counter
       ? (tri_nee ? pick_rough<true, true>(rough_grad) : pick_rough<true, false>(rough_grad))
       : (tri_nee ? pick_rough<false, true>(rough_grad) : pick_rough<false, false>(rough_grad));
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
-      le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, jtri, counter, nee,
-      n_em_cap, tri_em_cap, height, width, spp, max_bounces, seed, sample_offset,
-      jitter, inv_spp);
-  return static_cast<int>(cudaGetLastError());
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+            le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, jtri, counter, nee,
+            n_em_cap, tri_em_cap, height, width, spp, max_bounces, seed, sample_offset,
+            jitter, device, stream);
+}
+
+// A measurement instantiation of render_phys_fused (pt_fused.cuh `Variant`),
+// with its arguments but no triangle planes, counter, tri_nee or rough_grad.
+// Returns cudaErrorInvalidValue for an unknown variant, or where
+// max_bounces + 1 exceeds the variant's records.
+extern "C" int render_phys_fused_variant(int variant, const float* sph, const int* sph_m,
+                                         int n_sph, const float* tri, const int* tri_m,
+                                         int n_tri, const float* mat, int n_mat,
+                                         const int* em_list, const float* le_sph,
+                                         const int* tri_list, const float* le_tri,
+                                         const float* tri_area, const float* mat_est,
+                                         const int* counts, const float* par, float* img,
+                                         float* jac, float* jgeo, int nee, int n_em_cap,
+                                         int height, int width, int spp, int max_bounces,
+                                         unsigned int seed, int sample_offset, int jitter,
+                                         int device, void* stream) {
+  LaunchFn go = nullptr;
+  switch (variant) {
+    case kVarSink: go = launch<false, false, false, SinkPolicy>; break;
+    case kVarRegisters: go = launch<false, false, false, RegistersPolicy>; break;
+    case kVarRecordsMoved: go = launch<false, false, false, MovedPolicy>; break;
+  }
+  if (!go) return static_cast<int>(cudaErrorInvalidValue);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+            le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, nullptr, nullptr, nee,
+            n_em_cap, 0, height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+            stream);
 }

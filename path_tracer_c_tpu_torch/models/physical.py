@@ -416,12 +416,16 @@ def render_bounce_stats_physical(
     seed,
     nee: bool = True,
     jitter: bool = False,
+    tri_nee: bool = False,
 ):
     """Physical-tier per-bounce event histogram of a full render: a dict of
     ``(max_bounces + 1,)`` int64 tensors on the scene's device, summed over
     pixels and samples: the reference tier's ``hits``, ``misses`` and
     ``tir_deaths`` and, with ``nee``, ``nee_candidates`` and ``nee_visible``
-    (see ``trace_paths_physical``). Samples run one after another."""
+    (see ``trace_paths_physical``). Samples run one after another.
+    ``tri_nee`` counts the estimator that also samples emissive triangles,
+    the one ``render --tri-nee`` renders with; the JAX package's histogram
+    has no such argument and always counts the estimator without it."""
     device = scene.device
     if camera.device != device:
         raise ValueError(f"camera on {camera.device}, scene on {device}")
@@ -436,6 +440,6 @@ def render_bounce_stats_physical(
         else:
             o, d = rays
         stats = trace_paths_physical(scene, o, d, st, max_bounces, nee=nee,
-                                     collect_stats=True)[-1]
+                                     collect_stats=True, tri_nee=tri_nee)[-1]
         acc = {k: acc[k] + stats[k] for k in keys}
     return acc

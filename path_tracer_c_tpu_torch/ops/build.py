@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-On first use the sources under ``csrc/`` are compiled for Hopper (sm_90a)
-into a shared library with a plain C interface, in ``build/kernels/``
-beside the package. The library's name carries a hash of the sources,
+On first use the sources under ``csrc/`` are compiled for Hopper (sm_90a),
+one nvcc process a source, all started together, and linked into a shared
+library with a plain C interface, in ``build/kernels/`` beside the
+package. The library's name carries a hash of the sources,
 headers and flags, so an edited file is rebuilt and an unchanged one is
 loaded as it is. ptxas's account of every kernel (registers, spills, local
 memory) is kept beside the library; ``resource_usage`` reads it. Nothing
@@ -30,9 +31,8 @@ _CSRC = _PKG / "csrc"
 # bit for bit on the card. It costs some speed; see PERF.md.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
-    "--threads", "0",  # the sources compile side by side
 )
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
@@ -50,6 +50,8 @@ _SIGNATURES = {
     # image, Jacobian planes, round counter (or null)
     "render_fused": (_SCENE + [_P, _P, _P] + _RUN, ctypes.c_int),
     "render_fused_max_bounces": ([], ctypes.c_int),
+    # variant, then render_fused's arguments without the counter
+    "render_fused_variant": ([_I] + _SCENE + [_P, _P] + _RUN, ctypes.c_int),
     # the scene tables, 7 emitter tables (see csrc/render_phys.cu), camera
     # and sky params, out, round counter (or null), nee, tri_nee
     "render_phys": (_SCENE[:-1] + [_P] * 7 + [_P, _P, _P, _I, _I] + _RUN, ctypes.c_int),
@@ -58,6 +60,10 @@ _SIGNATURES = {
     # nee, tri_nee, rough_grad, n_em_cap, tri_em_cap (csrc/render_phys_fused.cu)
     "render_phys_fused": (_SCENE[:-1] + [_P] * 7 + [_P] * 6 + [_I] * 5 + _RUN, ctypes.c_int),
     "render_phys_grad_max_bounces": ([], ctypes.c_int),
+    # variant, then render_phys_fused's arguments without the triangle planes,
+    # the counter, tri_nee, rough_grad and tri_em_cap
+    "render_phys_fused_variant": ([_I] + _SCENE[:-1] + [_P] * 7 + [_P] * 4 + [_I] * 2 + _RUN,
+                                  ctypes.c_int),
     # the scene tables, the 6 emitter tables, raw emission colours, counts,
     # params, the image's cotangent, the two outputs, nee, tri_nee, n_em_cap
     # (csrc/render_phys_bwd.cu)
@@ -114,6 +120,17 @@ def resource_usage() -> str:
     return library_path().with_suffix(".ptxas.txt").read_text()
 
 
+def _wait(proc):
+    """(return code, stdout, stderr) of a started process, once it ends."""
+    out, err = proc.communicate()
+    return proc.returncode, out, err
+
+
+def _check(cmd, rc, out, err):
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}{err}")
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` if needed, load the library, declare its
@@ -128,14 +145,20 @@ def load_library() -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         try:
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                    f"{res.stdout}{res.stderr}"
-                )
-            lib_path.with_suffix(".ptxas.txt").write_text(res.stderr)
+            with tempfile.TemporaryDirectory(dir=out_dir) as obj_dir:
+                nvcc = find_nvcc()
+                objs = [Path(obj_dir) / f"{src.stem}.o" for src in sources]
+                jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                               text=True))
+                        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                                    for src, obj in zip(sources, objs))]
+                logs = [(cmd, *_wait(proc)) for cmd, proc in jobs]
+                for log in logs:
+                    _check(*log)
+                link = [nvcc, "-shared", "-o", tmp, *map(str, objs)]
+                res = subprocess.run(link, capture_output=True, text=True)
+                _check(link, res.returncode, res.stdout, res.stderr)
+            lib_path.with_suffix(".ptxas.txt").write_text("".join(err for *_, err in logs))
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):

@@ -42,8 +42,9 @@ from .rng import _f32
 from ..scene.scene import Scene
 
 __all__ = [
-    "render_fused", "render_fused_reference", "contract_jacobian",
-    "render_kernel_vjp", "replace_leaves", "zeros_like_scene", "MAX_BOUNCES",
+    "render_fused", "render_fused_reference", "render_fused_round_counts",
+    "render_fused_round_counts_reference", "render_fused_variant", "contract_jacobian",
+    "render_kernel_vjp", "replace_leaves", "zeros_like_scene", "MAX_BOUNCES", "VARIANTS",
     "SOURCE", "REPLACES",
 ]
 
@@ -52,10 +53,18 @@ REPLACES = "path_tracer_c_tpu/ops/pallas_grad.py:96"
 
 # Jacobian planes per material: A[3] + S[3] + R[3].
 _MAT_J_PLANES = 9
-# The kernel keeps its per-bounce stores in a thread-private array of a
-# compile-time size (csrc/render_fused.cu, kMaxRounds = MAX_BOUNCES + 1).
+# The kernel stores at most kMaxRounds = MAX_BOUNCES + 1 rounds of
+# per-bounce records (csrc/render_fused.cu).
 MAX_BOUNCES = 31
+# B2 keeps a round's material index as int16 (csrc/render_fused.cu).
+MAX_MATERIALS = 32767
 _RATIO_FLOOR = _f32(1e-6)
+
+# B2's measurement instantiations (csrc/pt_fused.cuh `Variant`), each one
+# policy away from the kernel: its plane adds into one register; its records
+# in registers (max_bounces <= 3); its records in local memory.
+VARIANTS = {"sink": 0, "registers": 1, "local_records": 2}
+REGISTER_ROUNDS = 4  # the records of "registers" (csrc/pt_fused.cuh kRegisterRounds)
 
 # The scene leaves that carry a gradient, as (table or None, field).
 _GRAD_LEAVES = (
@@ -101,6 +110,20 @@ def render_fused(
             scene, camera, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, count_rounds=count_rounds,
         )
+    img, jac, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
+                                sample_offset, jitter, count_rounds)
+    return (img, jac, int(counter[0])) if count_rounds else (img, jac)
+
+
+render_fused.launches = 0
+
+
+def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+            count, variant=None):
+    """Launch B2 on the scene's CUDA device: the timed kernel, its counting
+    instantiation (``count``: the counters, thread-rounds and warp
+    lane-rounds, come back beside the planes), or a measurement variant."""
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_fused runs on CUDA or CPU tensors, not {device}")
     from .build import load_library
@@ -108,24 +131,108 @@ def render_fused(
     lib = load_library()
     if lib.render_fused_max_bounces() != MAX_BOUNCES:
         raise RuntimeError("csrc/render_fused.cu and MAX_BOUNCES disagree")
+    if scene.num_materials > MAX_MATERIALS:
+        raise ValueError(f"{scene.num_materials} materials: render_fused stores a "
+                         f"material index as int16, at most {MAX_MATERIALS}")
     operands = _rk._scene_operands(scene)
     par = _rk._camera_params(camera, scene, height, width)
     n_j = _MAT_J_PLANES * scene.num_materials + 3
     img = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     jac = torch.zeros((n_j, height, width), dtype=torch.float32, device=device)
-    counter = torch.zeros((), dtype=torch.int64, device=device) if count_rounds else None
-    err = lib.render_fused(
-        *_rk._table_args(operands), _rk._ptr(par), _rk._ptr(img), _rk._ptr(jac),
-        _rk._ptr(counter),
-        *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
-    )
+    counter = torch.zeros(2, dtype=torch.int64, device=device) if count else None
+    args = (*_rk._table_args(operands), _rk._ptr(par), _rk._ptr(img), _rk._ptr(jac))
+    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device)
+    if variant is None:
+        err = lib.render_fused(*args, _rk._ptr(counter), *run)
+        name = "render_fused"
+    else:
+        err = lib.render_fused_variant(VARIANTS[variant], *args, *run)
+        name = f"render_fused variant {variant}"
     if err != 0:
-        raise RuntimeError(f"render_fused kernel launch failed: CUDA error {err}")
-    render_fused.launches += 1
-    return (img, jac, int(counter)) if count_rounds else (img, jac)
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if variant is None:
+        render_fused.launches += 1
+    else:
+        render_fused_variant.launches += 1
+    return img, jac, counter
 
 
-render_fused.launches = 0
+def render_fused_round_counts(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    sample_offset: int = 0,
+    jitter: bool = False,
+) -> dict:
+    """The rounds B2 runs for one render: ``thread_rounds`` (as
+    ``count_rounds``) and ``warp_lane_rounds``, the rounds each warp runs
+    times its lanes in the image, summed over warps: per sample, as many as
+    that sample's longest lane (every lane waits at the end of a sample).
+    CUDA tensors run the kernel's counting instantiation (a launch: it
+    counts in ``render_fused.launches``), CPU tensors the plain twin, which
+    also gives ``warp_lane_rounds_regen``, the rounds path regeneration
+    would run (each warp as many as its busiest lane's total over all
+    samples)."""
+    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    if max_bounces > MAX_BOUNCES:
+        raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
+                         f"cap of {MAX_BOUNCES}")
+    if scene.device.type == "cpu":
+        return render_fused_round_counts_reference(
+            scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter)
+    _, _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
+                            sample_offset, jitter, True)
+    thread_rounds, warp_rounds = counter.tolist()
+    return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
+
+
+def render_fused_round_counts_reference(scene, camera, height, width, spp, max_bounces, seed,
+                                        sample_offset=0, jitter=False) -> dict:
+    """Plain twin of ``render_fused_round_counts``, on the scene's device:
+    the twin's rounds of every (sample, pixel), grouped by warp under both
+    schedules (``render_kernel.round_groupings``)."""
+    per_sample = []
+    render_fused_reference(scene, camera, height, width, spp, max_bounces, seed,
+                           sample_offset=sample_offset, jitter=jitter,
+                           on_sample=per_sample.append)
+    return _rk.round_groupings(torch.stack(per_sample))
+
+
+def render_fused_variant(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    variant: str,
+    sample_offset: int = 0,
+    jitter: bool = False,
+):
+    """``(image, jac)`` of a measurement instantiation of B2 (``VARIANTS``),
+    on CUDA tensors only: what the decomposition of B2's time
+    (``utils/sol_decompose.fused_decompose``) times beside the kernel. No
+    user path runs it. The image and, but for ``sink`` (whose planes hold
+    one sum a pixel), the planes equal ``render_fused``'s.
+    ``registers`` takes ``max_bounces <= 3``. Counts its launches in
+    ``render_fused_variant.launches``."""
+    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+    cap = REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
+    if max_bounces > cap:
+        raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap of {cap}")
+    img, jac, _ = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                          jitter, False, variant=variant)
+    return img, jac
+
+
+render_fused_variant.launches = 0
 
 
 # -- the plain twin --------------------------------------------------------
@@ -142,6 +249,7 @@ def render_fused_reference(
     sample_offset: int = 0,
     jitter: bool = False,
     count_rounds: bool = False,
+    on_sample=None,
 ):
     """Plain PyTorch twin of the fused kernel, on the scene's device: the
     forward rounds of ``render_kernel_reference`` with per-bounce stores,
@@ -150,7 +258,9 @@ def render_fused_reference(
     device the two round alike. Every round runs for every pixel; a dead
     path's rounds are masked out, which adds the exact zeros the kernel
     skips. The material planes are updated with one ``scatter_add_`` per
-    swept bounce, one index per pixel and plane, so it is deterministic."""
+    swept bounce, one index per pixel and plane, so it is deterministic.
+    ``on_sample``, where given, receives each sample's (H, W) int64 rounds
+    of every pixel (those its path begins alive), in sample order."""
     _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
     if max_bounces > MAX_BOUNCES:
         raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
@@ -184,10 +294,13 @@ def render_fused_reference(
             d = _rk._camera_dir(par, cols + jx, rows + jy, fw, fh)
         o, thr, rad = origin, (one, one, one), (zero, zero, zero)
         alive = torch.ones(n, dtype=torch.bool, device=device)
+        pixel_rounds = torch.zeros(n, dtype=torch.int64, device=device)
         stores = []
         for _ in range(max_bounces + 1):
             if count_rounds:
                 rounds = rounds + alive.sum()
+            if on_sample is not None:
+                pixel_rounds = pixel_rounds + alive
             hit = _rk._closest_hit(sph, sph_m, tri, tri_m, o, d)
             mats = _rk._fetch_materials(mat_tab, hit[2])
             before = thr
@@ -199,6 +312,8 @@ def render_fused_reference(
                            alive & ~hitmask, died_ev, refracted))
             # Structural death only: a miss, or total internal reflection.
             alive = hit_ev & ~died
+        if on_sample is not None:
+            on_sample(pixel_rounds.reshape(height, width))
         acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
         k_sky = [k + t for k, t in zip(k_sky, thr)]  # P_end
 

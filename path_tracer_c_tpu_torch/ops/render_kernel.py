@@ -27,7 +27,7 @@ from ..scene.scene import Scene
 
 __all__ = ["render_kernel", "render_kernel_reference", "render_kernel_round_counts",
            "render_kernel_round_counts_reference", "reference_pixel_rounds",
-           "warp_lane_rounds", "SOURCE", "REPLACES"]
+           "warp_lane_rounds", "round_groupings", "SOURCE", "REPLACES"]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_fwd.cu"
 REPLACES = "path_tracer_c_tpu/ops/pallas_kernels.py:453"
@@ -282,6 +282,19 @@ def warp_lane_rounds(rounds: torch.Tensor) -> int:
     widest = padded.reshape(spp, height, n_warps, 32).amax(dim=-1)
     lanes = torch.clamp(width - 32 * torch.arange(n_warps, device=rounds.device), max=32)
     return int((widest * lanes).sum())
+
+
+def round_groupings(rounds: torch.Tensor) -> dict:
+    """The rounds of per-(sample, pixel) round counts ``rounds`` (spp, H,
+    W) under two schedules: ``thread_rounds``;
+    ``warp_lane_rounds``, each warp running each sample for as many rounds
+    as that sample's longest lane (every lane waits at the end of a sample:
+    the kernels' schedule); ``warp_lane_rounds_regen``, each warp running
+    for as many rounds as its busiest lane's total over all samples (path
+    regeneration: a lane starts its next sample at once)."""
+    return {"thread_rounds": int(rounds.sum()),
+            "warp_lane_rounds": warp_lane_rounds(rounds),
+            "warp_lane_rounds_regen": warp_lane_rounds(rounds.sum(0)[None])}
 
 
 def reference_pixel_rounds(scene, camera, height, width, spp, max_bounces, seed,

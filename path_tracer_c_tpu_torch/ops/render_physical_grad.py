@@ -57,6 +57,7 @@ from . import render_kernel as _rk
 from . import render_physical as _rp
 from . import rng as _rng
 from .camera import Camera, pixel_indices
+from . import render_grad as _rg
 from .render_grad import replace_leaves, zeros_like_scene
 from .render_kernel import _ptr
 from .rng import _f32, sqrt_rn
@@ -64,6 +65,8 @@ from ..scene.scene import Scene
 
 __all__ = [
     "render_physical_fused", "render_physical_fused_reference",
+    "render_physical_fused_round_counts", "render_physical_fused_round_counts_reference",
+    "render_physical_fused_variant",
     "contract_physical_jacobian", "render_physical_kernel_vjp",
     "render_physical_bwd", "render_physical_bwd_reference",
     "cone_w_chain", "cone_w_adjoint", "tri_w_chain", "tri_w_adjoint",
@@ -371,6 +374,32 @@ def render_physical_fused(
     if device.type == "cpu":
         return render_physical_fused_reference(
             scene, camera, height, width, spp, max_bounces, seed, **kw)
+    img, jac, jgeo, jtri, counter = _launch_fused(
+        scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
+        n_em_cap, tri_nee, tri_em_cap, rough_grad, count_rounds or count_events)
+    return _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_rounds,
+                          count_events)
+
+
+render_physical_fused.launches = 0
+render_physical_fused.SOURCE = SOURCE
+render_physical_fused.REPLACES = REPLACES
+
+
+# B4's measurement instantiations (csrc/pt_fused.cuh `Variant`), built
+# without tri_nee and rough_grad, each one policy away from the kernel: its
+# plane adds, the geometry planes' included, into one register; its records
+# in registers (max_bounces <= 3); its records in shared memory.
+VARIANTS = {"sink": 0, "registers": 1, "shared_records": 2}
+
+
+def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+                  nee, n_em_cap, tri_nee, tri_em_cap, rough_grad, count, variant=None):
+    """Launch B4 on the scene's CUDA device: the timed kernel, its counting
+    instantiation (``count``: three counters, thread-rounds, light samples
+    that counted and warp lane-rounds, come back beside the planes), or a
+    measurement variant."""
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_fused runs on CUDA or CPU tensors, not {device}")
     lib = _load_library()
@@ -382,25 +411,105 @@ def render_physical_fused(
     jac = planes((12 if rough_grad else 9) * scene.num_materials + 3)
     jgeo = planes(12 * n_em_cap) if n_em_cap else None
     jtri = planes(27 * tri_em_cap) if tri_em_cap else None
-    counter = None
-    if count_rounds or count_events:
-        counter = torch.zeros(len(EVENTS), dtype=torch.int64, device=device)
-    err = lib.render_phys_fused(
-        *_rk._table_args(operands), *_rp._emitter_args(ph), _ptr(par), _ptr(img), _ptr(jac),
-        _ptr(jgeo), _ptr(jtri), _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
-        int(bool(rough_grad)), n_em_cap, tri_em_cap,
-        *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
-    )
+    counter = torch.zeros(3, dtype=torch.int64, device=device) if count else None
+    tables = (*_rk._table_args(operands), *_rp._emitter_args(ph), _ptr(par), _ptr(img),
+              _ptr(jac), _ptr(jgeo))
+    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device)
+    if variant is None:
+        err = lib.render_phys_fused(
+            *tables, _ptr(jtri), _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
+            int(bool(rough_grad)), n_em_cap, tri_em_cap, *run)
+        name = "render_phys_fused"
+    else:
+        err = lib.render_phys_fused_variant(VARIANTS[variant], *tables, int(bool(nee)),
+                                            n_em_cap, *run)
+        name = f"render_phys_fused variant {variant}"
     if err != 0:
-        raise RuntimeError(f"render_phys_fused kernel launch failed: CUDA error {err}")
-    render_physical_fused.launches += 1
-    return _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_rounds,
-                          count_events)
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if variant is None:
+        render_physical_fused.launches += 1
+    else:
+        render_physical_fused_variant.launches += 1
+    return img, jac, jgeo, jtri, counter
 
 
-render_physical_fused.launches = 0
-render_physical_fused.SOURCE = SOURCE
-render_physical_fused.REPLACES = REPLACES
+def render_physical_fused_round_counts(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    sample_offset: int = 0,
+    jitter: bool = True,
+    nee: bool = True,
+    tri_nee: bool = False,
+) -> dict:
+    """The rounds B4 runs for one render, as
+    ``render_grad.render_fused_round_counts``: ``thread_rounds`` and
+    ``warp_lane_rounds`` (CUDA tensors: the counting instantiation, a launch
+    counted in ``render_physical_fused.launches``); CPU tensors take the
+    twin, which also gives ``warp_lane_rounds_regen``. The planes do not
+    change the rounds, so no cap is taken."""
+    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                       tri_nee=tri_nee)
+    if scene.device.type == "cpu":
+        return render_physical_fused_round_counts_reference(
+            scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
+            tri_nee)
+    *_, counter = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
+                                sample_offset, jitter, nee, 0, tri_nee, 0, False, True)
+    thread_rounds, _, warp_rounds = counter.tolist()
+    return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
+
+
+def render_physical_fused_round_counts_reference(scene, camera, height, width, spp,
+                                                 max_bounces, seed, sample_offset=0,
+                                                 jitter=True, nee=True, tri_nee=False) -> dict:
+    """Plain twin of ``render_physical_fused_round_counts``: the twin's rounds
+    of every (sample, pixel), grouped by warp under both schedules
+    (``render_kernel.round_groupings``)."""
+    per_sample = []
+    render_physical_fused_reference(scene, camera, height, width, spp, max_bounces, seed,
+                                    sample_offset=sample_offset, jitter=jitter, nee=nee,
+                                    tri_nee=tri_nee, on_sample=per_sample.append)
+    return _rk.round_groupings(torch.stack(per_sample))
+
+
+def render_physical_fused_variant(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    variant: str,
+    sample_offset: int = 0,
+    jitter: bool = True,
+    nee: bool = True,
+    n_em_cap: int = 0,
+):
+    """``(image, jac[, jac_geo])`` of a measurement instantiation of B4
+    (``VARIANTS``; without tri_nee and rough_grad), on CUDA tensors only: as
+    ``render_grad.render_fused_variant``, for
+    ``utils/sol_decompose.fused_decompose``. No user path runs it. Counts
+    its launches in ``render_physical_fused_variant.launches``."""
+    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                       n_em_cap)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+    cap = _rg.REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
+    if max_bounces > cap:
+        raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap of {cap}")
+    img, jac, jgeo, _, _ = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
+                                         sample_offset, jitter, nee, n_em_cap, False, 0, False,
+                                         False, variant=variant)
+    return (img, jac, jgeo) if n_em_cap else (img, jac)
+
+
+render_physical_fused_variant.launches = 0
 
 
 # -- the replay both twins share -----------------------------------------------
@@ -550,6 +659,7 @@ def render_physical_fused_reference(
     count_rounds: bool = False,
     rough_grad: bool = False,
     count_events: bool = False,
+    on_sample=None,
 ):
     """Plain PyTorch twin of the fused physical kernel, on the scene's
     device: the forward rounds of ``render_physical_kernel_reference`` with
@@ -559,7 +669,10 @@ def render_physical_fused_reference(
     material's planes, then the sampled emitter's), so that on one device
     the two round alike. Every round runs for every pixel; a dead path's
     rounds are masked out, which adds the exact zeros the kernel skips. The
-    adjoints are the hand-derived ones, not ``torch.autograd``."""
+    adjoints are the hand-derived ones, not ``torch.autograd``.
+    ``on_sample``, where given, receives each sample's (H, W) int64 rounds
+    of every pixel (those its path begins alive: a hit or a miss), in
+    sample order."""
     _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                        n_em_cap, tri_em_cap, tri_nee)
     cx = _replay_setup(scene, camera, height, width, nee, tri_nee)
@@ -579,6 +692,8 @@ def render_physical_fused_reference(
         if count_rounds or count_events:
             counter = counter + torch.stack(
                 [n_rounds, sum(rec.valid.sum() for rec in records)])
+        if on_sample is not None:
+            on_sample(sum((rec.hit | rec.miss).long() for rec in records).reshape(height, width))
         acc = tuple(a + r for a, r in zip(acc, rad))
         k_sky = [k + t for k, t in zip(k_sky, thr_end)]  # P_end
 

@@ -26,6 +26,31 @@ lane idle; four probes account for the rest:
 (d) the remainder: 1 less the counted operations' share, the divergence
     that inflates them, (a) and (b).
 
+``fused_decompose`` does the same for the two fused primal + Jacobian
+kernels, B2 (``csrc/render_fused.cu``) and B4 (``csrc/render_phys_fused.cu``,
+with the live emitters' geometry planes), on the same workload. The parts
+that no counter gives are priced on the kernel's measurement
+instantiations (``render_grad.VARIANTS``, ``render_physical_grad.VARIANTS``):
+the kernel's own body under another policy (``csrc/pt_fused.cuh``), so that
+each price is the kernel against itself:
+
+(a) the counted operations at B6's rates, and divergence from the counting
+    instantiation's warp lane-rounds, as for B1;
+(b) the planes' read-modify-writes: the kernel against its ``sink``
+    instantiation, which adds the same values into one register;
+(c) B4's geometry adjoint: ``sink`` with the geometry planes against it
+    without them;
+(d) the fixed cost: B7's call at the same shape (operand packing, launch,
+    blocks) and the wrapper's zero-fill of the planes;
+(e) the remainder.
+
+Beside them, not among the parts: the per-bounce records, as the kernel
+against its ``registers`` instantiation at 256^2, 8 spp, 3 bounces (records
+fit registers only at a small bounce budget, and that instantiation is
+built for one block a multiprocessor, so the reading mixes the records'
+traffic with the register budget's); and the kernel against its records in
+the other memory (B2: local, B4: shared) at the main shape.
+
 Every number is measured on the card; without a CUDA device this raises.
 """
 
@@ -38,13 +63,16 @@ import torch
 from . import flops
 from .metrics import rays_per_render
 from ..models.integrator import render_bounce_stats
+from ..ops import render_grad as rg
+from ..ops import render_physical as rp
+from ..ops import render_physical_grad as pg
 from ..ops.camera import Camera
 from ..ops.render_kernel import render_kernel, render_kernel_round_counts
 from ..ops.sol_probes import (MICRO_NOBJ, MICRO_REPS, micro_table, sol_micro, sol_null,
                               sol_null_launcher)
 from ..scene import demo
 
-__all__ = ["sol_decompose", "table_loads_per_round"]
+__all__ = ["sol_decompose", "fused_decompose", "table_loads_per_round"]
 
 
 def table_loads_per_round(scene) -> int:
@@ -147,3 +175,105 @@ def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None)
         "remainder_fraction_of_fwd": 1.0 - sol_fraction - divergence_of_fwd - startup
                                      - table_fraction,
     }
+
+
+# The shape of fused_decompose's records-in-registers reading: that
+# instantiation takes at most 3 bounces.
+RECORDS_SHAPE = (256, 256, 8, 3)
+
+
+def fused_decompose(kind: str = "fused", device="cuda", small: bool = False,
+                    rates: dict | None = None, twin_counts: dict | None = None) -> dict:
+    """B2's (``kind`` "fused") or B4's ("physical_fused") time at the bench
+    workload, decomposed (module docstring); one flat dict of numbers. B4 is
+    timed with the live emitters' geometry planes (its gradient headline),
+    and without them beside it. ``rates``: as ``sol_decompose``'s.
+    ``twin_counts``: ``round_groupings`` of the twin's rounds at this shape
+    (``on_sample`` of ``render_fused_reference`` or
+    ``render_physical_fused_reference``, seed 1), if the caller has them:
+    they must agree with the kernel's counts, and add the warp lane-rounds
+    that path regeneration would run."""
+    if kind not in ("fused", "physical_fused"):
+        raise ValueError(f"kind must be 'fused' or 'physical_fused', not {kind!r}")
+    device = flops._cuda_device(device)
+    height = width = 256 if small else 1024
+    spp, bounces = (8, 4) if small else (64, 8)
+    scene, cam = demo.glossy_scene(device), Camera.reference(device)
+    shape = (scene, cam, height, width, spp, bounces)
+    records_shape = (scene, cam, *RECORDS_SHAPE)
+    if kind == "fused":
+        geo = {}
+        timed = lambda s, *a: rg.render_fused(*(a or shape), s)
+        variant = lambda s, v, *a: rg.render_fused_variant(*(a or shape), s, v)
+        moved = "local_records"
+        rounds = rg.render_fused_round_counts(*shape, 1)
+        events, op_kw, flops_kind = {"rounds": rounds["thread_rounds"]}, {}, "fused"
+        n_planes = 9 * scene.num_materials + 3
+    else:
+        n_live = rp.live_emitter_count(scene)
+        geo = {"n_em_cap": n_live}
+        timed = lambda s, *a, **kw: pg.render_physical_fused(*(a or shape), s, **{**geo, **kw})
+        variant = lambda s, v, *a, **kw: pg.render_physical_fused_variant(
+            *(a or shape), s, v, **{**geo, **kw})
+        moved = "shared_records"
+        rounds = pg.render_physical_fused_round_counts(*shape, 1)
+        events = pg.render_physical_fused(*shape, 1, count_events=True, **geo)[-1]
+        fwd_events = rp.render_physical_kernel(*shape, 1, count_events=True)[1]
+        op_kw, flops_kind = dict(fwd_events=fwd_events, **geo), "physical_fused_geom"
+        n_planes = 9 * scene.num_materials + 3 + 12 * n_live
+    thread_rounds, warp_rounds = rounds["thread_rounds"], rounds["warp_lane_rounds"]
+
+    t = _median_seconds(timed)
+    sink_s = _median_seconds(lambda s: variant(s, "sink"))
+    moved_s = _median_seconds(lambda s: variant(s, moved))
+    records_kernel = _median_seconds(lambda s: timed(s, *records_shape))
+    records_regs = _median_seconds(lambda s: variant(s, "registers", *records_shape))
+    null_s = _median_seconds(lambda s: sol_null(scene, cam, height, width))
+    zero_fill_s = _median_seconds(lambda s: torch.zeros((n_planes, height, width),
+                                                        dtype=torch.float32, device=device))
+    if rates is None:
+        rates = flops.measure_op_rates(device)
+    report = flops.sol_report(flops_kind, scene, height, width, spp, bounces, t, events,
+                              **op_kw, alu_rate=rates["alu"],
+                              transc_rate={c: rates[c] for c in flops.CLASSES[1:]})
+    sol_s = report["sol_seconds"]
+    parts = {
+        "sol_fraction": report["sol_fraction"],
+        "divergence_fraction": sol_s * (warp_rounds / thread_rounds - 1.0) / t,
+        "planes_fraction": (t - sink_s) / t,
+        "fixed_fraction": (null_s + zero_fill_s) / t,
+    }
+    out = {
+        "kernel": "B2 render_fused" if kind == "fused" else "B4 render_phys_fused",
+        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, blocks 32x8"
+                    + (f", geometry planes n_em_cap={geo['n_em_cap']}" if geo else ""),
+        "device": torch.cuda.get_device_name(device),
+        "seconds": t,
+        "executed_thread_rounds": thread_rounds,
+        "warp_lane_rounds": warp_rounds,
+        "divergence_loss_fraction": 1.0 - thread_rounds / warp_rounds,
+        "measured_rates": rates,
+        "sol_seconds": sol_s,
+        "sink_seconds": sink_s,
+        f"{moved}_seconds": moved_s,
+        "records_shape": "{}x{}/{}spp/{}b glossy".format(*RECORDS_SHAPE),
+        "records_shape_seconds": records_kernel,
+        "records_registers_seconds": records_regs,
+        "records_share_at_records_shape": (records_kernel - records_regs) / records_kernel,
+        "null_call_seconds": null_s,
+        "zero_fill_seconds": zero_fill_s,
+    }
+    if geo:
+        no_geo = _median_seconds(lambda s: timed(s, n_em_cap=0))
+        sink_no_geo = _median_seconds(lambda s: variant(s, "sink", n_em_cap=0))
+        parts["geometry_adjoint_fraction"] = (sink_s - sink_no_geo) / t
+        out.update(no_geometry_seconds=no_geo, no_geometry_sink_seconds=sink_no_geo,
+                   events=events)
+    if twin_counts is not None:
+        if {k: twin_counts[k] for k in rounds} != rounds:
+            raise AssertionError(f"the twin's rounds {twin_counts} are not the kernel's {rounds}")
+        regen = twin_counts["warp_lane_rounds_regen"]
+        out.update(warp_lane_rounds_regen=regen,
+                   regen_divergence_loss_fraction=1.0 - thread_rounds / regen)
+    parts["remainder_fraction"] = 1.0 - sum(parts.values())
+    return {**out, **parts}

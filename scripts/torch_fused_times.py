@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Times of the two fused primal + Jacobian kernels (B2 ``csrc/render_fused.cu``,
+B4 ``csrc/render_phys_fused.cu``) and of the fit steps that launch them, on
+one GPU, with the card's name and power limit; for comparing two checkouts
+in one call.
+
+    python3 scripts/torch_fused_times.py [--tree DIR] [--label NAME]
+
+``--tree`` names another checkout (``git archive`` of a parent unpacked
+under ``build/``) whose package is imported and built in place of this
+one; every call below exists in the port since its gradient slices, so a
+parent times through the same code. Run parent, this, this, parent in one
+chip call to compare.
+
+Times, each the median of 3 after a warm-up:
+
+- each kernel alone: 20 launches back to back on operands packed once
+  (planes allocated once), by CUDA events, divided: B2 on the glossy scene
+  at 1024x1024, 64 spp, 8 bounces and at config 4's fit shape (spheres32,
+  256x256, 8 spp, 3 bounces); B4 at the glossy shape without and with the
+  live emitter's geometry planes, and on cornell at the fit shape with
+  them (the geometry fit's launch);
+- each kernel as a user calls it (``render_fused``,
+  ``render_physical_fused``: packing, zero-filled planes, launch), by CUDA
+  events;
+- a step of config 4's material fit (``fit_materials``) and of the
+  geometry fit on B4 (``fit_geometry(engine="physical_pallas")``, cornell
+  at the fit shape), 20 steps a call, on the host's clock.
+
+Prints one JSON line, and what ptxas said of the fused kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+H = W = 1024
+SPP, BOUNCES = 64, 8
+FIT = (256, 256, 8, 3)  # config 4's fit shape
+REPEAT = 20
+
+
+def median_ms(fn, repeat=1, seeds=(1, 2, 3), warm=100) -> float:
+    """Median milliseconds of ``repeat`` calls of ``fn(seed)`` back to back,
+    by CUDA events, divided."""
+    import torch
+
+    fn(warm)
+    times = []
+    for seed in seeds:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for i in range(repeat):
+            fn(seed + 10 * i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / repeat)
+    return statistics.median(times)
+
+
+def fit_step_ms(fn, steps=20, calls=3) -> float:
+    """Median wall milliseconds a step of ``fn(seed0, steps)``, one warm-up
+    call first."""
+    import torch
+
+    fn(1000, steps)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn(2000 + 100 * i, steps)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    return statistics.median(times)
+
+
+def ptxas_lines(build) -> list[str]:
+    """What ptxas said of each fused kernel's instantiations."""
+    out, keep = [], False
+    for line in build.resource_usage().splitlines():
+        if "Compiling entry function" in line:
+            keep = "render_fused_kernel" in line or "render_phys_fused_kernel" in line
+        if keep and ("Compiling entry function" in line or "registers" in line
+                     or "stack frame" in line):
+            out.append(line.split("ptxas info    :")[-1].strip())
+    return out
+
+
+def b2_launcher(lib, rk, scene, cam, h, w, spp, bounces):
+    """B2's timed kernel on operands packed once: a function of the seed."""
+    import torch
+
+    dev = scene.device
+    operands = rk._scene_operands(scene)
+    par = rk._camera_params(cam, scene, h, w)
+    img = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    jac = torch.zeros((9 * scene.num_materials + 3, h, w), dtype=torch.float32, device=dev)
+    tables = (*rk._table_args(operands), rk._ptr(par), rk._ptr(img), rk._ptr(jac), None)
+
+    def launch(seed):
+        err = lib.render_fused(*tables, *rk._run_args(h, w, spp, bounces, seed, 0, False, dev))
+        if err != 0:
+            raise RuntimeError(f"render_fused: CUDA error {err}")
+
+    launch.keep = (operands, par, img, jac)  # the pointers' tensors, kept alive
+    return launch
+
+
+def b4_launcher(lib, rk, rp, scene, cam, h, w, spp, bounces, n_em_cap):
+    """B4's timed kernel (jitter and next-event estimation on) on operands
+    packed once: a function of the seed."""
+    import torch
+
+    dev = scene.device
+    operands = rk._scene_operands(scene)
+    ph = rp._phys_operands(scene, operands)
+    par = rk._camera_params(cam, scene, h, w)
+    planes = lambda k: torch.zeros((k, h, w), dtype=torch.float32, device=dev)
+    img = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    jac = planes(9 * scene.num_materials + 3)
+    jgeo = planes(12 * n_em_cap) if n_em_cap else None
+    tables = (*rk._table_args(operands), *rp._emitter_args(ph), rk._ptr(par), rk._ptr(img),
+              rk._ptr(jac), rk._ptr(jgeo), None, None, 1, 0, 0, n_em_cap, 0)
+
+    def launch(seed):
+        err = lib.render_phys_fused(*tables,
+                                    *rk._run_args(h, w, spp, bounces, seed, 0, True, dev))
+        if err != 0:
+            raise RuntimeError(f"render_phys_fused: CUDA error {err}")
+
+    launch.keep = (operands, ph, par, img, jac, jgeo)  # the pointers' tensors, kept alive
+    return launch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(REPO))
+    ap.add_argument("--label", default="this")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_fused_times: no CUDA device")
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    sys.path.insert(1, str(REPO))
+    import path_tracer_c_tpu_torch as pt
+    from chip_smoke import card_line
+    from path_tracer_c_tpu_torch.grad import diff
+    from path_tracer_c_tpu_torch.ops import build
+    from path_tracer_c_tpu_torch.ops import render_grad as rg
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    cam = pt.Camera.reference(dev)
+    result = {"label": args.label, "tree": args.tree, "card": card,
+              "package": str(Path(pt.__file__).parent)}
+    t0 = time.perf_counter()
+    lib = build.load_library()
+    result["build_seconds"] = time.perf_counter() - t0
+    result["ptxas"] = ptxas_lines(build)
+    print(f"{args.label}: built in {result['build_seconds']:.1f} s [{card}]", flush=True)
+
+    glossy = pt.demo.glossy_scene(dev)
+    spheres = pt.demo.random_spheres_scene(dev)
+    cornell = pt.demo.cornell_spheres_scene(dev)
+    n_live = rp.live_emitter_count(glossy)
+    n_live_c = rp.live_emitter_count(cornell)
+    main_shape = (H, W, SPP, BOUNCES)
+    alone = {
+        "B2": b2_launcher(lib, rk, glossy, cam, *main_shape),
+        "B2 fit shape": b2_launcher(lib, rk, spheres, cam, *FIT),
+        "B4": b4_launcher(lib, rk, rp, glossy, cam, *main_shape, 0),
+        "B4 geometry": b4_launcher(lib, rk, rp, glossy, cam, *main_shape, n_live),
+        "B4 geometry fit shape": b4_launcher(lib, rk, rp, cornell, cam, *FIT, n_live_c),
+    }
+    result["kernel_ms"] = {k: median_ms(fn, repeat=REPEAT) for k, fn in alone.items()}
+    del alone
+    result["call_ms"] = {
+        "B2": median_ms(lambda s: rg.render_fused(glossy, cam, *main_shape, s)),
+        "B2 fit shape": median_ms(lambda s: rg.render_fused(spheres, cam, *FIT, s)),
+        "B4": median_ms(lambda s: pg.render_physical_fused(glossy, cam, *main_shape, s)),
+        "B4 geometry": median_ms(lambda s: pg.render_physical_fused(glossy, cam, *main_shape, s,
+                                                                   n_em_cap=n_live)),
+    }
+    torch.cuda.empty_cache()
+
+    fit_target = rk.render_kernel(spheres, cam, *FIT, 12345)
+    li = int(rp.live_emitter_mask(cornell).argmax())
+    geo_target = rp.render_physical_kernel(cornell, cam, *FIT, 12345, jitter=False)
+    result["fit_step_ms"] = {
+        "config 4 material fit": fit_step_ms(lambda s0, n: diff.fit_materials(
+            spheres, fit_target, cam, *FIT, steps=n, lr=0.05, seed0=s0)),
+        "geometry fit": fit_step_ms(lambda s0, n: diff.fit_geometry(
+            cornell, geo_target, cam, *FIT, sphere_indices=(li,), steps=n, lr=0.02, seed0=s0,
+            engine="physical_pallas")),
+    }
+    result["shapes"] = {"B2, B4": f"glossy {H}x{W} {SPP}spp {BOUNCES}b, geometry n_em_cap={n_live}",
+                        "fit shape": "B2: spheres32, B4: cornell (n_em_cap={}), "
+                                     "{}x{} {}spp {}b".format(n_live_c, *FIT)}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,12 @@ the bench workload (glossy, 1024^2, 64 spp, 8 bounces; ``--small``: 256^2,
 rates kernel B6 measured, and the shares of the time taken by the counted
 operations, divergence, block start and end (B7), table loads (B8) and the
 remainder, with the card's name and power limit as nvidia-smi reports them.
-From the repository root:
+``--fused`` prints two more lines: the same for the fused primal + Jacobian
+kernels B2 and B4 (``fused_decompose``: besides, the per-bounce records,
+the planes' read-modify-writes, B4's geometry adjoint), on the rates of
+the first line. From the repository root:
 
-    python3 scripts/torch_sol_decompose.py [--small]
+    python3 scripts/torch_sol_decompose.py [--small] [--fused]
 
 Needs a CUDA device and the CUDA toolkit (the kernels are built on first
 use into build/kernels/); exits non-zero without them.
@@ -28,14 +31,19 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_sol_decompose: no CUDA device")
-    from path_tracer_c_tpu_torch.utils.sol_decompose import sol_decompose
+    from path_tracer_c_tpu_torch.utils.sol_decompose import fused_decompose, sol_decompose
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    out = sol_decompose("cuda", small="--small" in sys.argv)
-    print(json.dumps({**out, "card": card}))
+    small = "--small" in sys.argv
+    out = sol_decompose("cuda", small=small)
+    print(json.dumps({**out, "card": card}), flush=True)
+    if "--fused" in sys.argv:
+        for kind in ("fused", "physical_fused"):
+            d = fused_decompose(kind, "cuda", small=small, rates=out["measured_rates"])
+            print(json.dumps({**d, "card": card}), flush=True)
     return 0
 
 

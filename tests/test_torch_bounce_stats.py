@@ -105,20 +105,81 @@ def test_render_bounce_stats_metrics(tmp_path):
     assert (tmp_path / "out.bmp").exists()
 
 
-@pytest.mark.parametrize("engine", ["physical", "physical_core"])
+@pytest.mark.parametrize("engine", ["physical", "physical_core", "physical_pallas"])
 def test_render_bounce_stats_physical_engine(tmp_path, capsys, engine):
-    """Both physical engines log the physical histogram with the light
+    """Every physical engine logs the physical histogram with the light
     samples' counts; the record equals render_bounce_stats_physical's at the
-    CLI's seed and jitter, and its spp is capped at 4."""
+    CLI's seed and jitter, and its spp is capped at 4. physical_pallas is
+    the render CLI's alias of the physical kernel engine, and the record
+    carries the engine that rendered: "physical" (the JAX CLI logs the
+    reference tier's histogram under "physical_pallas")."""
     mpath = tmp_path / "m.jsonl"
     app.main(["render", "--device", "cpu", "--scene", "demo", "--width", "16", "--height", "8",
               "--spp", "6", "--max-bounces", "2", "--engine", engine,
               "--out", str(tmp_path / "out.bmp"), "--metrics", str(mpath), "--bounce-stats"])
     (rec,) = [r for r in MetricsLogger.read(mpath) if r["kind"] == "bounce_histogram"]
-    assert rec["engine"] == engine and rec["spp"] == 4
+    assert rec["engine"] == {"physical_pallas": "physical"}.get(engine, engine)
+    assert rec["spp"] == 4
     assert len(rec["nee_candidates"]) == 3
     assert sum(rec["nee_candidates"]) >= sum(rec["nee_visible"])
     assert sum(rec["nee_candidates"]) > 0  # the demo scene has a sun sphere
     want = render_bounce_stats_physical(pdemo.demo_scene("cpu"), PCAM, 8, 16, 4, 2, 0)
     assert {k: v.tolist() for k, v in want.items()} == {k: rec[k] for k in want}
     assert "bounce histogram (4 spp, per bounce)" in capsys.readouterr().out
+
+
+# -- tri_nee: the histogram of the estimator the image is rendered with ----------
+
+
+def jax_tri_nee_stats(jscene, h, w, spp, bounces, seed):
+    """JAX's trace_paths_physical(..., tri_nee=True, collect_stats=True)
+    summed over samples, on the rays render_bounce_stats_physical draws
+    (no jitter): JAX's histogram itself takes no tri_nee."""
+    from path_tracer_c_tpu.models.physical import trace_paths_physical
+    from path_tracer_c_tpu.ops import rng as jrng
+    from path_tracer_c_tpu.ops.camera import pixel_indices, primary_rays
+
+    pix = pixel_indices(h, w, 0, h)
+    o, d = primary_rays(JCAM, h, w)
+    acc = None
+    for s in range(spp):
+        st = jrng.seed_state(pix, jnp.int32(s), jnp.uint32(seed))
+        stats = trace_paths_physical(jscene, o, d, st, bounces, nee=True, collect_stats=True,
+                                     tri_nee=True)[-1]
+        acc = stats if acc is None else {k: acc[k] + stats[k] for k in acc}
+    return acc
+
+
+def test_render_bounce_stats_physical_tri_nee():
+    """On a scene lit by triangles and a sphere, 16x24, 2 spp, 3 bounces:
+    without tri_nee every bin equals JAX's render_bounce_stats_physical;
+    with it, JAX's trace_paths_physical(tri_nee=True) summed over samples,
+    and the light samples' bins differ from the estimator without it."""
+    from torch_physical_scenes import carry, tri_light_mixed_scene
+
+    jscene = tri_light_mixed_scene()
+    pscene = carry(jscene)
+    off = render_bounce_stats_physical(pscene, PCAM, 16, 24, 2, 3, 0)
+    assert_equal_bins(j_stats_phys(jscene, JCAM, 16, 24, 2, 3, jnp.uint32(0), True, False), off)
+    on = render_bounce_stats_physical(pscene, PCAM, 16, 24, 2, 3, 0, tri_nee=True)
+    assert_equal_bins(jax_tri_nee_stats(jscene, 16, 24, 2, 3, 0), on)
+    assert not torch.equal(on["nee_candidates"], off["nee_candidates"])
+    assert torch.equal(on["hits"][0], off["hits"][0])  # the primary rays are the same
+
+
+def test_render_bounce_stats_cli_passes_tri_nee(tmp_path):
+    """`render --tri-nee --bounce-stats` logs the histogram of the tri_nee
+    estimator it renders with."""
+    from path_tracer_c_tpu_torch.scene.io import save_scene
+    from torch_physical_scenes import carry, tri_light_mixed_scene
+
+    pscene = carry(tri_light_mixed_scene())
+    scene_path, mpath = tmp_path / "tri.json", tmp_path / "m.jsonl"
+    save_scene(scene_path, pscene)
+    app.main(["render", "--device", "cpu", "--scene", str(scene_path), "--width", "24",
+              "--height", "16", "--spp", "2", "--max-bounces", "3", "--engine", "physical",
+              "--tri-nee", "--out", str(tmp_path / "out.bmp"), "--metrics", str(mpath),
+              "--bounce-stats"])
+    (rec,) = [r for r in MetricsLogger.read(mpath) if r["kind"] == "bounce_histogram"]
+    want = render_bounce_stats_physical(pscene, PCAM, 16, 24, 2, 3, 0, tri_nee=True)
+    assert {k: v.tolist() for k, v in want.items()} == {k: rec[k] for k in want}

@@ -396,3 +396,71 @@ def test_warp_lane_rounds_match_twin(cuda_device, h, w, kw):
     assert n == got["thread_rounds"] == rk.render_kernel_reference(*args, count_rounds=True, **kw)[1]
     assert torch.equal(img, rk.render_kernel(*args, **kw))
     assert 0 < got["thread_rounds"] <= got["warp_lane_rounds"] <= h * w * 4 * 9
+
+
+# -- the fused kernels' rounds, shapes and measurement instantiations ----------
+
+
+@pytest.mark.parametrize("h, w, bounces, kw", [
+    (19, 45, 5, {}),  # a partial warp in every row
+    (100, 160, 8, dict(jitter=True, sample_offset=3)),
+    (19, 45, 0, {}),
+])
+def test_fused_round_counts_match_twins(cuda_device, h, w, bounces, kw):
+    """B2's and B4's counting instantiations: thread-rounds equal
+    count_rounds and the twin's, warp lane-rounds the twin's per-sample
+    grouping (the kernels' schedule), at least its per-lane-total grouping
+    (what path regeneration would run)."""
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    args = (scene, cam, h, w, 4, bounces, 7)
+    got = rg.render_fused_round_counts(*args, **kw)
+    twin = rg.render_fused_round_counts_reference(*args, **kw)
+    assert got == {k: twin[k] for k in got}
+    assert got["thread_rounds"] == rg.render_fused(*args, count_rounds=True, **kw)[2]
+    assert got["thread_rounds"] <= twin["warp_lane_rounds_regen"] <= got["warp_lane_rounds"]
+    pkw = dict(kw, jitter=kw.get("jitter", True))
+    got = pg.render_physical_fused_round_counts(*args, **pkw)
+    twin = pg.render_physical_fused_round_counts_reference(*args, **pkw)
+    assert got == {k: twin[k] for k in got}
+    assert got["thread_rounds"] == pg.render_physical_fused(*args, count_rounds=True, **pkw)[-1]
+    assert got["thread_rounds"] <= twin["warp_lane_rounds_regen"] <= got["warp_lane_rounds"]
+
+
+@pytest.mark.parametrize("h, w, spp, bounces", [(19, 45, 4, 0), (37, 45, 2, 31)])
+def test_fused_kernels_at_no_bounce_and_the_cap(cuda_device, h, w, spp, bounces):
+    """At a ragged size with no bounce and at the bounce cap, B2 and B4
+    equal their twins value for value, and their images B1's and B3's."""
+    cam = P.Camera.reference(cuda_device)
+    scene = mixed_scene(cuda_device)
+    args = (scene, cam, h, w, spp, bounces, 7)
+    img, jac = rg.render_fused(*args, jitter=True)
+    r_img, r_jac = rg.render_fused_reference(*args, jitter=True)
+    assert torch.equal(img, r_img) and torch.equal(jac, r_jac)
+    assert torch.equal(img, rk.render_kernel(*args, jitter=True))
+    tri = tri_light_mixed_scene(cuda_device)
+    args = (tri, cam, h, w, spp, bounces, 7)
+    kw = dict(tri_nee=True, n_em_cap=1, tri_em_cap=2, rough_grad=True)
+    out = pg.render_physical_fused(*args, **kw)
+    ref = pg.render_physical_fused_reference(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert torch.equal(out[0], rp.render_physical_kernel(*args, tri_nee=True))
+
+
+@pytest.mark.parametrize("variant", sorted(rg.VARIANTS.keys() | pg.VARIANTS.keys()))
+def test_measurement_variants_match_the_kernels(cuda_device, variant):
+    """Each measurement instantiation computes the timed kernel's image and,
+    but for the sinks, its planes; none counts as a launch of the kernel."""
+    scene, cam = pdemo.cornell_spheres_scene(cuda_device), P.Camera.reference(cuda_device)
+    args = (scene, cam, 37, 45, 3, 3, 11)
+    launches = (rg.render_fused.launches, pg.render_physical_fused.launches)
+    b2 = rg.render_fused_variant(*args, variant, jitter=True) if variant in rg.VARIANTS else None
+    b4 = (pg.render_physical_fused_variant(*args, variant, n_em_cap=1)
+          if variant in pg.VARIANTS else None)
+    assert launches == (rg.render_fused.launches, pg.render_physical_fused.launches)
+    for got, out in ((b2, rg.render_fused(*args, jitter=True)),
+                     (b4, pg.render_physical_fused(*args, n_em_cap=1))):
+        if got is None:
+            continue
+        assert torch.equal(got[0], out[0])
+        if variant != "sink":
+            assert all(torch.equal(a, b) for a, b in zip(got[1:], out[1:]))
