@@ -12,10 +12,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA sources of ``path_tracer_c_tpu_torch/csrc`` with
    nvcc (``ops/build.py``); print the build time and what ptxas says of
    every kernel (registers, stack frame, spills).
-3. forward kernel against its plain twin: ``render_kernel`` on the card
-   against ``render_kernel_reference`` on the card, for three scenes at a
-   size with a ragged edge, with jitter off and on and a nonzero sample
-   offset, at the main path's shape, and once against the twin on the CPU.
+3. forward kernel against its plain twin: ``render_kernel`` and each of its
+   measurement instantiations (``render_kernel_variant``: the other schedule
+   or table placement, ``csrc/pt_sched.cuh``) on the card against
+   ``render_kernel_reference`` on the card, value for value, for three
+   scenes at 100x160, with jitter off and on and a nonzero sample offset, at
+   a ragged 19x45, at the main path's shape and on a scene whose tables
+   exceed the shared budget (the shared instantiations refuse it), and once
+   against the twin on the CPU.
 4. the forward main path: the CLI ``render`` at 1024x1024, 64 spp, 8
    bounces on the glossy scene. The kernel's launch count must grow; the
    BMP is decoded and checked.
@@ -38,11 +42,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card against ``render_physical_kernel_reference`` on the card at a
    ragged size on cornell, glossy, a scene with no emitter and a scene lit
    by triangles and a sphere with ``tri_nee`` on, with next-event
-   estimation off, jitter off and a nonzero sample offset, and at the main
-   shape; the counted events (rounds, diffuse vertices, light samples,
-   shadow scans) must equal the twin's; once against the twin on the CPU.
-   The twin runs every round of every path, so agreement shows that what
-   the kernel skips adds exact zeros.
+   estimation off, jitter off and a nonzero sample offset, at the main
+   shape and on the scene above the shared budget, value for value, and so
+   must each of its measurement instantiations; the counted events (rounds,
+   diffuse vertices, light samples, shadow scans) must equal the twin's, and
+   the warp lane-rounds of every counting instantiation (its rounds, and
+   those with a light sample and a shadow scan) the twin's grouping for the
+   schedule it runs (phase 14 adds a ragged 19x45); once against the twin on
+   the CPU. The twin runs every round of every path, so agreement shows
+   that what the kernel skips adds exact zeros.
 9. the physical main path: the CLI ``render --config
    configs/config3_glossy_1024.json`` (glossy, 1024x1024, 64 spp, 8
    bounces, engine "physical"). The kernel's launch count must grow; the
@@ -77,11 +85,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. speed of light: the calibration kernel (B6) against its twin for each of
    its four chains, within ``CALIB_ULPS``; the null and micro probes (B7, B8)
    against their twins, value for value, and the micro probe's SASS (the
-   reload variant keeps its loads); the forward kernel's warp lane-rounds
-   against the twin's at a ragged shape and at the main shape; then the
-   speed-of-light path, with its launches counted: the four op rates with
-   their spread (``measure_op_rates``) and ``sol_decompose`` at the main
-   shape; the ALU rate at twice the launch size within 5% of the rate at the
+   reload variant keeps its loads); the warp lane-rounds of the forward
+   kernel's counting instantiations (timed kernel and measurement
+   instantiations) against the twin's grouping for their schedule at a
+   ragged shape and at the main shape; then the speed-of-light path, with
+   its launches counted: the four op rates with their spread
+   (``measure_op_rates``) and ``sol_decompose`` of B1 at the main shape, then
+   of B3 at config 3's (with the prices of both kernels' policies, each the
+   kernel against its measurement instantiation); the ALU rate at twice the
+   launch size within 5% of the rate at the
    default size; the probes' times; ``sol_report`` of the five render
    kernels at phase 13's times, and every kernel's bound at the measured
    rates; B2's and B4's measurement instantiations against the kernels
@@ -301,6 +313,63 @@ def tri_light_scene(pt, dev):
     return b.build(dev)
 
 
+def big_table_scene(pt, dev):
+    """Two spheres, a floor and a wall of 1000 small triangles, every seventh
+    a light: tables above the shared budget of the forward kernels
+    (tests/test_torch_cuda.py's scene)."""
+    b = pt.SceneBuilder(sky_color=(0.3, 0.4, 0.6))
+    grey = b.add_material(albedo=(0.5, 0.5, 0.5), roughness=0.6)
+    lamp = b.add_material(albedo=(0.0, 0.0, 0.0), emission_color=(1.0, 0.9, 0.8),
+                          emission_strength=5.0)
+    b.add_sphere(center=(0.0, 0.0, 5.0), radius=1.0, material=grey)
+    b.add_sphere(center=(1.5, 1.5, 4.0), radius=0.3, material=lamp)
+    b.add_triangle(v0=(-50, -1, -50), v1=(50, -1, -50), v2=(50, -1, 50), material=grey)
+    for i in range(1000):
+        x, y = i % 40 - 20.0, i // 40 - 12.0
+        b.add_triangle(v0=(x, y, 9.0), v1=(x + 0.9, y, 9.0), v2=(x, y + 0.9, 9.0),
+                       material=grey if i % 7 else lamp)
+    return b.build(dev)
+
+
+def check_instantiations(kernel, variant_fn, args, kw, ref, what) -> None:
+    """Each measurement instantiation of a forward kernel (``VARIANTS``)
+    against the twin's image ``ref``, value for value; where the scene's
+    tables exceed the shared budget the shared ones must refuse it and the
+    others still agree."""
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+
+    for variant in rk.VARIANTS:
+        if (rk.policy(variant)["tables"] == "shared"
+                and rk.table_bytes(args[0], kernel == "B3") > rk.SHARED_TABLE_BUDGET):
+            try:
+                variant_fn(*args, variant, **kw)
+            except ValueError:
+                continue
+            raise AssertionError(f"{what}: {variant} took tables above the shared budget")
+        compare_exact(variant_fn(*args, variant, **kw), ref, f"{what} {kernel} {variant}")
+
+
+def check_physical_rounds(args, kw, twin, what) -> dict:
+    """The counting instantiations of B3 (timed kernel and measurement
+    instantiations) against the twin's warp groupings ``twin``
+    (``render_physical.WarpGroupings``): each counts its schedule's rounds,
+    and those with a light sample and a shadow scan, as the twin groups
+    them. Returns the counts by instantiation."""
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+
+    out = {}
+    for variant in (None, *rk.VARIANTS):
+        if (variant and rk.policy(variant)["tables"] == "shared"
+                and rk.table_bytes(args[0], True) > rk.SHARED_TABLE_BUDGET):
+            continue  # refused: check_instantiations holds it to that
+        got = rp.render_physical_kernel_round_counts(*args, variant=variant, **kw)
+        if got != {k: twin[k] for k in got}:
+            raise AssertionError(f"{what} {variant or 'kernel'}: rounds {got}, twin {twin}")
+        out[variant or "kernel"] = {k: v for k, v in got.items() if "lane_rounds" in k}
+    return out
+
+
 def check_bmp(data: bytes, width: int, height: int) -> None:
     """Decode a 24-bit BMP's header and look at its pixels."""
     if data[:2] != b"BM" or len(data) != 54 + 3 * width * height:
@@ -384,16 +453,18 @@ def sass_global_loads(patterns: dict) -> dict:
 
 
 def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
-    """Phase 14: B6, B7 and B8 against their twins; B1's warp lane-rounds
-    against the twin's; the speed-of-light path (the op rates and the
-    decomposition of B1's time) with its launches counted; the ALU rate's
+    """Phase 14: B6, B7 and B8 against their twins; the warp lane-rounds of
+    B1's and B3's counting instantiations against the twins' grouping; the
+    speed-of-light path (the op rates and the decomposition of B1's time)
+    with its launches counted; B3's decomposition; the ALU rate's
     saturation; the probes' times; ``sol_report`` of B1-B5 from phase 13's
     times; and the decompositions of B2's and B4's times. ``specs``: kernel
     name -> (flops kind, events, keywords, milliseconds); ``twin_rounds``:
     ``round_groupings`` of B2's and B4's twins at the main shape, by
     ``fused_decompose`` kind. Returns the measured bounds of B1-B5, B2's and
-    B4's rounds and decompositions, the new kernels' entries, and B1's
-    launches on this path."""
+    B4's rounds and decompositions, B1's and B3's schedules, rounds and
+    decompositions, the new kernels' entries, and B1's launches on this
+    path."""
     import torch
 
     from path_tracer_c_tpu_torch.ops import render_kernel as rk
@@ -433,20 +504,36 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
     if not loads["reload"] < loads["hoisted"]:
         raise AssertionError("sol_micro: the reload variant's loads were hoisted as well")
 
-    log("forward kernel's warp lane-rounds vs the plain twin's:")
+    log("forward kernels' warp lane-rounds vs the plain twins' grouping for each schedule "
+        "(timed kernel and measurement instantiations):")
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+
     for what, args, kw in (("glossy 19x45 4spp 8b (ragged)", (glossy, cam, 19, 45, 4, 8, 7), {}),
                            ("glossy 100x160 4spp 8b jitter, offset 3",
                             (glossy, cam, 100, 160, 4, 8, 7), dict(jitter=True, sample_offset=3)),
                            (f"glossy {H}x{W} {SPP}spp {BOUNCES}b (main shape)",
                             (glossy, cam, H, W, SPP, BOUNCES, 1), {})):
-        got = rk.render_kernel_round_counts(*args, **kw)
         twin = rk.render_kernel_round_counts_reference(*args, **kw)
+        for variant in (None, *rk.VARIANTS):
+            got = rk.render_kernel_round_counts(*args, variant=variant, **kw)
+            if got != {k: twin[k] for k in got}:
+                raise AssertionError(f"{what} {variant or 'kernel'}: rounds {got}, twin {twin}")
         nominal = args[2] * args[3] * args[4] * (args[5] + 1)
-        log(f"  {what}: {got}, twin {twin}, nominal {nominal}")
-        if got != twin or got["thread_rounds"] != rk.render_kernel(*args, count_rounds=True, **kw)[1]:
-            raise AssertionError(f"{what}: round counts differ from the twin's or count_rounds'")
-        if not 0 < got["thread_rounds"] <= got["warp_lane_rounds"] <= nominal:
-            raise AssertionError(f"{what}: thread <= warp lane <= nominal rounds does not hold")
+        log(f"  B1 {what}: twin {twin}, nominal {nominal}; every counting instantiation equal")
+        if twin["thread_rounds"] != rk.render_kernel(*args, count_rounds=True, **kw)[1]:
+            raise AssertionError(f"{what}: thread-rounds differ from count_rounds'")
+        if not (0 < twin["thread_rounds"] <= twin["warp_lane_rounds_regen"]
+                <= twin["warp_lane_rounds"] <= nominal):
+            raise AssertionError(f"{what}: thread <= regen <= per-sample <= nominal does not hold")
+    fwd_twin_rounds = twin
+    args, kw = (glossy, cam, 19, 45, 4, 8, 7), dict(jitter=True, sample_offset=3)
+    what = f"B3 glossy 19x45 4spp 8b {kw} (ragged)"
+    groups = rp.WarpGroupings(19, 45, 4, 8, dev)
+    ref = rp.render_physical_kernel_reference(*args, on_round=groups.add_round, **kw)
+    compare_exact(rp.render_physical_kernel(*args, **kw), ref, what)
+    check_instantiations("B3", rp.render_physical_kernel_variant, args, kw, ref, what)
+    log(f"  {what}: {check_physical_rounds(args, kw, groups.counts(), what)}, equal to the "
+        f"twin's")
 
     # The speed-of-light path: the four rates, then B1's decomposition.
     probes = (flops.calib_kernel, sp.sol_null, sp.sol_micro, rk.render_kernel)
@@ -467,6 +554,8 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
         if not rates[cls] > 0:
             raise AssertionError(f"rate {cls} is not positive")
     log("sol_decompose " + json.dumps(decomposition))
+    phys_decomposition = sol_decompose(dev, rates=rates, kind="physical")
+    log(f"sol_decompose physical [{card}] " + json.dumps(phys_decomposition))
     alu2 = flops.measure_op_rate("alu", device=dev, threads=2 * threads)
     saturation = alu2 / rates["alu"]
     log(f"rate alu at {2 * threads} threads: {alu2:.4e} op/s, {saturation:.4f} x the rate at "
@@ -570,7 +659,19 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
               ms_hoisted=hoisted_ms, sass_global_loads=loads,
               per_table_load_ns=decomposition["per_table_load_ns"]),
     ]
-    return {"measured": measured, "fused": fused_parts, "entries": entries, "fwd_launches": n_fwd}
+    forward_parts = {}
+    for name, d, twin in (("render_fwd", decomposition, fwd_twin_rounds),
+                          ("render_phys", phys_decomposition, None)):
+        forward_parts[name] = {
+            "kernel_policy": d["kernel_policy"],
+            "decomposition": {k: v for k, v in d.items()
+                              if k.endswith("_of_fwd") or k == "sol_fraction"},
+            "policy_prices": {k: v for k, v in d.items() if k.startswith("vs_")}}
+        if twin is not None:
+            forward_parts[name].update(warp_lane_rounds=twin["warp_lane_rounds"],
+                                       warp_lane_rounds_regen=twin["warp_lane_rounds_regen"])
+    return {"measured": measured, "fused": fused_parts, "forward": forward_parts,
+            "entries": entries, "fwd_launches": n_fwd}
 
 
 def main() -> int:
@@ -614,29 +715,32 @@ def main() -> int:
             log("  ptxas: " + line.split("ptxas info    :")[-1].strip())
 
     # -- 3. forward kernel against its plain twin --
-    log("forward kernel vs plain twin (both on the card unless named):")
+    log("forward kernel and its measurement instantiations vs plain twin (on the card, value "
+        "for value, unless named):")
     cam = pt.Camera.reference(dev)
     launches0 = rk.render_kernel.launches
     max_err = 0.0
     demo_names = ("demo_scene", "glossy_scene", "cornell_spheres_scene")
     small_cases = ((False, 0, 4), (True, 3, 8))  # jitter, sample offset, bounces
-    for name in demo_names:
-        scene = getattr(pt.demo, name)(dev)
-        for jitter, offset, bounces in small_cases:
-            args = (scene, cam, 100, 160, 4, bounces, 7)
-            kw = dict(sample_offset=offset, jitter=jitter)
-            k = rk.render_kernel(*args, **kw)
-            r = rk.render_kernel_reference(*args, **kw)
-            torch.cuda.synchronize()
-            s = compare(k, r, f"{name} 100x160 4spp {bounces}b jitter={jitter} offset={offset}")
-            max_err = max(max_err, s["max"])
     glossy = pt.demo.glossy_scene(dev)
-    k_main = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 1)
-    r_main = rk.render_kernel_reference(glossy, cam, H, W, SPP, BOUNCES, 1)
-    torch.cuda.synchronize()
-    s = compare(k_main, r_main, f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b (main shape)")
-    max_err = max(max_err, s["max"])
-    del k_main, r_main
+    big = big_table_scene(pt, dev)
+    fwd_cases = [(name, getattr(pt.demo, name)(dev), (100, 160, 4, bounces),
+                  dict(sample_offset=offset, jitter=jitter))
+                 for name in demo_names for jitter, offset, bounces in small_cases]
+    fwd_cases += [("glossy_scene", glossy, (19, 45, 4, 8), {}),  # ragged: a partial warp a row
+                  ("glossy_scene", glossy, (H, W, SPP, BOUNCES), {}),
+                  ("big_table_scene", big, (100, 160, 4, 8), dict(jitter=True))]
+    log(f"  instantiations: timed kernel {rk.KERNEL_POLICY}, measurement {list(rk.VARIANTS)}; "
+        f"tables {rk.table_bytes(glossy)} bytes (glossy), {rk.table_bytes(big)} (big_table_scene), "
+        f"shared budget {rk.SHARED_TABLE_BUDGET}")
+    for name, scene, shape, kw in fwd_cases:
+        args = (scene, cam, *shape, 7 if shape[0] < H else 1)
+        what = "{} {}x{} {}spp {}b {}".format(name, *shape, kw)
+        k = rk.render_kernel(*args, **kw)
+        r = rk.render_kernel_reference(*args, **kw)
+        max_err = max(max_err, compare_exact(k, r, what))
+        check_instantiations("B1", rk.render_kernel_variant, args, kw, r, what)
+        del k, r
     cpu_scene = pt.demo.demo_scene("cpu")
     k = rk.render_kernel(pt.demo.demo_scene(dev), cam, 24, 40, 2, 4, 5, sample_offset=2, jitter=True)
     r = rk.render_kernel_reference(cpu_scene, pt.Camera.reference("cpu"), 24, 40, 2, 4, 5,
@@ -793,19 +897,25 @@ def main() -> int:
         ("cornell_spheres_scene", dict(nee=False)), ("glossy_scene", dict(jitter=False)),
         ("glossy_scene", dict(sample_offset=3)), ("mixed_scene", dict(sample_offset=64, tri_nee=True)),
     ]
+    phys_scenes["big_table_scene"] = big
+    phys_cases.append(("big_table_scene", dict(tri_nee=True)))
     for name, kw in phys_cases:
         args = (phys_scenes[name], cam, 100, 160, 4, 8, 7)
+        what = f"{name} 100x160 4spp 8b {kw}"
+        groups = rp.WarpGroupings(100, 160, 4, 8, dev)
         k, ev = rp.render_physical_kernel(*args, count_events=True, **kw)
-        r, ev_twin = rp.render_physical_kernel_reference(*args, count_events=True, **kw)
-        torch.cuda.synchronize()
-        s = compare_physical(k, r, f"{name} 100x160 4spp 8b {kw}")
-        phys_err = max(phys_err, s["max"])
+        r, ev_twin = rp.render_physical_kernel_reference(*args, count_events=True,
+                                                         on_round=groups.add_round, **kw)
+        phys_err = max(phys_err, compare_exact(k, r, what))
         if not torch.equal(k, rp.render_physical_kernel(*args, **kw)):
             raise AssertionError(f"{name}: the counting instantiation's image differs")
         if ev != ev_twin or ev["rounds"] != rp.render_physical_kernel(
                 *args, count_rounds=True, **kw)[1]:
             raise AssertionError(f"{name}: events {ev}, twin {ev_twin}")
-        log(f"    events {ev} of nominal {100 * 160 * 4 * 9} rounds, equal to the twin's")
+        check_instantiations("B3", rp.render_physical_kernel_variant, args, kw, r, what)
+        rounds = check_physical_rounds(args, kw, groups.counts(), what)
+        log(f"    events {ev} of nominal {100 * 160 * 4 * 9} rounds, equal to the twin's; "
+            f"warp lane-rounds {rounds}, equal to the twin's")
     # The main shape, as configs/config3 renders it (jitter on), the twin's
     # one run timed.
     pcfg = load(root / PHYS_CONFIG, RenderConfig)
@@ -822,14 +932,24 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     phys_twin_ms = start.elapsed_time(end)
-    s = compare_physical(k_main, r_main, f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b {phys_kw} "
-                                         "(main shape)")
-    phys_err = max(phys_err, s["max"])
+    main_what = f"glossy_scene {H}x{W} {SPP}spp {BOUNCES}b {phys_kw} (main shape)"
+    phys_err = max(phys_err, compare_exact(k_main, r_main, main_what))
     if phys_events != ev_twin:
         raise AssertionError(f"main shape: events {phys_events}, twin {ev_twin}")
+    check_instantiations("B3", rp.render_physical_kernel_variant,
+                         (glossy, cam, H, W, SPP, BOUNCES, 1), phys_kw, r_main, main_what)
+    del r_main
+    groups = rp.WarpGroupings(H, W, SPP, BOUNCES, dev)
+    rp.render_physical_kernel_reference(glossy, cam, H, W, SPP, BOUNCES, 1,
+                                        on_round=groups.add_round, **phys_kw)
+    phys_twin_rounds = groups.counts()
+    del groups
+    main_rounds = check_physical_rounds((glossy, cam, H, W, SPP, BOUNCES, 1), phys_kw,
+                                        phys_twin_rounds, main_what)
     log(f"    events {phys_events} of nominal {rays_per_render(H, W, SPP, BOUNCES)} rounds, "
-        "equal to the twin's")
-    del k_main, r_main
+        f"equal to the twin's; warp lane-rounds {main_rounds}, equal to the twin's "
+        f"{phys_twin_rounds}")
+    del k_main
     tri_cpu = tri_light_scene(pt, "cpu")
     k = rp.render_physical_kernel(phys_scenes["tri_light_scene"], cam, 24, 40, 2, 4, 5,
                                   sample_offset=2, tri_nee=True)
@@ -1233,6 +1353,9 @@ def main() -> int:
     for entry in kernels:
         entry.update(sol["measured"][entry["name"]])
         entry.update(sol["fused"].get(entry["name"], {}))
+        entry.update(sol["forward"].get(entry["name"], {}))
+    kernels[2].update({k: phys_twin_rounds[k] for k in phys_twin_rounds
+                       if "warp_lane_rounds" in k})
     log(json.dumps({"kernels": kernels + sol["entries"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -42,8 +42,9 @@ struct Emitters {
 };
 
 // What the counting instantiation of the forward kernel counts per thread,
-// in this order (the layout of the wrapper's counter tensor): bounce rounds
-// run, diffuse vertices among them, light samples computed, shadow scans run.
+// in this order (the head of the wrapper's counter tensor): bounce rounds
+// run (counted by pt_sched.cuh's run_samples, not in this array), diffuse
+// vertices among them, light samples computed, shadow scans run.
 constexpr int kEvRounds = 0, kEvDiffuse = 1, kEvLight = 2, kEvShadow = 3;
 constexpr int kNumEvents = 4;
 

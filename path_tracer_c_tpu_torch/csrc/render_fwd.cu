@@ -17,42 +17,46 @@
 // What the design does about that:
 //  * one thread per pixel, 2-D blocks of 32 x 8, every per-ray quantity in
 //    registers; no divisibility rule, the ragged edge is masked;
-//  * the scene is read through const __restrict__ pointers; moving it to
-//    shared or constant memory is later work;
 //  * termination is zero throughput, as in the TPU kernel. A thread stops
-//    its bounce loop once its throughput is exactly zero: every round it
+//    a sample's rounds once its throughput is exactly zero: every round it
 //    skips would add only exact zeros. This per-thread exit takes the
 //    place of the TPU kernel's whole-tile sky gate and bounce-0 hoist,
 //    which are TPU scheduling choices;
 //  * the half-b sphere quadratic, select-then-normalize sphere normals and
-//    face normals precomputed by the wrapper, as in the TPU kernel.
+//    face normals precomputed by the wrapper, as in the TPU kernel;
+//  * render_pixel takes its schedule (a warp waits for its longest lane at
+//    the end of each sample, or path regeneration) and the tables' place
+//    (device memory, or staged into shared memory by the block) as
+//    policies (pt_sched.cuh). The timed kernel is one combination;
+//    render_fwd_variant launches the others, which no user path runs: they
+//    price the kernel's schedule and table reads against itself (PERF.md).
 //
-// kCount is the TPU kernel's `count_rounds`, as a second instantiation so
-// that the timed kernel carries no counter: it adds the bounce rounds every
-// thread ran (thread-rounds) to counter[0], and to counter[1] the rounds
-// every warp ran times its lanes in the image (warp lane-rounds): at the end
-// of each sample the warp's in-range lanes take the largest round count of
-// the sample (__reduce_max_sync), the warp's counterpart of the TPU's tile
-// rounds. The reduction makes the warp reconverge at every sample, so the
-// count does not depend on scheduling. Numerics: see pt_common.cuh.
+// kCount is the TPU kernel's `count_rounds`, as a second instantiation of
+// each combination so that the timed kernel carries no counter: it adds the
+// bounce rounds every thread ran (thread-rounds) to counter[0], and to
+// counter[1] the rounds every warp ran times its lanes in the image (warp
+// lane-rounds) under the combination's schedule, the warp's counterpart of
+// the TPU's tile rounds: the warp votes on every round, so the count does
+// not depend on scheduling. Numerics: see pt_common.cuh.
 
-#include "pt_common.cuh"
+#include "pt_sched.cuh"
 
 namespace {
 
 using namespace ptc;
 
-// One pixel's radiance into `out`; returns the bounce rounds it ran. The
-// counting instantiation also adds the warp's lane-rounds of each sample to
-// `warp_rounds` on the lowest lane of `lanes`, the warp's in-range lanes.
-template <bool kCount>
-__device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
-                                            float* __restrict__ out, int row,
-                                            int col, int height, int width,
-                                            int spp, int max_bounces,
-                                            uint32_t seed, int sample_offset,
-                                            int jitter, float inv_spp,
-                                            unsigned lanes, int& warp_rounds) {
+// The timed kernel's combination of policies.
+using KernelPolicy = FwdPolicy<Regen, SharedTables>;
+
+// One pixel's radiance into `out` (lanes in the image only), its rounds into
+// `counts` (kCount). Every lane of the warp calls it.
+template <bool kCount, class Pol>
+__device__ __forceinline__ void render_pixel(const Tables& sc, const Params& p,
+                                            float* __restrict__ out, bool in_range,
+                                            int row, int col, int height, int width,
+                                            int spp, int max_bounces, uint32_t seed,
+                                            int sample_offset, int jitter, float inv_spp,
+                                            unsigned lanes, RoundCounts& counts) {
   const uint32_t pix = static_cast<uint32_t>(row * width + col);
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
@@ -63,43 +67,42 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
   float pdx, pdy, pdz;
   camera_dir(p, fcol + 0.5f, frow + 0.5f, fw, fh, pdx, pdy, pdz);
 
-  int rounds = 0;
+  Path q;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int s = 0; s < spp; ++s) {
-    const int rounds0 = rounds;
-    Path q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
-                        static_cast<uint32_t>(s + sample_offset), seed, jitter);
-    for (int bounce = 0; bounce <= max_bounces; ++bounce) {
-      if (kCount) ++rounds;
-      const Hit h = closest_hit(sc, q);
-      if (!(h.t < inf)) {
-        shade_miss(p, q);
-        break;
-      }
-      const Material mt = fetch_material(sc, h.m);
-      shade(h, mt, q);
-      // Exact early exit: with zero throughput every later round adds 0.
-      if (q.tr == 0.0f && q.tg == 0.0f && q.tb == 0.0f) break;
-    }
-    shade_end(p, q);
-    if (kCount) {
-      const int widest = __reduce_max_sync(lanes, rounds - rounds0);
-      const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
-      if (lane == __ffs(lanes) - 1) warp_rounds += widest * __popc(lanes);
-    }
-    acc_r += q.ar;
-    acc_g += q.ag;
-    acc_b += q.ab;
+  run_samples<typename Pol::Sched, kCount>(
+      in_range, lanes, spp, max_bounces,
+      [&](int s) {
+        q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
+                       static_cast<uint32_t>(s + sample_offset), seed, jitter);
+      },
+      [&]() -> int {
+        const Hit h = closest_hit(sc, q);
+        if (!(h.t < inf)) {
+          shade_miss(p, q);
+          return kRoundEnded;
+        }
+        const Material mt = fetch_material(sc, h.m);
+        shade(h, mt, q);
+        // Exact early exit: with zero throughput every later round adds 0.
+        return (q.tr == 0.0f && q.tg == 0.0f && q.tb == 0.0f) ? kRoundEnded : 0;
+      },
+      [&]() {
+        shade_end(p, q);
+        acc_r += q.ar;
+        acc_g += q.ag;
+        acc_b += q.ab;
+      },
+      counts);
+  if (in_range) {
+    float* o = out + 3 * static_cast<size_t>(pix);
+    o[0] = acc_r * inv_spp;
+    o[1] = acc_g * inv_spp;
+    o[2] = acc_b * inv_spp;
   }
-  float* o = out + 3 * static_cast<size_t>(pix);
-  o[0] = acc_r * inv_spp;
-  o[1] = acc_g * inv_spp;
-  o[2] = acc_b * inv_spp;
-  return rounds;
 }
 
-template <bool kCount>
-__global__ void __launch_bounds__(256)
+template <bool kCount, class Pol>
+__global__ void __launch_bounds__(256, kFwdMinBlocks)
 render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                   int n_sph, const float* __restrict__ tri,
                   const int* __restrict__ tri_m, int n_tri,
@@ -108,27 +111,71 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                   unsigned long long* counter, int height, int width, int spp,
                   int max_bounces, uint32_t seed, int sample_offset, int jitter,
                   float inv_spp) {
+  extern __shared__ uint4 smem[];
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   const bool in_range = col < width && row < height;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
-  const unsigned lanes = kCount ? __ballot_sync(0xffffffffu, in_range) : 0u;
-  int rounds = 0, warp_rounds = 0;
-  if (in_range) {
-    const Params p = *reinterpret_cast<const Params*>(par);
-    const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
-    rounds = render_pixel<kCount>(sc, p, out, row, col, height, width, spp,
-                                  max_bounces, seed, sample_offset, jitter,
-                                  inv_spp, lanes, warp_rounds);
+  const unsigned lanes = kCount ? __ballot_sync(kFullWarp, in_range) : 0u;
+  Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
+  if constexpr (Pol::Tab::kShared) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(smem);
+    stage_tables(sc, dst);
+    __syncthreads();
   }
+  const Params p = *reinterpret_cast<const Params*>(par);
+  RoundCounts counts;
+  render_pixel<kCount, Pol>(sc, p, out, in_range, row, col, height, width, spp,
+                            max_bounces, seed, sample_offset, jitter, inv_spp, lanes,
+                            counts);
   if (kCount) {
-    block_add(rounds, counter);
-    block_add(warp_rounds, counter + 1);
+    block_add(counts.thread, counter);
+    block_add(counts.warp, counter + 1);
   }
 }
 
+// Launch render_fwd_kernel<kCount, Pol>; returns cudaGetLastError(), or
+// cudaErrorInvalidValue where Pol stages tables above kSharedTableBudget.
+template <bool kCount, class Pol>
+int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
+           int n_tri, const float* mat, int n_mat, const float* par, float* out,
+           unsigned long long* counter, int height, int width, int spp, int max_bounces,
+           unsigned int seed, int sample_offset, int jitter, int device, void* stream) {
+  const size_t smem =
+      Pol::Tab::kShared ? 4 * static_cast<size_t>(table_words(n_sph, n_tri, n_mat, false)) : 0;
+  if (smem > kSharedTableBudget) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // float32(1.0 / spp), rounded from double as the JAX package does.
+  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
+  render_fwd_kernel<kCount, Pol><<<fwd_grid(height, width), fwd_block(), smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height, width,
+      spp, max_bounces, seed, sample_offset, jitter, inv_spp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using Launch = decltype(&launch<false, KernelPolicy>);
+
+// The launch of policy Pol, with or without its counter; nullptr where Pol
+// stages tables above the budget.
+template <class Pol>
+Launch pick(bool count, int n_sph, int n_tri, int n_mat) {
+  if (Pol::Tab::kShared && 4 * table_words(n_sph, n_tri, n_mat, false) > kSharedTableBudget)
+    return nullptr;
+  return count ? launch<true, Pol> : launch<false, Pol>;
+}
+
 }  // namespace
+
+// Bytes of the tables a block stages in shared memory (pt_sched.cuh
+// table_words; `physical`: with the emitter tables), and the most it
+// stages; the wrappers ask, to agree with ops/render_kernel.py.
+extern "C" int render_table_bytes(int n_sph, int n_tri, int n_mat, int physical) {
+  return 4 * table_words(n_sph, n_tri, n_mat, physical != 0);
+}
+extern "C" int render_table_budget() { return kSharedTableBudget; }
 
 // C entry, bound with ctypes. Pointers are device pointers of contiguous
 // float32/int32 tables and the kNumParams camera/sky floats, packed by
@@ -143,16 +190,34 @@ extern "C" int render_fwd(const float* sph, const int* sph_m, int n_sph,
                           int width, int spp, int max_bounces,
                           unsigned int seed, int sample_offset, int jitter,
                           int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // float32(1.0 / spp), rounded from double as the JAX package does.
-  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
-  auto kernel = counter ? render_fwd_kernel<true> : render_fwd_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter,
-      height, width, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
-  return static_cast<int>(cudaGetLastError());
+  // Above the budget, the kernel with its tables in device memory.
+  Launch go = pick<KernelPolicy>(counter != nullptr, n_sph, n_tri, n_mat);
+  if (!go) go = pick<GlobalTablesOf<KernelPolicy>>(counter != nullptr, n_sph, n_tri, n_mat);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height,
+            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
+}
+
+// A measurement instantiation of render_fwd (pt_sched.cuh `FwdVariant`), with
+// render_fwd's arguments; `counter` as there, the warp lane-rounds of the
+// variant's schedule. Returns cudaErrorInvalidValue for an unknown variant,
+// or one that stages tables above the budget.
+extern "C" int render_fwd_variant(int variant, const float* sph, const int* sph_m, int n_sph,
+                                  const float* tri, const int* tri_m, int n_tri,
+                                  const float* mat, int n_mat, const float* par, float* out,
+                                  unsigned long long* counter, int height, int width, int spp,
+                                  int max_bounces, unsigned int seed, int sample_offset,
+                                  int jitter, int device, void* stream) {
+  const bool count = counter != nullptr;
+  Launch go = nullptr;
+  switch (variant) {
+    case kVarPerSample:
+      go = pick<PerSampleOf<KernelPolicy>>(count, n_sph, n_tri, n_mat);
+      break;
+    case kVarGlobalTables:
+      go = pick<GlobalTablesOf<KernelPolicy>>(count, n_sph, n_tri, n_mat);
+      break;
+  }
+  if (!go) return static_cast<int>(cudaErrorInvalidValue);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height,
+            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
 }

@@ -34,7 +34,14 @@
 //    counterpart;
 //  * tri_nee is a template parameter, so the default kernel carries no
 //    triangle-emitter code; next-event estimation on or off is a uniform
-//    run-time branch.
+//    run-time branch;
+//  * render_pixel takes its schedule (a warp waits for its longest lane at
+//    the end of each sample, or path regeneration) and the place of the
+//    scene and emitter tables (device memory, or staged into shared memory
+//    by the block) as policies (pt_sched.cuh), as render_fwd.cu does. The
+//    timed kernel is one combination; render_phys_variant launches the
+//    others, which no user path runs: they price the kernel's schedule and
+//    table reads against itself (PERF.md).
 //
 // The device functions (the light sample, one bounce) live in pt_phys.cuh,
 // where the physical tier's gradient kernels share them.
@@ -45,19 +52,44 @@
 // on a knife edge for rays at the cone's rim.
 
 #include "pt_phys.cuh"
+#include "pt_sched.cuh"
 
 namespace {
 
 using namespace ptc;
 
-// One pixel's radiance into `out`; with kCount its events into `ev`.
-template <bool kCount, bool kTriNee>
+// The timed kernel's combination of policies.
+using KernelPolicy = FwdPolicy<Regen, SharedTables>;
+
+// What the counting instantiation adds to its counter, in this order: the
+// thread-rounds, the diffuse vertices, light samples and shadow scans among
+// them (kEvDiffuse.. of pt_phys.cuh), and the warp lane-rounds, those in which
+// some lane computed a light sample, and ran a shadow scan (RoundCounts).
+constexpr int kNumCounters = 7;
+
+// Point `em` at copies of its tables in shared memory from `dst` on
+// (pt_sched.cuh stage); row counts as the wrapper packs them.
+__device__ __forceinline__ void stage_emitters(Emitters& em, const Tables& sc,
+                                               uint32_t*& dst) {
+  em.em_list = stage(em.em_list, sc.n_sph, dst);
+  em.le_sph = stage(em.le_sph, 3 * sc.n_sph, dst);
+  em.tri_list = stage(em.tri_list, sc.n_tri, dst);
+  em.le_tri = stage(em.le_tri, 3 * sc.n_tri, dst);
+  em.tri_area = stage(em.tri_area, sc.n_tri, dst);
+  em.mat_est = stage(em.mat_est, sc.n_mat, dst);
+}
+
+// One pixel's radiance into `out` (lanes in the image only); with kCount its
+// events into `ev` and its rounds into `counts`. Every lane of the warp calls
+// it.
+template <bool kCount, bool kTriNee, class Pol>
 __device__ __forceinline__ void render_pixel(const Tables& sc, const Emitters& em,
                                             const Params& p, float* __restrict__ out,
-                                            int row, int col, int height, int width,
-                                            int spp, int max_bounces, uint32_t seed,
-                                            int sample_offset, int jitter, bool nee,
-                                            float inv_spp, int* ev) {
+                                            bool in_range, int row, int col, int height,
+                                            int width, int spp, int max_bounces,
+                                            uint32_t seed, int sample_offset, int jitter,
+                                            bool nee, float inv_spp, unsigned lanes,
+                                            int* ev, RoundCounts& counts) {
   const uint32_t pix = static_cast<uint32_t>(row * width + col);
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
@@ -68,36 +100,50 @@ __device__ __forceinline__ void render_pixel(const Tables& sc, const Emitters& e
   float pdx, pdy, pdz;
   camera_dir(p, fcol + 0.5f, frow + 0.5f, fw, fh, pdx, pdy, pdz);
 
+  Path q;
+  bool prevd = false;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int s = 0; s < spp; ++s) {
-    Path q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
-                        static_cast<uint32_t>(s + sample_offset), seed, jitter);
-    bool prevd = false;
-    for (int bounce = 0; bounce <= max_bounces; ++bounce) {
-      if (kCount) ++ev[kEvRounds];
-      const Hit h = closest_hit(sc, q);
-      if (!(h.t < inf)) {
-        shade_miss(p, q);
-        break;
-      }
-      const Material mt = fetch_material(sc, h.m);
-      shade_phys<kCount, kTriNee>(sc, em, h, mt, fetch_est(sc, em, h.m), nee, q, prevd, ev);
-      // Exact early exit: with zero throughput every later round adds 0.
-      if (q.tr == 0.0f && q.tg == 0.0f && q.tb == 0.0f) break;
-    }
-    shade_end(p, q);
-    acc_r += q.ar;
-    acc_g += q.ag;
-    acc_b += q.ab;
+  run_samples<typename Pol::Sched, kCount>(
+      in_range, lanes, spp, max_bounces,
+      [&](int s) {
+        q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
+                       static_cast<uint32_t>(s + sample_offset), seed, jitter);
+        prevd = false;
+      },
+      [&]() -> int {
+        const int light0 = ev[kEvLight], shadow0 = ev[kEvShadow];
+        const Hit h = closest_hit(sc, q);
+        if (!(h.t < inf)) {
+          shade_miss(p, q);
+          return kRoundEnded;
+        }
+        const Material mt = fetch_material(sc, h.m);
+        shade_phys<kCount, kTriNee>(sc, em, h, mt, fetch_est(sc, em, h.m), nee, q, prevd, ev);
+        // Exact early exit: with zero throughput every later round adds 0.
+        int bits = (q.tr == 0.0f && q.tg == 0.0f && q.tb == 0.0f) ? kRoundEnded : 0;
+        if (kCount) {
+          if (ev[kEvLight] != light0) bits |= kRoundLight;
+          if (ev[kEvShadow] != shadow0) bits |= kRoundShadow;
+        }
+        return bits;
+      },
+      [&]() {
+        shade_end(p, q);
+        acc_r += q.ar;
+        acc_g += q.ag;
+        acc_b += q.ab;
+      },
+      counts);
+  if (in_range) {
+    float* o = out + 3 * static_cast<size_t>(pix);
+    o[0] = acc_r * inv_spp;
+    o[1] = acc_g * inv_spp;
+    o[2] = acc_b * inv_spp;
   }
-  float* o = out + 3 * static_cast<size_t>(pix);
-  o[0] = acc_r * inv_spp;
-  o[1] = acc_g * inv_spp;
-  o[2] = acc_b * inv_spp;
 }
 
-template <bool kCount, bool kTriNee>
-__global__ void __launch_bounds__(256)
+template <bool kCount, bool kTriNee, class Pol>
+__global__ void __launch_bounds__(256, kFwdMinBlocks)
 render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                    int n_sph, const float* __restrict__ tri,
                    const int* __restrict__ tri_m, int n_tri,
@@ -109,22 +155,77 @@ render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                    float* __restrict__ out, unsigned long long* counter, int nee,
                    int height, int width, int spp, int max_bounces, uint32_t seed,
                    int sample_offset, int jitter, float inv_spp) {
+  extern __shared__ uint4 smem[];
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  const bool in_range = col < width && row < height;
+  // The warp's lanes inside the image, taken by all 32 lanes before the
+  // range test.
+  const unsigned lanes = kCount ? __ballot_sync(kFullWarp, in_range) : 0u;
+  Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
+  Emitters em = {em_list, le_sph, tri_list, le_tri, tri_area, mat_est, counts[0], counts[1]};
+  if constexpr (Pol::Tab::kShared) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(smem);
+    stage_tables(sc, dst);
+    stage_emitters(em, sc, dst);
+    __syncthreads();
+  }
+  const Params p = *reinterpret_cast<const Params*>(par);
   int ev[kNumEvents] = {0, 0, 0, 0};
-  if (col < width && row < height) {
-    const Params p = *reinterpret_cast<const Params*>(par);
-    const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
-    const Emitters em = {em_list, le_sph, tri_list, le_tri, tri_area, mat_est,
-                         counts[0], counts[1]};
-    render_pixel<kCount, kTriNee>(sc, em, p, out, row, col, height, width, spp,
-                                  max_bounces, seed, sample_offset, jitter,
-                                  nee != 0, inv_spp, ev);
-  }
+  RoundCounts rc;
+  render_pixel<kCount, kTriNee, Pol>(sc, em, p, out, in_range, row, col, height, width, spp,
+                                     max_bounces, seed, sample_offset, jitter, nee != 0,
+                                     inv_spp, lanes, ev, rc);
   if (kCount) {
+    block_add(rc.thread, counter);
 #pragma unroll
-    for (int i = 0; i < kNumEvents; ++i) block_add(ev[i], counter + i);
+    for (int i = kEvDiffuse; i < kNumEvents; ++i) block_add(ev[i], counter + i);
+    block_add(rc.warp, counter + kNumEvents);
+    block_add(rc.warp_light, counter + kNumEvents + 1);
+    block_add(rc.warp_shadow, counter + kNumEvents + 2);
   }
+}
+
+// Launch render_phys_kernel<kCount, kTriNee, Pol>; returns
+// cudaGetLastError(), or cudaErrorInvalidValue where Pol stages tables above
+// kSharedTableBudget.
+template <bool kCount, bool kTriNee, class Pol>
+int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
+           int n_tri, const float* mat, int n_mat, const int* em_list, const float* le_sph,
+           const int* tri_list, const float* le_tri, const float* tri_area,
+           const float* mat_est, const int* counts, const float* par, float* out,
+           unsigned long long* counter, int nee, int height, int width, int spp,
+           int max_bounces, unsigned int seed, int sample_offset, int jitter, int device,
+           void* stream) {
+  const size_t smem =
+      Pol::Tab::kShared ? 4 * static_cast<size_t>(table_words(n_sph, n_tri, n_mat, true)) : 0;
+  if (smem > kSharedTableBudget) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // float32(1.0 / spp), rounded from double as the JAX package does.
+  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
+  render_phys_kernel<kCount, kTriNee, Pol><<<fwd_grid(height, width), fwd_block(), smem,
+                                             static_cast<cudaStream_t>(stream)>>>(
+      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list, le_tri,
+      tri_area, mat_est, counts, par, out, counter, nee, height, width, spp, max_bounces,
+      seed, sample_offset, jitter, inv_spp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using Launch = decltype(&launch<false, false, KernelPolicy>);
+
+template <class Pol>
+Launch with_flags(bool count, bool tri_nee) {
+  return count ? (tri_nee ? launch<true, true, Pol> : launch<true, false, Pol>)
+               : (tri_nee ? launch<false, true, Pol> : launch<false, false, Pol>);
+}
+
+// The launch of policy Pol; nullptr where Pol stages tables above the budget.
+template <class Pol>
+Launch pick(bool count, bool tri_nee, int n_sph, int n_tri, int n_mat) {
+  if (Pol::Tab::kShared && 4 * table_words(n_sph, n_tri, n_mat, true) > kSharedTableBudget)
+    return nullptr;
+  return with_flags<Pol>(count, tri_nee);
 }
 
 }  // namespace
@@ -132,11 +233,13 @@ render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
 // C entry, bound with ctypes. The scene tables and `par` are those of
 // render_fwd; the emitter tables and `counts` = (n_em, n_em_t), two int32
 // on the device, are packed by ops/render_physical.py. `out` is (height,
-// width, 3) float32. `counter` is null, or four zeroed int64 that receive
-// the executed thread-rounds, the diffuse vertices among them, the light
-// samples computed and the shadow scans run. `nee` switches next-event estimation,
-// `tri_nee` adds emissive triangles to the pool. Launches on `stream` of
-// device `device` and returns cudaGetLastError().
+// width, 3) float32. `counter` is null, or kNumCounters zeroed int64 that
+// receive the executed thread-rounds, the diffuse vertices among them, the
+// light samples computed, the shadow scans run, and the warp lane-rounds,
+// those with a light sample and those with a shadow scan (the counting
+// instantiation runs then). `nee` switches next-event estimation, `tri_nee`
+// adds emissive triangles to the pool. Launches on `stream` of device
+// `device` and returns cudaGetLastError().
 extern "C" int render_phys(const float* sph, const int* sph_m, int n_sph,
                            const float* tri, const int* tri_m, int n_tri,
                            const float* mat, int n_mat, const int* em_list,
@@ -148,19 +251,41 @@ extern "C" int render_phys(const float* sph, const int* sph_m, int n_sph,
                            int height, int width, int spp, int max_bounces,
                            unsigned int seed, int sample_offset, int jitter,
                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // float32(1.0 / spp), rounded from double as the JAX package does.
-  const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
-  auto kernel = counter
-      ? (tri_nee ? render_phys_kernel<true, true> : render_phys_kernel<true, false>)
-      : (tri_nee ? render_phys_kernel<false, true> : render_phys_kernel<false, false>);
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
-      le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width,
-      spp, max_bounces, seed, sample_offset, jitter, inv_spp);
-  return static_cast<int>(cudaGetLastError());
+  // Above the budget, the kernel with its tables in device memory.
+  const bool count = counter != nullptr, tn = tri_nee != 0;
+  Launch go = pick<KernelPolicy>(count, tn, n_sph, n_tri, n_mat);
+  if (!go) go = pick<GlobalTablesOf<KernelPolicy>>(count, tn, n_sph, n_tri, n_mat);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+            le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width, spp,
+            max_bounces, seed, sample_offset, jitter, device, stream);
+}
+
+// A measurement instantiation of render_phys (pt_sched.cuh `FwdVariant`),
+// with render_phys's arguments; `counter` as there, the warp lane-rounds of
+// the variant's schedule. Returns cudaErrorInvalidValue for an unknown
+// variant, or one that stages tables above the budget.
+extern "C" int render_phys_variant(int variant, const float* sph, const int* sph_m, int n_sph,
+                                   const float* tri, const int* tri_m, int n_tri,
+                                   const float* mat, int n_mat, const int* em_list,
+                                   const float* le_sph, const int* tri_list,
+                                   const float* le_tri, const float* tri_area,
+                                   const float* mat_est, const int* counts, const float* par,
+                                   float* out, unsigned long long* counter, int nee,
+                                   int tri_nee, int height, int width, int spp,
+                                   int max_bounces, unsigned int seed, int sample_offset,
+                                   int jitter, int device, void* stream) {
+  const bool count = counter != nullptr, tn = tri_nee != 0;
+  Launch go = nullptr;
+  switch (variant) {
+    case kVarPerSample:
+      go = pick<PerSampleOf<KernelPolicy>>(count, tn, n_sph, n_tri, n_mat);
+      break;
+    case kVarGlobalTables:
+      go = pick<GlobalTablesOf<KernelPolicy>>(count, tn, n_sph, n_tri, n_mat);
+      break;
+  }
+  if (!go) return static_cast<int>(cudaErrorInvalidValue);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+            le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width, spp,
+            max_bounces, seed, sample_offset, jitter, device, stream);
 }

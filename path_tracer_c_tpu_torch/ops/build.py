@@ -47,6 +47,11 @@ _RUN = [_I, _I, _I, _I,  # height, width, spp, max_bounces
 _SIGNATURES = {
     # out, round counter (or null)
     "render_fwd": (_SCENE + [_P, _P] + _RUN, ctypes.c_int),
+    # variant, then render_fwd's arguments (csrc/pt_sched.cuh `FwdVariant`)
+    "render_fwd_variant": ([_I] + _SCENE + [_P, _P] + _RUN, ctypes.c_int),
+    # sphere, triangle and material rows, physical: the bytes a block stages
+    "render_table_bytes": ([_I, _I, _I, _I], ctypes.c_int),
+    "render_table_budget": ([], ctypes.c_int),
     # image, Jacobian planes, round counter (or null)
     "render_fused": (_SCENE + [_P, _P, _P] + _RUN, ctypes.c_int),
     "render_fused_max_bounces": ([], ctypes.c_int),
@@ -55,6 +60,9 @@ _SIGNATURES = {
     # the scene tables, 7 emitter tables (see csrc/render_phys.cu), camera
     # and sky params, out, round counter (or null), nee, tri_nee
     "render_phys": (_SCENE[:-1] + [_P] * 7 + [_P, _P, _P, _I, _I] + _RUN, ctypes.c_int),
+    # variant, then render_phys's arguments
+    "render_phys_variant": ([_I] + _SCENE[:-1] + [_P] * 7 + [_P, _P, _P, _I, _I] + _RUN,
+                            ctypes.c_int),
     # as render_phys up to the params; image, material and sky planes, sphere
     # planes (or null), triangle planes (or null), round counter (or null),
     # nee, tri_nee, rough_grad, n_em_cap, tri_em_cap (csrc/render_phys_fused.cu)

@@ -26,8 +26,10 @@ from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
 
 __all__ = ["render_kernel", "render_kernel_reference", "render_kernel_round_counts",
-           "render_kernel_round_counts_reference", "reference_pixel_rounds",
-           "warp_lane_rounds", "round_groupings", "SOURCE", "REPLACES"]
+           "render_kernel_round_counts_reference", "render_kernel_variant",
+           "reference_pixel_rounds", "warp_lane_rounds", "round_groupings", "table_bytes",
+           "tables_in_shared", "policy", "VARIANTS", "KERNEL_POLICY", "SHARED_TABLE_BUDGET",
+           "SOURCE", "REPLACES"]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_fwd.cu"
 REPLACES = "path_tracer_c_tpu/ops/pallas_kernels.py:453"
@@ -38,6 +40,39 @@ _EPS_OFFSET = _f32(1e-4)
 _EPS_SCALE = _f32(4e-6)
 _K_FLOOR = _f32(1e-12)
 _N_FLOOR = _f32(1e-20)
+
+# The policies of the timed forward kernels (csrc/render_fwd.cu,
+# csrc/render_phys.cu `KernelPolicy`; csrc/pt_sched.cuh): path regeneration
+# (a lane starts its next sample as soon as its path ends), and the scene
+# tables staged into shared memory by each block, read from device memory
+# where they exceed SHARED_TABLE_BUDGET bytes.
+KERNEL_POLICY = {"schedule": "regen", "tables": "shared"}
+# Their measurement instantiations (csrc/pt_sched.cuh `FwdVariant`), each the
+# timed kernel under one other policy: the per-sample schedule (a warp runs
+# each sample for as many rounds as its longest lane); the tables read from
+# device memory.
+VARIANTS = {"per_sample": 0, "global_tables": 1}
+_POLICIES = {None: KERNEL_POLICY,
+             "per_sample": {**KERNEL_POLICY, "schedule": "per_sample"},
+             "global_tables": {**KERNEL_POLICY, "tables": "global"}}
+# The most bytes of tables a block stages (csrc/pt_sched.cuh kSharedTableBudget).
+SHARED_TABLE_BUDGET = 48 * 1024
+
+
+def policy(variant: str | None = None) -> dict:
+    """The schedule and table placement of the timed kernel (``None``) or of
+    one of its measurement instantiations."""
+    if variant not in _POLICIES:
+        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+    return _POLICIES[variant]
+
+
+def _warp_key(variant: str | None = None) -> str:
+    """The key of ``round_groupings`` that an instantiation's warp
+    lane-rounds count: its schedule's."""
+    regen = policy(variant)["schedule"] == "regen"
+    return "warp_lane_rounds_regen" if regen else "warp_lane_rounds"
+
 
 _FLOAT_FIELDS = {
     "materials": ("albedo", "roughness", "metallicity", "emission_color",
@@ -123,6 +158,49 @@ def _scene_operands(scene: Scene):
     )
 
 
+def _seg_words(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def table_bytes(scene: Scene, physical: bool = False) -> int:
+    """Bytes of shared memory a block of B1 (``physical``: of B3, with the
+    emitter tables) stages the scene's tables into: each table rounded up to
+    16 bytes, an empty object table as one row (csrc/pt_sched.cuh
+    ``table_words``)."""
+    n_sph, n_tri = max(scene.num_spheres, 1), max(scene.num_triangles, 1)
+    n_mat = scene.num_materials
+    words = (_seg_words(5 * n_sph) + _seg_words(n_sph) + _seg_words(13 * n_tri)
+             + _seg_words(n_tri) + _seg_words(9 * n_mat))
+    if physical:
+        words += (_seg_words(n_sph) + _seg_words(3 * n_sph) + _seg_words(n_tri)
+                  + _seg_words(3 * n_tri) + _seg_words(n_tri) + _seg_words(n_mat))
+    return 4 * words
+
+
+def tables_in_shared(scene: Scene, physical: bool = False, variant: str | None = None) -> bool:
+    """Whether the timed B1 (``physical``: B3), or its measurement
+    instantiation ``variant``, reads the scene's tables from shared memory:
+    it stages them, and they fit the budget."""
+    return (policy(variant)["tables"] == "shared"
+            and table_bytes(scene, physical) <= SHARED_TABLE_BUDGET)
+
+
+def _check_variant(scene: Scene, variant: str, physical: bool = False):
+    """A measurement instantiation that exists and, where it stages the
+    tables, whose tables fit the budget (it has no fallback)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+    if policy(variant)["tables"] == "shared" and table_bytes(scene, physical) > SHARED_TABLE_BUDGET:
+        raise ValueError(f"variant {variant}: the tables take {table_bytes(scene, physical)} "
+                         f"bytes, above the shared budget of {SHARED_TABLE_BUDGET}")
+
+
+def _cuda_only(scene: Scene, name: str):
+    """A measurement instantiation has no twin: it runs on CUDA tensors only."""
+    if scene.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors only, not {scene.device}")
+
+
 def _camera_params(camera: Camera, scene: Scene, height: int, width: int):
     """(17,) float32: tan(fov/2), aspect, sky rgb, camera origin, right,
     up, forward. Built on the scene's device, without a host sync."""
@@ -200,10 +278,11 @@ render_kernel.launches = 0
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            count):
-    """Launch B1 on the scene's CUDA device; with ``count``, the counting
-    instantiation, whose two counters (thread-rounds, warp lane-rounds) come
-    back beside the image."""
+            count, variant=None):
+    """Launch B1 on the scene's CUDA device: the timed kernel, or with
+    ``variant`` an instantiation of ``VARIANTS``; with ``count``, its
+    counting instantiation, whose two counters (thread-rounds, warp
+    lane-rounds of its schedule) come back beside the image."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
@@ -214,14 +293,47 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     par = _camera_params(camera, scene, height, width)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     counter = torch.zeros(2, dtype=torch.int64, device=device) if count else None
-    err = lib.render_fwd(
-        *_table_args(operands), _ptr(par), _ptr(out), _ptr(counter),
-        *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
-    )
+    args = (*_table_args(operands), _ptr(par), _ptr(out), _ptr(counter),
+            *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device))
+    if variant is None:
+        err, name = lib.render_fwd(*args), "render_fwd"
+    else:
+        err, name = lib.render_fwd_variant(VARIANTS[variant], *args), f"render_fwd {variant}"
     if err != 0:
-        raise RuntimeError(f"render_fwd kernel launch failed: CUDA error {err}")
-    render_kernel.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if variant is None:
+        render_kernel.launches += 1
+    else:
+        render_kernel_variant.launches += 1
     return out, counter
+
+
+def render_kernel_variant(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    variant: str,
+    sample_offset: int = 0,
+    jitter: bool = False,
+):
+    """The image of an instantiation of B1 (``VARIANTS``), on CUDA tensors
+    only: what the decomposition of B1's time
+    (``utils/sol_decompose.sol_decompose``) times beside the kernel. No
+    user path runs it; its image equals ``render_kernel``'s. One that stages
+    its tables (``policy``) raises where they exceed ``SHARED_TABLE_BUDGET``.
+    Counts its launches in ``render_kernel_variant.launches``."""
+    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    _check_variant(scene, variant)
+    _cuda_only(scene, "render_kernel_variant")
+    return _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+                   False, variant)[0]
+
+
+render_kernel_variant.launches = 0
 
 
 def render_kernel_round_counts(
@@ -234,40 +346,41 @@ def render_kernel_round_counts(
     seed: int,
     sample_offset: int = 0,
     jitter: bool = False,
+    variant: str | None = None,
 ) -> dict:
     """The rounds B1 runs for one render: ``thread_rounds`` (as
-    ``count_rounds``) and ``warp_lane_rounds``, the rounds each warp runs
-    (the most any of its lanes runs in a sample) times its lanes in the
-    image, summed over warps and samples; their difference is the lane
-    slots lost to divergence. A warp is 32 consecutive columns of one row,
-    starting at a multiple of 32 (the launch's 32 x 8 blocks). CUDA tensors
-    run the kernel's counting instantiation (a launch: it counts in
-    ``render_kernel.launches``), CPU tensors the plain twin."""
+    ``count_rounds``) and the rounds its warps run times their lanes in the
+    image, summed over warps: ``warp_lane_rounds`` where the kernel runs
+    each sample for as many rounds as the sample's longest lane,
+    ``warp_lane_rounds_regen`` where it regenerates paths (each warp as many
+    rounds as its busiest lane's total over all samples). Their difference
+    from the thread-rounds is the lane slots lost to divergence. A warp is
+    32 consecutive columns of one row, starting at a multiple of 32 (the
+    launch's 32 x 8 blocks). CUDA tensors run the counting instantiation of
+    the timed kernel (a launch: it counts in ``render_kernel.launches``), or
+    of ``variant`` (in ``render_kernel_variant.launches``), which gives the
+    key of its own schedule; CPU tensors the plain twin, which gives both
+    (``render_kernel_round_counts_reference``)."""
     _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
     if scene.device.type == "cpu":
         return render_kernel_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter)
+    if variant is not None:
+        _check_variant(scene, variant)
     _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         jitter, True)
+                         jitter, True, variant)
     thread_rounds, warp_rounds = counter.tolist()
-    return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
+    return {"thread_rounds": thread_rounds, _warp_key(variant): warp_rounds}
 
 
 def render_kernel_round_counts_reference(scene, camera, height, width, spp, max_bounces, seed,
                                          sample_offset=0, jitter=False) -> dict:
     """Plain twin of ``render_kernel_round_counts``, on the scene's device:
-    the twin's rounds of every pixel, grouped by warp one sample at a
-    time."""
+    the twin's rounds of every (sample, pixel), grouped by warp under both
+    schedules (``round_groupings``)."""
     _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
-    counts = {"thread_rounds": 0, "warp_lane_rounds": 0}
-
-    def add(rounds):
-        counts["thread_rounds"] += int(rounds.sum())
-        counts["warp_lane_rounds"] += warp_lane_rounds(rounds[None])
-
-    _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-               on_sample=add)
-    return counts
+    return round_groupings(reference_pixel_rounds(scene, camera, height, width, spp,
+                                                  max_bounces, seed, sample_offset, jitter))
 
 
 def warp_lane_rounds(rounds: torch.Tensor) -> int:
@@ -289,7 +402,7 @@ def round_groupings(rounds: torch.Tensor) -> dict:
     W) under two schedules: ``thread_rounds``;
     ``warp_lane_rounds``, each warp running each sample for as many rounds
     as that sample's longest lane (every lane waits at the end of a sample:
-    the kernels' schedule); ``warp_lane_rounds_regen``, each warp running
+    the per-sample schedule); ``warp_lane_rounds_regen``, each warp running
     for as many rounds as its busiest lane's total over all samples (path
     regeneration: a lane starts its next sample at once)."""
     return {"thread_rounds": int(rounds.sum()),

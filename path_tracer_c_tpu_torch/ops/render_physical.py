@@ -39,9 +39,10 @@ from ..scene.scene import Scene
 
 __all__ = [
     "render_physical_kernel", "render_physical_kernel_reference",
-    "live_emitter_mask", "live_emitter_count",
+    "render_physical_kernel_variant", "render_physical_kernel_round_counts",
+    "render_physical_kernel_round_counts_reference", "live_emitter_mask", "live_emitter_count",
     "live_tri_emitter_mask", "live_tri_emitter_count",
-    "SOURCE", "REPLACES", "EVENTS",
+    "SOURCE", "REPLACES", "EVENTS", "WARP_EVENTS",
 ]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_phys.cu"
@@ -52,6 +53,12 @@ REPLACES = "path_tracer_c_tpu/ops/pallas_physical.py:772"
 # vertices with NEE on and a non-empty pool), shadow scans run (light
 # samples that face the surface and the emitter).
 EVENTS = ("rounds", "diffuse_vertices", "light_samples", "shadow_scans")
+# What the counting instantiation counts after EVENTS, under the schedule it
+# runs (``render_kernel.VARIANTS``): the rounds the warps run times their
+# lanes in the image (warp lane-rounds), and of them the rounds in which some
+# lane of the warp computed a light sample, and ran a shadow scan. The keys of
+# the regenerating schedule end in ``_regen``.
+WARP_EVENTS = ("warp_lane_rounds", "light_warp_lane_rounds", "shadow_warp_lane_rounds")
 
 _INF = float("inf")
 _INV_PI = _f32(1.0 / math.pi)
@@ -196,6 +203,21 @@ def render_physical_kernel(
             sample_offset=sample_offset, jitter=jitter, nee=nee,
             count_rounds=count_rounds, tri_nee=tri_nee, count_events=count_events,
         )
+    out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                           jitter, nee, tri_nee, count_rounds or count_events)
+    return _with_counts(out, counter, count_rounds, count_events)
+
+
+render_physical_kernel.launches = 0
+
+
+def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
+            tri_nee, count, variant=None):
+    """Launch B3 on the scene's CUDA device: the timed kernel, or with
+    ``variant`` an instantiation of ``render_kernel.VARIANTS``; with
+    ``count``, its counting instantiation, whose counters (``EVENTS``, then
+    ``WARP_EVENTS`` of its schedule) come back beside the image."""
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_kernel runs on CUDA or CPU tensors, not {device}")
     from .build import load_library
@@ -206,20 +228,165 @@ def render_physical_kernel(
     par = _rk._camera_params(camera, scene, height, width)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     counter = None
-    if count_rounds or count_events:
-        counter = torch.zeros(len(EVENTS), dtype=torch.int64, device=device)
-    err = lib.render_phys(
-        *_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out), _ptr(counter),
-        int(bool(nee)), int(bool(tri_nee)),
-        *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
-    )
+    if count:
+        counter = torch.zeros(len(EVENTS) + len(WARP_EVENTS), dtype=torch.int64, device=device)
+    args = (*_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out), _ptr(counter),
+            int(bool(nee)), int(bool(tri_nee)),
+            *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device))
+    if variant is None:
+        err, name = lib.render_phys(*args), "render_phys"
+    else:
+        err = lib.render_phys_variant(_rk.VARIANTS[variant], *args)
+        name = f"render_phys {variant}"
     if err != 0:
-        raise RuntimeError(f"render_phys kernel launch failed: CUDA error {err}")
-    render_physical_kernel.launches += 1
-    return _with_counts(out, counter, count_rounds, count_events)
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if variant is None:
+        render_physical_kernel.launches += 1
+    else:
+        render_physical_kernel_variant.launches += 1
+    return out, counter
 
 
-render_physical_kernel.launches = 0
+def render_physical_kernel_variant(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    variant: str,
+    sample_offset: int = 0,
+    jitter: bool = True,
+    nee: bool = True,
+    tri_nee: bool = False,
+):
+    """The image of an instantiation of B3 (``render_kernel.VARIANTS``), on
+    CUDA tensors only: what the decomposition of B3's time
+    (``utils/sol_decompose.sol_decompose``) times beside the kernel. No
+    user path runs it; its image equals ``render_physical_kernel``'s. One
+    that stages its tables raises where they exceed the shared budget.
+    Counts its launches in ``render_physical_kernel_variant.launches``."""
+    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    _rk._check_variant(scene, variant, physical=True)
+    _rk._cuda_only(scene, "render_physical_kernel_variant")
+    return _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+                   nee, tri_nee, False, variant)[0]
+
+
+render_physical_kernel_variant.launches = 0
+
+
+def render_physical_kernel_round_counts(
+    scene: Scene,
+    camera: Camera,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    sample_offset: int = 0,
+    jitter: bool = True,
+    nee: bool = True,
+    tri_nee: bool = False,
+    variant: str | None = None,
+) -> dict:
+    """The rounds and branch events B3 runs for one render:
+    ``thread_rounds``, ``light_samples`` and ``shadow_scans`` (as
+    ``count_events``), and ``WARP_EVENTS`` of a schedule: the rounds its
+    warps run times their lanes in the image, and those in which the light
+    sample and the shadow scan run for some lane of the warp (the others
+    wait). Without a ``_regen`` suffix, the warp runs each sample for as many
+    rounds as its longest lane; with it, it regenerates paths. CUDA tensors
+    run the counting instantiation of the timed kernel (a launch: it counts
+    in ``render_physical_kernel.launches``), or of ``variant`` (in
+    ``render_physical_kernel_variant.launches``), which give the keys of
+    their own schedule; CPU tensors the plain twin, which gives both
+    (``render_physical_kernel_round_counts_reference``)."""
+    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee)
+    if scene.device.type == "cpu":
+        return render_physical_kernel_round_counts_reference(
+            scene, camera, height, width, spp, max_bounces, seed, **kw)
+    if variant is not None:
+        _rk._check_variant(scene, variant, physical=True)
+    _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                         jitter, nee, tri_nee, True, variant)
+    c = counter.tolist()
+    suffix = _rk._warp_key(variant)[len("warp_lane_rounds"):]
+    return {"thread_rounds": c[0], "light_samples": c[2], "shadow_scans": c[3],
+            **{k + suffix: v for k, v in zip(WARP_EVENTS, c[len(EVENTS):])}}
+
+
+def render_physical_kernel_round_counts_reference(scene, camera, height, width, spp,
+                                                  max_bounces, seed, sample_offset=0,
+                                                  jitter=True, nee=True,
+                                                  tri_nee=False) -> dict:
+    """Plain twin of ``render_physical_kernel_round_counts``, on the scene's
+    device: the twin's rounds and branch events of every (sample, round,
+    pixel), grouped by warp under both schedules (``WarpGroupings``)."""
+    groups = WarpGroupings(height, width, spp, max_bounces, scene.device)
+    render_physical_kernel_reference(scene, camera, height, width, spp, max_bounces, seed,
+                                     sample_offset=sample_offset, jitter=jitter, nee=nee,
+                                     tri_nee=tri_nee, on_round=groups.add_round)
+    return groups.counts()
+
+
+class WarpGroupings:
+    """Warp lane-rounds of the twin's rounds and of its branch events (a
+    light sample computed, a shadow scan run), fed one round of every pixel
+    at a time (``add_round``; samples ascending, rounds ascending). A warp is
+    32 consecutive columns of one row from a multiple of 32. Per sample, a
+    warp runs round b of sample s, and the branch in it, if some lane of the
+    warp does; under path regeneration a lane's rounds follow one another
+    across its samples, so its k-th round overall runs in the warp's k-th
+    iteration, and the warp runs an iteration, and the branch in it, if some
+    lane does. Each counts the warp's lanes in the image."""
+
+    _KEYS = dict(zip(("rounds", "light", "shadow"), WARP_EVENTS))
+
+    def __init__(self, height, width, spp, max_bounces, device):
+        n_wc = -(-width // 32)
+        pix = torch.arange(height * width, device=device)
+        self.warp = torch.div(pix, width, rounding_mode="floor") * n_wc + (pix % width) // 32
+        lanes = torch.clamp(width - 32 * torch.arange(n_wc, device=device), max=32)
+        self.lanes = lanes.repeat(height)
+        self.n_warps = height * n_wc
+        self.bounces = max_bounces + 1
+        # Per warp, the iterations in which some lane ran a round or event.
+        self.iters = {k: torch.zeros((self.n_warps, spp * self.bounces), dtype=torch.bool,
+                                     device=device) for k in self._KEYS}
+        self.per_sample = dict.fromkeys(self._KEYS, 0)
+        self.thread = {"rounds": 0, "light": 0, "shadow": 0}
+        self.done = torch.zeros(height * width, dtype=torch.int64, device=device)
+        self.sample_rounds = torch.zeros_like(self.done)
+        self.b = 0
+
+    def add_round(self, running, light, shadow):
+        """Round ``b`` of the current sample: (H*W,) masks of the pixels that
+        ran it, computed a light sample in it, ran a shadow scan in it."""
+        it = self.done + self.b
+        for key, m in (("rounds", running), ("light", light), ("shadow", shadow)):
+            w = self.warp[m]
+            some = torch.zeros(self.n_warps, dtype=torch.bool, device=m.device)
+            some[w] = True
+            self.per_sample[key] += int((some * self.lanes).sum())
+            self.iters[key][w, it[m]] = True
+            self.thread[key] += int(m.sum())
+        self.sample_rounds += running
+        self.b += 1
+        if self.b == self.bounces:
+            self.done += self.sample_rounds
+            self.sample_rounds.zero_()
+            self.b = 0
+
+    def counts(self) -> dict:
+        out = {"thread_rounds": self.thread["rounds"], "light_samples": self.thread["light"],
+               "shadow_scans": self.thread["shadow"]}
+        for k, name in self._KEYS.items():
+            out[name] = self.per_sample[k]
+            out[name + "_regen"] = int((self.iters[k].sum(1) * self.lanes).sum())
+        return out
 
 
 def _emitter_args(ph):
@@ -481,12 +648,17 @@ def render_physical_kernel_reference(
     count_rounds: bool = False,
     tri_nee: bool = False,
     count_events: bool = False,
+    on_sample=None,
+    on_round=None,
 ):
     """Plain PyTorch twin of the hand kernel, on the scene's device: the
     same math on (H*W,) planes, every round run for every path (no early
     exit). With ``count_rounds`` or ``count_events`` it also counts what
     the kernel's threads do: the rounds a path begins with nonzero
-    throughput, and the events of ``EVENTS`` in them."""
+    throughput, and the events of ``EVENTS`` in them. ``on_sample``, where
+    given, receives each sample's (H, W) int64 rounds of every pixel;
+    ``on_round`` each round's (H*W,) bool masks of the pixels whose thread
+    runs it, computes a light sample in it and runs a shadow scan in it."""
     _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
     device = scene.device
     tabs = _rk._scene_operands(scene)
@@ -506,7 +678,7 @@ def render_physical_kernel_reference(
     n_mat = mat_tab.shape[0]
 
     acc = (zero, zero, zero)
-    count = count_rounds or count_events
+    count = count_rounds or count_events or on_sample is not None or on_round is not None
     counter = torch.zeros(len(EVENTS), dtype=torch.int64, device=device)
     for s in range(spp):
         st = _rng.seed_state(pix, s + sample_offset, seed)
@@ -517,6 +689,7 @@ def render_physical_kernel_reference(
             d = _rk._camera_dir(par, cols + jx, rows + jy, fw, fh)
         o, thr, rad = origin, (one, one, one), (zero, zero, zero)
         prevd = torch.zeros(n, dtype=torch.bool, device=device)
+        rounds = torch.zeros(n, dtype=torch.int64, device=device)
         for _ in range(max_bounces + 1):
             running = (thr[0] != 0.0) | (thr[1] != 0.0) | (thr[2] != 0.0)
             hit = _rk._closest_hit(sph, sph_m, tri, tri_m, o, d)
@@ -533,7 +706,12 @@ def render_physical_kernel_reference(
                 light = diffuse & (pool > 0) if nee else torch.zeros_like(diffuse)
                 counter = counter + torch.stack(
                     [running.sum(), diffuse.sum(), light.sum(), (light & faces).sum()])
+                rounds = rounds + running
+                if on_round is not None:
+                    on_round(running, light, light & faces)
         acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
+        if on_sample is not None:
+            on_sample(rounds.reshape(height, width))
     inv = _f32(1.0 / spp)
     img = torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
     return _with_counts(img, counter, count_rounds, count_events)

@@ -1,11 +1,13 @@
-"""Where the forward kernel's time goes, against its speed of light.
+"""Where the forward kernels' time goes, against their speed of light.
 
 The counterpart of ``scripts/sol_decompose.py`` for the hand kernel B1
 (``csrc/render_fwd.cu``), on the same workload (the glossy scene, 1024^2,
-64 spp, 8 bounces; ``small``: 256^2, 8 spp, 4 bounces). B1's operations
-(``utils/flops``) over the per-class rates that kernel B6 measures give the
-time B1 would take if it issued nothing but its counted operations, with no
-lane idle; four probes account for the rest:
+64 spp, 8 bounces; ``small``: 256^2, 8 spp, 4 bounces), and, with
+``kind="physical"``, for B3 (``csrc/render_phys.cu``) on config 3's (the
+same, jitter on). A kernel's operations (``utils/flops``) over the
+per-class rates that kernel B6 measures give the time it would take if it
+issued nothing but its counted operations, with no lane idle; four probes
+account for the rest:
 
 (a) fixed cost: B7 (``ops/sol_probes.sol_null``) on B1's exact launch
     does nothing but store the image. Called as B1 is called, its time is
@@ -14,17 +16,29 @@ lane idle; four probes account for the rest:
     packed once, back to back, its time is the kernel's alone, and over
     the blocks it prices a block's start and end.
 (b) table loads: B8 (``sol_micro``) with the table's scalars loaded at every
-    object and hoisted; the difference prices one load, and B1's loads a
-    round (5 floats a sphere test, 10 a triangle test, the 9 of the hit's
-    material row) turn it into a share of B1's time.
-(c) divergence: the thread-rounds B1 runs against the rounds its warps run
-    (``render_kernel_round_counts``): a warp runs a sample for as many rounds
-    as its longest lane, and the share ``1 - thread / warp lane-rounds`` of
-    its lane slots is idle. Beside it, the share of the useful rounds (rays
-    alive: hits and misses of ``render_bounce_stats``) that B1 never runs
-    because it stops a path at zero throughput.
+    object and hoisted; the difference prices one load, and the kernel's
+    loads turn it into a share of its time: a round's scan (5 floats a
+    sphere test, 10 a triangle test) and the 9 of the hit's material row
+    (B3: and its emission strength), and B3's shadow scans (a scan each) and
+    light samples (the pick list, the sphere and its radiance: 8 words).
+(c) divergence: the thread-rounds the kernel runs against the rounds its
+    warps run under the timed kernel's schedule
+    (``render_kernel_round_counts``, ``render_physical_kernel_round_counts``):
+    the share ``1 - thread / warp lane-rounds`` of the lane slots is idle.
+    B1's counted operations are inflated by the ratio; B3's are counted again
+    on the warps' events (its rounds, and the rounds in which some lane
+    computes a light sample and runs a shadow scan, ``WARP_EVENTS``), the
+    difference being divergence. Beside it (B1), the share of the useful
+    rounds (rays alive: hits and misses of ``render_bounce_stats``) that B1
+    never runs because it stops a path at zero throughput.
 (d) the remainder: 1 less the counted operations' share, the divergence
     that inflates them, (a) and (b).
+
+Beside them, the price of each policy of the timed kernel
+(``csrc/pt_sched.cuh``): the kernel against itself under the other schedule
+or the other table placement, the measurement instantiations of
+``render_kernel.VARIANTS``, as called (``vs_<variant>_fraction``: how much
+longer that instantiation takes, as a share of the kernel's time).
 
 ``fused_decompose`` does the same for the two fused primal + Jacobian
 kernels, B2 (``csrc/render_fused.cu``) and B4 (``csrc/render_phys_fused.cu``,
@@ -67,6 +81,7 @@ from ..ops import render_grad as rg
 from ..ops import render_physical as rp
 from ..ops import render_physical_grad as pg
 from ..ops.camera import Camera
+from ..ops import render_kernel as rk
 from ..ops.render_kernel import render_kernel, render_kernel_round_counts
 from ..ops.sol_probes import (MICRO_NOBJ, MICRO_REPS, micro_table, sol_micro, sol_null,
                               sol_null_launcher)
@@ -81,6 +96,18 @@ def table_loads_per_round(scene) -> int:
     ``fetch_material`` the 9 floats of one material row (the winners'
     material indices and triangle normals come on top)."""
     return 5 * scene.num_spheres + 10 * scene.num_triangles + 9
+
+
+def _table_loads(scene, kind: str, events: dict) -> int:
+    """Table words a render loads: B1's rounds (``table_loads_per_round``),
+    or B3's rounds (and the emission strength), shadow scans and light
+    samples (see the module docstring)."""
+    rounds = events["rounds"]
+    if kind == "forward":
+        return rounds * table_loads_per_round(scene)
+    scan = 5 * scene.num_spheres + 10 * scene.num_triangles
+    return (rounds * (table_loads_per_round(scene) + 1) + events["shadow_scans"] * scan
+            + events["light_samples"] * 8)
 
 
 def _median_seconds(fn, seeds=(1, 2, 3), warm=100, repeat: int = 1) -> float:
@@ -99,21 +126,39 @@ def _median_seconds(fn, seeds=(1, 2, 3), warm=100, repeat: int = 1) -> float:
     return statistics.median(times)
 
 
-def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None) -> dict:
-    """B1's time at the bench workload, decomposed; one flat dict of
-    numbers (keys as ``scripts/sol_decompose.py`` where the meaning carries
-    over). ``rates``: the per-class rates of ``flops.measure_op_rates``
-    (measured here if not given)."""
+def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None,
+                  kind: str = "forward", variant: str | None = None) -> dict:
+    """B1's (``kind`` "forward") or B3's ("physical") time at the bench
+    workload, decomposed; one flat dict of numbers (keys as
+    ``scripts/sol_decompose.py`` where the meaning carries over).
+    ``rates``: the per-class rates of ``flops.measure_op_rates`` (measured
+    here if not given). ``variant``: decompose that measurement
+    instantiation (``render_kernel.VARIANTS``) in place of the timed
+    kernel; the policies' prices come with the timed kernel only."""
+    if kind not in ("forward", "physical"):
+        raise ValueError(f"kind must be 'forward' or 'physical', not {kind!r}")
     device = flops._cuda_device(device)
     height = width = 256 if small else 1024
     spp, bounces = (8, 4) if small else (64, 8)
     scene, cam = demo.glossy_scene(device), Camera.reference(device)
+    shape = (scene, cam, height, width, spp, bounces)
     n_blocks = -(-width // 32) * -(-height // 8)
     nominal = rays_per_render(height, width, spp, bounces)
+    warp_key = rk._warp_key(variant)
+    suffix = warp_key[len("warp_lane_rounds"):]
 
-    fwd_s = _median_seconds(lambda s: render_kernel(scene, cam, height, width, spp, bounces, s))
-    rounds = render_kernel_round_counts(scene, cam, height, width, spp, bounces, 1)
-    thread_rounds, warp_rounds = rounds["thread_rounds"], rounds["warp_lane_rounds"]
+    if kind == "forward":
+        run = lambda s, v=None: (render_kernel(*shape, s) if v is None
+                                 else rk.render_kernel_variant(*shape, s, v))
+        rounds = render_kernel_round_counts(*shape, 1, variant=variant)
+        events = {"rounds": rounds["thread_rounds"]}
+    else:
+        run = lambda s, v=None: (rp.render_physical_kernel(*shape, s) if v is None
+                                 else rp.render_physical_kernel_variant(*shape, s, v))
+        rounds = rp.render_physical_kernel_round_counts(*shape, 1, variant=variant)
+        events = rp.render_physical_kernel(*shape, 1, count_events=True)[1]
+    fwd_s = _median_seconds(lambda s: run(s, variant))
+    thread_rounds, warp_rounds = rounds["thread_rounds"], rounds[warp_key]
 
     # (a) the fixed cost of a B1 call, and of its kernel's blocks
     null_s = _median_seconds(lambda s: sol_null(scene, cam, height, width))
@@ -127,28 +172,37 @@ def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None)
     hoisted_s = _median_seconds(lambda s: sol_micro(table, seed(s), height, width, hoisted=True))
     thread_loads = MICRO_REPS * MICRO_NOBJ * 5 * height * width
     per_load_ns = max(reload_s - hoisted_s, 0.0) / thread_loads * 1e9
-    loads_per_round = table_loads_per_round(scene)
-    table_load_s = thread_rounds * loads_per_round * per_load_ns * 1e-9
+    table_words = _table_loads(scene, kind, events)
+    table_load_s = table_words * per_load_ns * 1e-9
 
-    # (c) divergence, and the exit at zero throughput
-    stats = render_bounce_stats(scene, cam, height, width, spp, bounces, 1)
-    useful = int((stats["hits"] + stats["misses"]).sum())
+    # (c) divergence, and (B1) the exit at zero throughput
     divergence = 1.0 - thread_rounds / warp_rounds
-    zero_exit_saving = 1.0 - thread_rounds / useful
 
     # (d) the counted operations at the measured rates, and what is left
     if rates is None:
         rates = flops.measure_op_rates(device)
-    report = flops.sol_report("forward", scene, height, width, spp, bounces, fwd_s,
-                              {"rounds": thread_rounds}, alu_rate=rates["alu"],
-                              transc_rate={c: rates[c] for c in flops.CLASSES[1:]})
+    transc = {c: rates[c] for c in flops.CLASSES[1:]}
+    report = flops.sol_report(kind, scene, height, width, spp, bounces, fwd_s, events,
+                              alu_rate=rates["alu"], transc_rate=transc)
     sol_fraction = report["sol_fraction"]
-    divergence_of_fwd = report["sol_seconds"] * (warp_rounds / thread_rounds - 1.0) / fwd_s
+    if kind == "forward":
+        divergence_of_fwd = report["sol_seconds"] * (warp_rounds / thread_rounds - 1.0) / fwd_s
+    else:
+        warp_events = {"rounds": warp_rounds,
+                       "diffuse_vertices": events["diffuse_vertices"] * warp_rounds / thread_rounds,
+                       "light_samples": rounds["light_warp_lane_rounds" + suffix],
+                       "shadow_scans": rounds["shadow_warp_lane_rounds" + suffix]}
+        warp_report = flops.sol_report(kind, scene, height, width, spp, bounces, fwd_s,
+                                       warp_events, alu_rate=rates["alu"], transc_rate=transc)
+        divergence_of_fwd = (warp_report["sol_seconds"] - report["sol_seconds"]) / fwd_s
     startup = null_s / fwd_s
     table_fraction = table_load_s / fwd_s
-    return {
-        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, blocks 32x8",
+    out = {
+        "kernel": "B1 render_fwd" if kind == "forward" else "B3 render_phys",
+        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, blocks 32x8"
+                    + (", jitter on" if kind == "physical" else ""),
         "device": torch.cuda.get_device_name(device),
+        "kernel_policy": rk.policy(variant),
         "fwd_seconds": fwd_s,
         "nominal_rounds": nominal,
         "executed_round_fraction": thread_rounds / nominal,
@@ -161,13 +215,11 @@ def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None)
         "micro_reload_seconds": reload_s,
         "micro_hoisted_seconds": hoisted_s,
         "per_table_load_ns": per_load_ns,
-        "fwd_table_loads_per_round": loads_per_round,
+        "fwd_table_loads_per_round": table_words / thread_rounds,
         "table_load_fraction_of_fwd": table_fraction,
-        "useful_thread_rounds": useful,
         "executed_thread_rounds": thread_rounds,
         "warp_lane_rounds": warp_rounds,
         "divergence_loss_fraction": divergence,
-        "zero_exit_saving_fraction": zero_exit_saving,
         "measured_rates": rates,
         "sol_seconds": report["sol_seconds"],
         "sol_fraction": sol_fraction,
@@ -175,6 +227,18 @@ def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None)
         "remainder_fraction_of_fwd": 1.0 - sol_fraction - divergence_of_fwd - startup
                                      - table_fraction,
     }
+    if kind == "forward":
+        stats = render_bounce_stats(scene, cam, height, width, spp, bounces, 1)
+        useful = int((stats["hits"] + stats["misses"]).sum())
+        out.update(useful_thread_rounds=useful,
+                   zero_exit_saving_fraction=1.0 - thread_rounds / useful)
+    else:
+        out.update(events=events, **{k: v for k, v in rounds.items() if k != "thread_rounds"})
+    for v in rk.VARIANTS if variant is None else ():
+        t_v = _median_seconds(lambda s: run(s, v))
+        out[f"{v}_seconds"] = t_v
+        out[f"vs_{v}_fraction"] = (t_v - fwd_s) / fwd_s
+    return out
 
 
 # The shape of fused_decompose's records-in-registers reading: that

@@ -1,10 +1,8 @@
 #!/usr/bin/env python3
-"""Times of the two fused primal + Jacobian kernels (B2 ``csrc/render_fused.cu``,
-B4 ``csrc/render_phys_fused.cu``) and of the fit steps that launch them, on
-one GPU, with the card's name and power limit; for comparing two checkouts
-in one call.
+"""Times of the hand kernels on one GPU, with the card's name and power
+limit; for comparing two checkouts in one call.
 
-    python3 scripts/torch_fused_times.py [--tree DIR] [--label NAME]
+    python3 scripts/torch_fused_times.py [--tree DIR] [--label NAME] [--forward]
 
 ``--tree`` names another checkout (``git archive`` of a parent unpacked
 under ``build/``) whose package is imported and built in place of this
@@ -12,7 +10,9 @@ one; every call below exists in the port since its gradient slices, so a
 parent times through the same code. Run parent, this, this, parent in one
 chip call to compare.
 
-Times, each the median of 3 after a warm-up:
+By default, the two fused primal + Jacobian kernels (B2
+``csrc/render_fused.cu``, B4 ``csrc/render_phys_fused.cu``) and the fit
+steps that launch them; each time the median of 3 after a warm-up:
 
 - each kernel alone: 20 launches back to back on operands packed once
   (planes allocated once), by CUDA events, divided: B2 on the glossy scene
@@ -27,7 +27,15 @@ Times, each the median of 3 after a warm-up:
   geometry fit on B4 (``fit_geometry(engine="physical_pallas")``, cornell
   at the fit shape), 20 steps a call, on the host's clock.
 
-Prints one JSON line, and what ptxas said of the fused kernels.
+With ``--forward``, the two forward kernels instead: B1 (``csrc/render_fwd.cu``)
+at the forward headline (glossy, 1024x1024, 64 spp, 8 bounces) and B3
+(``csrc/render_phys.cu``) at config 3's shape (the same, jitter on), each
+alone on packed operands as above, the timed kernel and, where the tree has
+them, each of its instantiations (``render_kernel.VARIANTS``, through
+``render_fwd_variant`` and ``render_phys_variant``), and each as a user
+calls it.
+
+Prints one JSON line, and what ptxas said of the kernels timed.
 """
 
 from __future__ import annotations
@@ -80,12 +88,13 @@ def fit_step_ms(fn, steps=20, calls=3) -> float:
     return statistics.median(times)
 
 
-def ptxas_lines(build) -> list[str]:
-    """What ptxas said of each fused kernel's instantiations."""
+def ptxas_lines(build, kernels) -> list[str]:
+    """What ptxas said of the instantiations of each kernel in ``kernels``
+    (names as in the mangled entry functions)."""
     out, keep = [], False
     for line in build.resource_usage().splitlines():
         if "Compiling entry function" in line:
-            keep = "render_fused_kernel" in line or "render_phys_fused_kernel" in line
+            keep = any(k in line for k in kernels)
         if keep and ("Compiling entry function" in line or "registers" in line
                      or "stack frame" in line):
             out.append(line.split("ptxas info    :")[-1].strip())
@@ -138,10 +147,82 @@ def b4_launcher(lib, rk, rp, scene, cam, h, w, spp, bounces, n_em_cap):
     return launch
 
 
+def b1_launcher(lib, rk, scene, cam, h, w, spp, bounces, variant=None):
+    """B1 (``variant`` None) or one of its instantiations on operands packed
+    once: a function of the seed."""
+    import torch
+
+    dev = scene.device
+    operands = rk._scene_operands(scene)
+    par = rk._camera_params(cam, scene, h, w)
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    tables = (*rk._table_args(operands), rk._ptr(par), rk._ptr(out), None)
+    go = (lib.render_fwd if variant is None
+          else lambda *a: lib.render_fwd_variant(rk.VARIANTS[variant], *a))
+
+    def launch(seed):
+        err = go(*tables, *rk._run_args(h, w, spp, bounces, seed, 0, False, dev))
+        if err != 0:
+            raise RuntimeError(f"render_fwd {variant}: CUDA error {err}")
+
+    launch.keep = (operands, par, out)  # the pointers' tensors, kept alive
+    return launch
+
+
+def b3_launcher(lib, rk, rp, scene, cam, h, w, spp, bounces, variant=None):
+    """B3 (``variant`` None) or one of its instantiations, jitter and
+    next-event estimation on, on operands packed once: a function of the
+    seed."""
+    import torch
+
+    dev = scene.device
+    operands = rk._scene_operands(scene)
+    ph = rp._phys_operands(scene, operands)
+    par = rk._camera_params(cam, scene, h, w)
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    tables = (*rk._table_args(operands), *rp._emitter_args(ph), rk._ptr(par), rk._ptr(out),
+              None, 1, 0)
+    go = (lib.render_phys if variant is None
+          else lambda *a: lib.render_phys_variant(rk.VARIANTS[variant], *a))
+
+    def launch(seed):
+        err = go(*tables, *rk._run_args(h, w, spp, bounces, seed, 0, True, dev))
+        if err != 0:
+            raise RuntimeError(f"render_phys {variant}: CUDA error {err}")
+
+    launch.keep = (operands, ph, par, out)  # the pointers' tensors, kept alive
+    return launch
+
+
+def forward_times(lib, pt, rk, rp, dev, cam) -> dict:
+    """B1 and B3, alone and as called, with their instantiations where this
+    tree has them."""
+    glossy = pt.demo.glossy_scene(dev)
+    main_shape = (H, W, SPP, BOUNCES)
+    variants = list(getattr(rk, "VARIANTS", {}))
+    alone = {"B1": b1_launcher(lib, rk, glossy, cam, *main_shape),
+             "B3": b3_launcher(lib, rk, rp, glossy, cam, *main_shape)}
+    for v in variants:
+        alone[f"B1 {v}"] = b1_launcher(lib, rk, glossy, cam, *main_shape, v)
+        alone[f"B3 {v}"] = b3_launcher(lib, rk, rp, glossy, cam, *main_shape, v)
+    result = {"kernel_ms": {k: median_ms(fn, repeat=REPEAT) for k, fn in alone.items()}}
+    result["call_ms"] = {
+        "B1": median_ms(lambda s: rk.render_kernel(glossy, cam, *main_shape, s)),
+        "B3": median_ms(lambda s: rp.render_physical_kernel(glossy, cam, *main_shape, s)),
+    }
+    result["kernel_policy"] = getattr(rk, "KERNEL_POLICY", {"schedule": "per_sample",
+                                                            "tables": "global"})
+    result["shapes"] = {"B1": f"glossy {H}x{W} {SPP}spp {BOUNCES}b",
+                        "B3": f"glossy {H}x{W} {SPP}spp {BOUNCES}b, jitter on (config 3)"}
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--label", default="this")
+    ap.add_argument("--forward", action="store_true",
+                    help="time B1 and B3 and their instantiations, not B2, B4 and the fits")
     args = ap.parse_args()
 
     import torch
@@ -167,8 +248,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.load_library()
     result["build_seconds"] = time.perf_counter() - t0
-    result["ptxas"] = ptxas_lines(build)
+    kernels = (("render_fwd_kernel", "render_phys_kernel") if args.forward
+               else ("render_fused_kernel", "render_phys_fused_kernel"))
+    result["ptxas"] = ptxas_lines(build, kernels)
     print(f"{args.label}: built in {result['build_seconds']:.1f} s [{card}]", flush=True)
+    if args.forward:
+        result.update(forward_times(lib, pt, rk, rp, dev, cam))
+        print(json.dumps(result), flush=True)
+        return 0
 
     glossy = pt.demo.glossy_scene(dev)
     spheres = pt.demo.random_spheres_scene(dev)

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Decompose the PyTorch port's forward kernel time against its speed of light.
+"""Decompose the PyTorch port's forward kernels' time against their speed of light.
 
 Runs ``path_tracer_c_tpu_torch.utils.sol_decompose`` on one CUDA device at
 the bench workload (glossy, 1024^2, 64 spp, 8 bounces; ``--small``: 256^2,
-8 spp, 4 bounces) and prints one JSON line: B1's time, the per-class op
-rates kernel B6 measured, and the shares of the time taken by the counted
-operations, divergence, block start and end (B7), table loads (B8) and the
-remainder, with the card's name and power limit as nvidia-smi reports them.
+8 spp, 4 bounces) and prints two JSON lines, B1's and B3's (config 3's
+jitter): the kernel's time, the per-class op rates kernel B6 measured, the
+shares of the time taken by the counted operations, divergence, block start
+and end (B7), table loads (B8) and the remainder, and the prices of its
+policies (the kernel against its measurement instantiations), with the
+card's name and power limit as nvidia-smi reports them.
+``--per-sample`` prints two more lines: the same for B1's and B3's
+measurement instantiation with the per-sample schedule (the kernels' body
+before path regeneration, with their tables in shared memory).
 ``--fused`` prints two more lines: the same for the fused primal + Jacobian
 kernels B2 and B4 (``fused_decompose``: besides, the per-bounce records,
 the planes' read-modify-writes, B4's geometry adjoint), on the rates of
 the first line. From the repository root:
 
-    python3 scripts/torch_sol_decompose.py [--small] [--fused]
+    python3 scripts/torch_sol_decompose.py [--small] [--per-sample] [--fused]
 
 Needs a CUDA device and the CUDA toolkit (the kernels are built on first
 use into build/kernels/); exits non-zero without them.
@@ -40,9 +45,16 @@ def main() -> int:
     small = "--small" in sys.argv
     out = sol_decompose("cuda", small=small)
     print(json.dumps({**out, "card": card}), flush=True)
+    rates = out["measured_rates"]
+    phys = sol_decompose("cuda", small=small, rates=rates, kind="physical")
+    print(json.dumps({**phys, "card": card}), flush=True)
+    if "--per-sample" in sys.argv:
+        for kind in ("forward", "physical"):
+            d = sol_decompose("cuda", small=small, rates=rates, kind=kind, variant="per_sample")
+            print(json.dumps({**d, "card": card}), flush=True)
     if "--fused" in sys.argv:
         for kind in ("fused", "physical_fused"):
-            d = fused_decompose(kind, "cuda", small=small, rates=out["measured_rates"])
+            d = fused_decompose(kind, "cuda", small=small, rates=rates)
             print(json.dumps({**d, "card": card}), flush=True)
     return 0
 

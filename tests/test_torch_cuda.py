@@ -391,11 +391,13 @@ def test_warp_lane_rounds_match_twin(cuda_device, h, w, kw):
     scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
     args = (scene, cam, h, w, 4, 8, 7)
     got = rk.render_kernel_round_counts(*args, **kw)
-    assert got == rk.render_kernel_round_counts_reference(*args, **kw)
+    twin = rk.render_kernel_round_counts_reference(*args, **kw)
+    assert got == {k: twin[k] for k in got}
     img, n = rk.render_kernel(*args, count_rounds=True, **kw)
     assert n == got["thread_rounds"] == rk.render_kernel_reference(*args, count_rounds=True, **kw)[1]
     assert torch.equal(img, rk.render_kernel(*args, **kw))
-    assert 0 < got["thread_rounds"] <= got["warp_lane_rounds"] <= h * w * 4 * 9
+    assert 0 < got["thread_rounds"] <= twin["warp_lane_rounds_regen"]
+    assert twin["warp_lane_rounds_regen"] <= twin["warp_lane_rounds"] <= h * w * 4 * 9
 
 
 # -- the fused kernels' rounds, shapes and measurement instantiations ----------
@@ -464,3 +466,132 @@ def test_measurement_variants_match_the_kernels(cuda_device, variant):
         assert torch.equal(got[0], out[0])
         if variant != "sink":
             assert all(torch.equal(a, b) for a, b in zip(got[1:], out[1:]))
+
+
+# -- the forward kernels' schedules and table placements -----------------------
+
+
+def big_table_scene(device):
+    """Two spheres, a floor and a wall of 1000 small triangles, every seventh
+    a light: tables above the shared budget (csrc/pt_sched.cuh)."""
+    b = P.SceneBuilder(sky_color=(0.3, 0.4, 0.6))
+    grey = b.add_material(albedo=(0.5, 0.5, 0.5), roughness=0.6)
+    lamp = b.add_material(albedo=(0.0, 0.0, 0.0), emission_color=(1.0, 0.9, 0.8),
+                          emission_strength=5.0)
+    b.add_sphere(center=(0.0, 0.0, 5.0), radius=1.0, material=grey)
+    b.add_sphere(center=(1.5, 1.5, 4.0), radius=0.3, material=lamp)
+    b.add_triangle(v0=(-50, -1, -50), v1=(50, -1, -50), v2=(50, -1, 50), material=grey)
+    for i in range(1000):
+        x, y = i % 40 - 20.0, i // 40 - 12.0
+        b.add_triangle(v0=(x, y, 9.0), v1=(x + 0.9, y, 9.0), v2=(x, y + 0.9, 9.0),
+                       material=grey if i % 7 else lamp)
+    return b.build(device)
+
+
+FORWARD_CASES = [  # B1 and B3: height, width, spp, bounces, keywords
+    (19, 45, 4, 8, {}),  # a partial warp in every row
+    (100, 160, 4, 8, dict(jitter=True, sample_offset=3)),
+    (19, 45, 4, 0, {}),  # no bounce
+    (37, 45, 2, 31, dict(jitter=True)),  # 31 bounces
+]
+PHYSICAL_FORWARD_CASES = [  # B3 only: scene, keywords
+    ("glossy_scene", dict(sample_offset=3)),
+    ("cornell_spheres_scene", dict(nee=False)),
+    ("tri_light", dict(tri_nee=True, jitter=False)),
+    ("mixed", dict(tri_nee=True, sample_offset=64)),
+]
+
+
+def _variant_or_kernel(kernel, variant_fn, variant):
+    return kernel if variant is None else (
+        lambda *a, **kw: variant_fn(*a[:7], variant, *a[7:], **kw))
+
+
+@pytest.mark.parametrize("variant", [None, *rk.VARIANTS])
+def test_forward_instantiations_equal_the_twins(cuda_device, variant):
+    """The timed kernels (variant None) and every other instantiation of B1
+    and B3 (csrc/pt_sched.cuh) equal their twins bit for bit: a lane runs its
+    samples in order on the same streams, whatever the schedule and wherever
+    the tables are read from. Only the timed kernels count in the kernels'
+    launches."""
+    cam = P.Camera.reference(cuda_device)
+    glossy = pdemo.glossy_scene(cuda_device)
+    fwd = _variant_or_kernel(rk.render_kernel, rk.render_kernel_variant, variant)
+    phys = _variant_or_kernel(rp.render_physical_kernel, rp.render_physical_kernel_variant,
+                              variant)
+    launches = (rk.render_kernel.launches, rp.render_physical_kernel.launches)
+    n = 0
+    for h, w, spp, bounces, kw in FORWARD_CASES:
+        args = (glossy, cam, h, w, spp, bounces, 7)
+        assert torch.equal(fwd(*args, **kw), rk.render_kernel_reference(*args, **kw))
+        assert torch.equal(phys(*args, **kw), rp.render_physical_kernel_reference(*args, **kw))
+        n += 1
+    for name, kw in PHYSICAL_FORWARD_CASES:
+        scene = (mixed_scene(cuda_device) if name == "mixed"
+                 else physical_scene(name, cuda_device))
+        args = (scene, cam, 100, 160, 4, 8, 7)
+        assert torch.equal(phys(*args, **kw), rp.render_physical_kernel_reference(*args, **kw))
+    grew = (rk.render_kernel.launches - launches[0], rp.render_physical_kernel.launches
+            - launches[1])
+    assert grew == ((n, n + len(PHYSICAL_FORWARD_CASES)) if variant is None else (0, 0))
+
+
+@pytest.mark.parametrize("variant", [None, *rk.VARIANTS])
+def test_forward_round_counts_match_twins(cuda_device, variant):
+    """Each counting instantiation of B1 and B3 counts thread-rounds equal to
+    count_rounds and the twin's, and warp lane-rounds (B3: also those in
+    which some lane computes a light sample and runs a shadow scan) equal to
+    the twin's grouping for the schedule it runs."""
+    cam = P.Camera.reference(cuda_device)
+    glossy = pdemo.glossy_scene(cuda_device)
+    schedule = rk._warp_key(variant)
+    for h, w, spp, bounces, kw in FORWARD_CASES[:3]:
+        args = (glossy, cam, h, w, spp, bounces, 7)
+        got = rk.render_kernel_round_counts(*args, variant=variant, **kw)
+        twin = rk.render_kernel_round_counts_reference(*args, **kw)
+        assert set(got) == {"thread_rounds", schedule}
+        assert got == {k: twin[k] for k in got}
+        assert got["thread_rounds"] == rk.render_kernel(*args, count_rounds=True, **kw)[1]
+    for name, kw in [("glossy_scene", FORWARD_CASES[1][4]), *PHYSICAL_FORWARD_CASES]:
+        scene = (mixed_scene(cuda_device) if name == "mixed"
+                 else physical_scene(name, cuda_device))
+        args = (scene, cam, 37, 45, 3, 6, 7)
+        got = rp.render_physical_kernel_round_counts(*args, variant=variant, **kw)
+        twin = rp.render_physical_kernel_round_counts_reference(*args, **kw)
+        assert got == {k: twin[k] for k in got} and len(got) == 6
+        assert got["thread_rounds"] == rp.render_physical_kernel(*args, count_rounds=True,
+                                                                 **kw)[1]
+
+
+def test_tables_above_the_shared_budget_are_read_from_device_memory(cuda_device):
+    """A scene whose tables exceed the shared budget: the library's bytes
+    and budget agree with the wrappers', the shared variants are refused,
+    and the timed kernels (with their tables in device memory there) and
+    the global variants equal their twins bit for bit."""
+    from path_tracer_c_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    cam = P.Camera.reference(cuda_device)
+    big = big_table_scene(cuda_device)
+    assert lib.render_table_budget() == rk.SHARED_TABLE_BUDGET
+    for scene in (pdemo.glossy_scene(cuda_device), big):
+        rows = (max(scene.num_spheres, 1), max(scene.num_triangles, 1), scene.num_materials)
+        for physical in (False, True):
+            assert lib.render_table_bytes(*rows, int(physical)) == rk.table_bytes(scene, physical)
+    assert rk.table_bytes(big) > rk.SHARED_TABLE_BUDGET
+    args = (big, cam, 19, 45, 3, 4, 7)
+    kw = dict(tri_nee=True, jitter=True)
+    assert torch.equal(rk.render_kernel(*args), rk.render_kernel_reference(*args))
+    assert torch.equal(rp.render_physical_kernel(*args, **kw),
+                       rp.render_physical_kernel_reference(*args, **kw))
+    for variant in rk.VARIANTS:
+        if rk.policy(variant)["tables"] == "shared":
+            with pytest.raises(ValueError, match="shared budget"):
+                rk.render_kernel_variant(*args, variant)
+            with pytest.raises(ValueError, match="shared budget"):
+                rp.render_physical_kernel_variant(*args, variant, **kw)
+            continue
+        assert torch.equal(rk.render_kernel_variant(*args, variant),
+                           rk.render_kernel_reference(*args))
+        assert torch.equal(rp.render_physical_kernel_variant(*args, variant, **kw),
+                           rp.render_physical_kernel_reference(*args, **kw))
