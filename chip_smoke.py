@@ -100,6 +100,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    (images, and but for the sinks planes, value for value); the
    decompositions of B2's and B4's times (``fused_decompose``), with the
    twins' warp lane-rounds at the main shape under both schedules.
+15. the long runs: the CLI ``render`` at the main shape (B1) and of
+   ``configs/config3_glossy_1024.json`` (B3), in one chunk and in chunks of
+   ``CHUNK_SPP`` spp with and without a checkpoint file, timed in turns,
+   every chunked BMP equal; a run interrupted inside its second save and
+   resumed must write the uninterrupted chunked run's BMP and accumulator;
+   the kernel must equal its plain twin, value for value, on the last
+   chunk as the chunked run gave it (its arguments recorded at the CLI's
+   renderer); ``render --debug-nans`` through B1 on a scene whose emission
+   is NaN must raise; config 5's sweep (``animate``) with its mesh set to
+   1x1 and ``SWEEP_FRAMES`` frames, with the native writer and with
+   numpy's, in turns, then once more under ``torch.profiler`` for the
+   device's busy share: the native writer must be the one named, every
+   run's frames equal, frame 0 decoded and equal to the encoded kernel
+   image, B1 equal to its twin at frame 0's arguments (all its samples, and
+   its last 4 at their offset), the time a frame after the first (the
+   sweep's window after frame 0 over its frames) beside B1's alone;
+   config 4's CLI ``fit`` (B2) and a geometry fit
+   on B4 stopped at half their steps and resumed must save the
+   uninterrupted run's state bit for bit; the peak device memory of
+   ``loss_and_grad(engine="core")`` at config 4's fit shape with each
+   sample recomputed in backward (as it runs) and without.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -108,6 +129,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -148,6 +170,11 @@ PHYS_CONFIG = "configs/config3_glossy_1024.json"
 H = W = 1024
 SPP, BOUNCES = 64, 8
 FIT_CONFIG = "configs/config4_inverse_spheres32.json"
+# Phase 15: chunks of 16 spp (a quarter of the main shape's 64), and config
+# 5's sweep cut to 8 of its 48 frames for the time limit.
+CHUNK_SPP = 16
+SWEEP_CONFIG = "configs/config5_sweep_2048_multihost.json"
+SWEEP_FRAMES = 8
 
 # The two-pass kernel reduces with float atomics in an order that changes
 # from run to run; its twin reduces in float64. Both, and the fused kernel's
@@ -672,6 +699,385 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
                                        warp_lane_rounds_regen=twin["warp_lane_rounds_regen"])
     return {"measured": measured, "fused": fused_parts, "forward": forward_parts,
             "entries": entries, "fwd_launches": n_fwd}
+
+
+class _Interrupt(Exception):
+    """Raised from inside a render's checkpoint save to stop it there."""
+
+
+def _cli_quiet(cli_main, argv) -> str:
+    """Run the CLI with its standard output captured; its last line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    return buf.getvalue().strip().splitlines()[-1]
+
+
+def _npz_equal(a: Path, b: Path, what: str) -> None:
+    import numpy as np
+
+    with np.load(a) as za, np.load(b) as zb:
+        if sorted(za.keys()) != sorted(zb.keys()):
+            raise AssertionError(f"{what}: checkpoint keys differ")
+        for k in za.keys():
+            if not np.array_equal(za[k], zb[k]):
+                raise AssertionError(f"{what}: checkpoint entry {k} differs")
+
+
+@contextlib.contextmanager
+def _recorded_calls(app):
+    """Keep the arguments of every call the CLI makes to its renderer
+    (``app._renderer``'s result), with the keywords it binds, so that the
+    kernel can be held against its twin at exactly those inputs. The
+    kernel's own launch count is untouched."""
+    calls, real = [], app._renderer
+
+    def renderer(cfg):
+        render = real(cfg)
+        bound = getattr(render, "keywords", {})
+
+        def call(*a, **k):
+            calls.append((a, {**bound, **k}))
+            return render(*a, **k)
+
+        return call
+
+    app._renderer = renderer
+    try:
+        yield calls
+    finally:
+        app._renderer = real
+
+
+def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
+    """Phase 15: the long-run entry points through the kernels. Returns the
+    launches of each kernel on these paths and what was measured."""
+    import torch
+
+    from path_tracer_c_tpu_torch.app import main as app
+    from path_tracer_c_tpu_torch.grad import diff
+    from path_tracer_c_tpu_torch.ops import render_grad as rg
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+    from path_tracer_c_tpu_torch.scene.io import save_scene
+    from path_tracer_c_tpu_torch.utils import checkpoint as ck
+    from path_tracer_c_tpu_torch.utils import native
+    from path_tracer_c_tpu_torch.utils.bitmap import bitmap_bytes
+    from path_tracer_c_tpu_torch.utils.config import AnimationConfig, FitConfig, load
+    from path_tracer_c_tpu_torch.utils.metrics import rays_per_render
+    from path_tracer_c_tpu_torch.utils.profiling import trace
+
+    launches = {"render_fwd": {}, "render_phys": {}, "render_fused": {}, "render_phys_fused": {}}
+    errs = {"render_fwd": 0.0, "render_phys": 0.0}
+    result = {"card": card, "twins": {}}
+
+    def hold_to_twin(name, kernel, twin, a, k, what):
+        """The kernel against its plain twin on the card, value for value,
+        at the arguments a main path gave it (launches made here are not
+        the path's)."""
+        t1 = time.perf_counter()
+        errs[name] = max(errs[name], compare_exact(kernel(*a, **k), twin(*a, **k), what))
+        torch.cuda.synchronize()
+        result["twins"][what] = {"max_abs_err": errs[name],
+                                 "seconds": time.perf_counter() - t1}
+        log(f"long runs: {what}: kernel equal to its plain twin "
+            f"({time.perf_counter() - t1:.1f} s)")
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+
+        # Chunked renders: one chunk and chunks of CHUNK_SPP, timed in turns
+        # on the host's clock to the written BMP; then a run interrupted
+        # inside its second checkpoint save and resumed.
+        renders = (
+            ("B1", "render_fwd", rk.render_kernel, rk.render_kernel_reference,
+             ["--scene", "glossy", "--width", str(W), "--height", str(H), "--spp", str(SPP),
+              "--max-bounces", str(BOUNCES)], "glossy 1024x1024 64spp 8b"),
+            ("B3", "render_phys", rp.render_physical_kernel, rp.render_physical_kernel_reference,
+             ["--config", str(root / PHYS_CONFIG)], PHYS_CONFIG),
+        )
+        for label, name, kernel, twin, base, where in renders:
+            every = ["--checkpoint-every", str(CHUNK_SPP)]
+            runs = {"one chunk": [], "chunked": [], "chunked, saved": []}
+            order = ("one chunk", "chunked", "chunked, saved", "chunked, saved", "chunked",
+                     "one chunk")
+            kernel.launches = 0
+            for i, kind in enumerate(order):
+                out = tmp / f"{label}_{i}.bmp"
+                argv = ["render", *base, "--out", str(out)]
+                if kind != "one chunk":
+                    argv += every
+                if kind == "chunked, saved":
+                    argv += ["--checkpoint-path", str(tmp / f"{label}_{i}.npz")]
+                t0 = time.perf_counter()
+                with _recorded_calls(app) as calls:
+                    _cli_quiet(cli_main, argv)
+                runs[kind].append((time.perf_counter() - t0) * 1e3)
+                if i == 1:
+                    chunk_calls = calls
+                if kind != "one chunk":
+                    ref = tmp / f"{label}_1.bmp"
+                    if out.read_bytes() != ref.read_bytes():
+                        raise AssertionError(f"{label}: chunked renders differ")
+            path = tmp / f"{label}_resumed.npz"
+            out = tmp / f"{label}_resumed.bmp"
+            saves, real_save = [], ck.save_render
+
+            def save_then_stop(p, c):
+                real_save(p, c)
+                saves.append(c.spp_done)
+                if len(saves) == 2:
+                    raise _Interrupt
+
+            ck.save_render = save_then_stop
+            try:
+                _cli_quiet(cli_main, ["render", *base, *every, "--checkpoint-path", str(path),
+                                      "--out", str(out)])
+                raise AssertionError(f"{label}: the interrupted render ran to its end")
+            except _Interrupt:
+                pass
+            finally:
+                ck.save_render = real_save
+            if out.exists() or ck.load_render(path).spp_done != 2 * CHUNK_SPP:
+                raise AssertionError(f"{label}: the interruption did not stop after two chunks")
+            line = _cli_quiet(cli_main, ["render", *base, *every, "--checkpoint-path", str(path),
+                                         "--out", str(out)])
+            data = out.read_bytes()
+            check_bmp(data, W, H)
+            if data != (tmp / f"{label}_1.bmp").read_bytes():
+                raise AssertionError(f"{label}: the resumed render differs from the chunked one")
+            _npz_equal(path, tmp / f"{label}_2.npz", f"{label} resumed")
+            n = kernel.launches
+            launches[name][f"render --checkpoint-every {CHUNK_SPP} (6 renders, one interrupted "
+                           f"and resumed)"] = n
+            expected = 2 + 4 * (SPP // CHUNK_SPP) + SPP // CHUNK_SPP
+            if n != expected:
+                raise AssertionError(f"{label}: {n} launches, expected {expected}")
+            # The last chunk as the chunked run gave it to the kernel.
+            last = SPP - CHUNK_SPP
+            a, k = next((a, k) for a, k in chunk_calls if k["sample_offset"] == last)
+            hold_to_twin(name, kernel, twin, a, k, f"{label} {where}: the chunk of {CHUNK_SPP} "
+                         f"spp at sample_offset {last}")
+            med = {k: statistics.median(v) for k, v in runs.items()}
+            result[f"{label} chunking"] = {"where": where, "ms": runs, "median_ms": med,
+                                           "chunk_spp": CHUNK_SPP}
+            log(f"long runs: {label} CLI `render` {where}, resumed after 2 of "
+                f"{SPP // CHUNK_SPP} chunks: BMP and accumulator equal to the uninterrupted "
+                f"chunked run's ({line}); {n} launches")
+            log(f"long runs: {label} CLI wall ms to the BMP, in turns: "
+                + "; ".join(f"{k} {', '.join(f'{x:.1f}' for x in v)}" for k, v in runs.items())
+                + f"; chunks of {CHUNK_SPP} cost {med['chunked'] - med['one chunk']:+.1f} ms, "
+                f"saving them {med['chunked, saved'] - med['chunked']:+.1f} ms [{card}]")
+
+        # --debug-nans through B1 on a scene whose emission is NaN.
+        nan_scene = pt.demo.diffuse_sphere_scene("cpu")
+        nan_scene = dataclasses.replace(nan_scene, materials=dataclasses.replace(
+            nan_scene.materials, emission_strength=torch.full_like(
+                nan_scene.materials.emission_strength, float("nan"))))
+        save_scene(tmp / "nan_scene.json", nan_scene)
+        rk.render_kernel.launches = 0
+        try:
+            _cli_quiet(cli_main, ["render", "--scene", str(tmp / "nan_scene.json"), "--width",
+                                  "256", "--height", "256", "--spp", "4", "--max-bounces", "4",
+                                  "--debug-nans", "--out", str(tmp / "nan.bmp")])
+            raise AssertionError("--debug-nans: no FloatingPointError")
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        if rk.render_kernel.launches != 1 or (tmp / "nan.bmp").exists():
+            raise AssertionError("--debug-nans: not one kernel launch, or a BMP written")
+        launches["render_fwd"]["render --debug-nans"] = 1
+        log(f"long runs: CLI `render --debug-nans` on a NaN scene through B1 raised: {nan_msg}")
+
+        # The config-5 sweep on one card: its mesh set to 1x1 and 8 frames,
+        # with the native writer and with numpy's, in turns.
+        raw = json.loads((root / SWEEP_CONFIG).read_text())
+        raw["render"]["mesh"] = {"tile": 1, "spp": 1}
+        raw["frames"] = SWEEP_FRAMES
+        acfg = load(root / SWEEP_CONFIG, AnimationConfig)
+        r = acfg.render
+        result["sweep"] = {"config": SWEEP_CONFIG, "reduced": [
+            f"mesh {acfg.render.mesh.tile}x{acfg.render.mesh.spp} -> 1x1 (one card; ROADMAP A11)",
+            f"frames {acfg.frames} -> {SWEEP_FRAMES} (time limit)"],
+            "shape": f"{r.scene} {r.width}x{r.height} {r.spp}spp {r.max_bounces}b engine {r.engine}"}
+        if not native.available():
+            raise AssertionError("the native library did not build: the sweep needs its writer")
+        real_available = native.available
+        frame_ms = {"native": [], "numpy": []}
+        window_ms = {"native": [], "numpy": []}
+        frame_paths = {}
+        rk.render_kernel.launches = 0
+        # In turns, then once more with the native writer under the profiler.
+        for i, writer in enumerate(("native", "numpy", "numpy", "native", "native")):
+            raw["out_dir"] = str(tmp / f"frames_{i}")
+            cfg_path = tmp / f"sweep_{i}.json"
+            cfg_path.write_text(json.dumps(raw))
+            metrics = tmp / f"sweep_{i}.jsonl"
+            traced = i == 4
+            if writer == "numpy":
+                native.available = lambda: False
+            try:
+                with contextlib.ExitStack() as stack:
+                    calls = stack.enter_context(_recorded_calls(app))
+                    prof = stack.enter_context(trace(str(tmp / "sweep_trace"))) if traced else None
+                    t0 = time.perf_counter()
+                    _cli_quiet(cli_main, ["animate", "--config", str(cfg_path), "--metrics",
+                                          str(metrics)])
+                    seconds = time.perf_counter() - t0
+            finally:
+                native.available = real_available
+            if i == 0:
+                sweep_calls = calls
+            recs = [json.loads(x) for x in metrics.read_text().splitlines()]
+            frames = [x for x in recs if x["kind"] == "frame"]
+            if len(frames) != SWEEP_FRAMES or {x["writer"] for x in recs} != {writer}:
+                raise AssertionError(f"sweep {i}: frames {len(frames)}, writers "
+                                     f"{ {x['writer'] for x in recs} }, expected {writer}")
+            frame_paths[i] = sorted(Path(raw["out_dir"]).glob("frame_*.bmp"))
+            # The sweep's window after frame 0 was handed over (the rest
+            # rendered, handed over and drained) over its frames.
+            total = next(x for x in recs if x["kind"] == "animate")["seconds"]
+            window = (total - frames[0]["seconds"]) * 1e3 / (SWEEP_FRAMES - 1)
+            if traced:
+                from torch.autograd import DeviceType
+
+                device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA) / 1e3
+                b1_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA and "render_fwd" in e.key) / 1e3
+                result["sweep"]["traced"] = {
+                    "writer": writer, "seconds": total, "device_busy_ms": device_ms,
+                    "b1_device_ms": b1_ms, "device_busy_share": device_ms / (total * 1e3),
+                    "ms_per_frame_after_first": window}
+                log(f"long runs: sweep {i} (writer {writer}, under torch.profiler): "
+                    f"{total * 1e3:.1f} ms, device busy {device_ms:.1f} ms "
+                    f"({device_ms / (total * 1e3):.1%}; B1 {b1_ms:.1f} ms), {window:.1f} ms a "
+                    f"frame after the first [{card}]")
+                continue
+            frame_ms[writer].append([x["seconds"] * 1e3 for x in frames])
+            window_ms[writer].append(window)
+            log(f"long runs: sweep {i} (writer {writer}): {seconds:.4f} s for {SWEEP_FRAMES} "
+                f"frames, {window:.2f} ms a frame after the first; gaps between hand-overs ms "
+                + ", ".join(f"{x:.1f}" for x in frame_ms[writer][-1]) + f" [{card}]")
+        sweep_launches = rk.render_kernel.launches
+        if sweep_launches != 5 * SWEEP_FRAMES:
+            raise AssertionError(f"sweep: {sweep_launches} launches of B1")
+        launches["render_fwd"][f"animate config 5 ({SWEEP_FRAMES} frames, 5 runs)"] = sweep_launches
+        for i in (1, 2, 3, 4):
+            if [p.read_bytes() for p in frame_paths[i]] != [p.read_bytes() for p in frame_paths[0]]:
+                raise AssertionError(f"sweep {i}: frames differ from sweep 0's")
+        # Frame 0 as the sweep gave it to B1: the kernel against its twin
+        # there, and at its last samples (spp 4 at sample_offset spp - 4).
+        data = frame_paths[0][0].read_bytes()
+        check_bmp(data, r.width, r.height)
+        a, k = sweep_calls[0]
+        acfg.frames = SWEEP_FRAMES
+        cam0 = app._orbit_cameras(acfg, dev)[0]
+        if a[2:] != (r.height, r.width, r.spp, r.max_bounces, r.seed) or not all(
+                torch.equal(getattr(a[1], f.name), getattr(cam0, f.name))
+                for f in dataclasses.fields(cam0)):
+            raise AssertionError(f"sweep frame 0: not config 5's frame-0 render: {a[2:]}")
+        where0 = f"sweep frame 0 {r.scene} {r.width}x{r.height} {r.spp}spp {r.max_bounces}b"
+        hold_to_twin("render_fwd", rk.render_kernel, rk.render_kernel_reference, a, k, where0)
+        tail = (*a[:4], 4, *a[5:])
+        hold_to_twin("render_fwd", rk.render_kernel, rk.render_kernel_reference, tail,
+                     {**k, "sample_offset": r.spp - 4},
+                     f"{where0}: spp 4 at sample_offset {r.spp - 4}")
+        img = rk.render_kernel(*a, **k)
+        if bitmap_bytes(pt.render_image_u8(img).cpu().numpy()) != data:
+            raise AssertionError("sweep frame 0 differs from the encoded kernel image")
+        del img
+        sweep_kernel_ms = median_ms(lambda seed: rk.render_kernel(*a[:6], seed, **k), warm=(1,))
+        per = {}
+        for writer, runs in frame_ms.items():
+            gaps = sorted(x for run in runs for x in run[1:])  # frame 0 fills the pipeline
+            per[writer] = {"ms_per_frame_after_first": window_ms[writer],
+                           "gap_median_ms": statistics.median(gaps), "gap_min_ms": gaps[0],
+                           "gap_max_ms": gaps[-1], "first_frame_ms": [run[0] for run in runs]}
+        result["sweep"].update({"per_frame": per, "b1_alone_ms": sweep_kernel_ms,
+                                "nominal_rays": rays_per_render(r.height, r.width, r.spp,
+                                                                r.max_bounces)})
+        log(f"long runs: config-5 sweep, ms a frame after the first (window / frames, each "
+            f"run): " + "; ".join(f"{w} writer " + ", ".join(f"{x:.2f}" for x in p[
+                "ms_per_frame_after_first"]) for w, p in per.items())
+            + f"; B1 alone at that shape {sweep_kernel_ms:.1f} ms; frame 0 decoded, equal to "
+            f"the encoded kernel image [{card}]")
+
+        # Resumed fits: config 4 on B2, the geometry fit on B4, each stopped
+        # at half its steps and resumed, against the uninterrupted run.
+        fit_scene = tmp / "light_fit_scene.json"
+        save_scene(fit_scene, light_fit_scene(pt, "cpu"))
+        geo_cfg = tmp / "geometry_fit.json"
+        geo_cfg.write_text(json.dumps({
+            "render": {"width": 128, "height": 128, "spp": 32, "max_bounces": 3,
+                       "scene": str(fit_scene), "engine": "physical_pallas", "seed": 0},
+            "steps": 60, "lr": 0.03}))
+        fits = (("B2", "render_fused", rg.render_fused, str(root / FIT_CONFIG), []),
+                ("B4", "render_phys_fused", pg.render_physical_fused, str(geo_cfg),
+                 ["--mode", "geometry"]))
+        for label, name, kernel, cfg_path, mode in fits:
+            steps = load(cfg_path, FitConfig).steps
+            every = ["--checkpoint-every", str(max(1, steps // 10))]
+            kernel.launches = 0
+            base = ["fit", "--config", cfg_path, *mode, *every]
+            full = _cli_quiet(cli_main, base + ["--checkpoint-path", str(tmp / f"{label}_a.npz")])
+            _cli_quiet(cli_main, base + ["--steps", str(steps // 2), "--checkpoint-path",
+                                         str(tmp / f"{label}_b.npz")])
+            resumed = _cli_quiet(cli_main, base + ["--checkpoint-path",
+                                                   str(tmp / f"{label}_b.npz")])
+            _npz_equal(tmp / f"{label}_a.npz", tmp / f"{label}_b.npz", f"{label} fit")
+            strip = lambda s: re.sub(r"in [\d.]+s, ", "", s)
+            if strip(full) != strip(resumed):
+                raise AssertionError(f"{label} fit: lines differ: {full} / {resumed}")
+            n = kernel.launches
+            if n != 2 * steps:
+                raise AssertionError(f"{label} fit: {n} launches for {2 * steps} steps")
+            launches[name][" ".join(["fit", *mode, "--checkpoint-path (3 runs: whole, half, "
+                                     "resumed)"])] = n
+            log(f"long runs: {label} CLI `{' '.join(['fit', '--config', Path(cfg_path).name, *mode])}` "
+                f"stopped at step {steps // 2} and resumed: variables, Adam's state and the "
+                f"{steps} losses bit for bit those of the uninterrupted run ({resumed}); "
+                f"{n} launches")
+
+    # The eager tier's gradient at config 4's fit shape, with and without
+    # each sample recomputed in backward: peak device memory.
+    fcfg = load(root / FIT_CONFIG, FitConfig).render
+    shape = (fcfg.height, fcfg.width, fcfg.spp, fcfg.max_bounces)
+    spheres, cam = pt.demo.random_spheres_scene(dev), pt.Camera.reference(dev)
+    target = rk.render_kernel(spheres, cam, *shape, 12345)
+    mem = {}
+    real_radiance = diff.render_radiance
+    for remat in (True, False, True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if not remat:  # the same call with the recomputation turned off
+            diff.render_radiance = lambda *a, remat, **k: real_radiance(*a, remat=False, **k)
+        try:
+            loss, d_scene = diff.loss_and_grad(spheres, target, cam, *shape, 1, engine="core")
+        finally:
+            diff.render_radiance = real_radiance
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        grad = d_scene.materials.albedo
+        mem.setdefault(remat, []).append({"peak_bytes": torch.cuda.max_memory_allocated(),
+                                          "resident_bytes": base_mem, "ms": ms,
+                                          "loss": float(loss)})
+        if not bool(torch.isfinite(grad).all()):
+            raise AssertionError("remat pair: non-finite gradient")
+        mem.setdefault(f"grad_{remat}", grad)
+        del loss, d_scene, grad
+    diff_max = float((mem.pop("grad_True") - mem.pop("grad_False")).abs().max())
+    result["remat"] = {"shape": f"spheres32 {shape[1]}x{shape[0]} {shape[2]}spp {shape[3]}b",
+                       "with": mem[True], "without": mem[False],
+                       "grad_max_abs_delta": diff_max}
+    walls = {k: ", ".join("%.0f" % m["ms"] for m in mem[k]) for k in (True, False)}
+    log(f"long runs: loss_and_grad(engine='core') at config 4's fit shape: peak device memory "
+        f"{mem[True][0]['peak_bytes'] / 2**20:.1f} MiB with remat (as it runs), "
+        f"{mem[False][0]['peak_bytes'] / 2**20:.1f} MiB without; wall ms {walls[True]} / "
+        f"{walls[False]}; d_albedo max |delta| {diff_max:.3g} [{card}]")
+    return {"launches": launches, "result": result, "max_abs_err": errs}
 
 
 def main() -> int:
@@ -1315,6 +1721,11 @@ def main() -> int:
     sol = speed_of_light(dev, card, glossy, cam, specs,
                          {"fused": fused_twin_rounds, "physical_fused": phys_fused_twin_rounds})
 
+    # -- 15. the long runs --
+    t0 = time.perf_counter()
+    longr = long_runs(pt, root, dev, card, cli_main)
+    log(f"long runs: phase 15 took {time.perf_counter() - t0:.1f} s")
+
     # launches: the main paths' runs; every time, bound and round count: the
     # glossy shape named in "timed_at".
     common = {"route": "cuda", "library_ms": None, "timed_at": where}
@@ -1356,6 +1767,13 @@ def main() -> int:
         entry.update(sol["forward"].get(entry["name"], {}))
     kernels[2].update({k: phys_twin_rounds[k] for k in phys_twin_rounds
                        if "warp_lane_rounds" in k})
+    for entry in kernels:
+        if entry["name"] in longr["max_abs_err"]:
+            entry["max_abs_err"] = max(entry["max_abs_err"], longr["max_abs_err"][entry["name"]])
+        extra = longr["launches"].get(entry["name"], {})
+        entry["launches_by_path"].update(extra)
+        entry["launches"] += sum(extra.values())
+    log(json.dumps({"long_runs": longr["result"]}))
     log(json.dumps({"kernels": kernels + sol["entries"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

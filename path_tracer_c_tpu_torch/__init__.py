@@ -6,7 +6,10 @@ hand-written CUDA kernels for NVIDIA Hopper: the forward render
 fit in ``grad.diff``), the physical tier's forward render
 (``render_physical_kernel``; eager: ``render_physical``) and its gradient
 (``render_physical_kernel_vjp``, the two-pass oracle ``render_physical_bwd``,
-the geometry, roughness and camera fits in ``grad.diff``). The JAX package
+the geometry, roughness and camera fits in ``grad.diff``), and the long
+runs around them: resumable renders and fits (``utils.checkpoint``), the
+camera sweep (``app.main animate``) and its native asynchronous frame writer
+(``utils.native``). The JAX package
 is the reference this package is held against; this package imports PyTorch and
 never JAX.
 
@@ -35,6 +38,10 @@ from .grad.diff import loss_and_grad, fit_materials, fit_geometry, fit_camera
 from .models.integrator import render_radiance, render_image_u8, trace_paths
 from .models.physical import render_physical, trace_paths_physical
 from .utils.bitmap import write_bitmap, bitmap_bytes
+from .utils.checkpoint import (
+    RenderCheckpoint, accumulate, save_render, load_render, save_fit, load_fit,
+)
+from .utils.native import AsyncBitmapWriter
 
 __version__ = "0.1.0"
 
@@ -49,5 +56,6 @@ __all__ = [
     "render_physical", "trace_paths_physical", "diff", "loss_and_grad", "fit_materials",
     "fit_geometry", "fit_camera",
     "render_radiance", "render_image_u8", "trace_paths",
-    "write_bitmap", "bitmap_bytes",
+    "write_bitmap", "bitmap_bytes", "RenderCheckpoint", "accumulate", "save_render",
+    "load_render", "save_fit", "load_fit", "AsyncBitmapWriter",
 ]

@@ -1,7 +1,7 @@
-"""Command-line interface: offline render to BMP, and the fits.
+"""Command-line interface: offline render to BMP, camera sweep, and the fits.
 
-The ``render`` and ``fit`` subcommands of the JAX package's ``app/main.py``
-on PyTorch. ``render``: a built-in scene or scene JSON, written as a
+The ``render``, ``animate`` and ``fit`` subcommands of the JAX package's
+``app/main.py`` on PyTorch. ``render``: a built-in scene or scene JSON, written as a
 24-bit BMP, rendered by one of four engines. Reference tier: the hand CUDA
 kernel (``--engine cuda``, the default) or the eager integrator
 (``--engine core``). Physical tier (importance-sampled BRDF, next-event
@@ -10,7 +10,17 @@ integrator (``--engine physical_core``); ``--tri-nee`` adds emissive
 triangles to the physical tier's light sampling; ``--bounce-stats`` logs
 and prints the per-bounce event histogram of a separate render of at most 4
 spp (the physical tier's, with its light-sample counts, for the physical
-engines). ``fit``: render a target
+engines). A render runs in chunks of ``checkpoint_every`` spp where that is
+set, each at the sample offset of the spp before it, folded into an
+accumulator (``utils/checkpoint.py``) from which the image is written by
+numpy's encoder, as the JAX package writes it (the printed line and the
+metrics name the writer). With ``checkpoint_path`` the accumulator is
+saved after every chunk and a render resumes from it; ``--progressive``
+rewrites the output after every chunk, ``--live`` draws it in the terminal,
+``--debug-nans`` raises on non-finite radiance in a chunk. ``animate``:
+``frames`` renders on a circle around a target, written by the native
+asynchronous frame writer (``utils/native.py``) where it builds, else by
+numpy, while the device renders the next frame. ``fit``: render a target
 with the true scene, corrupt it, and recover it with Adam. ``--mode
 materials`` (the default) corrupts albedo and emission strength and fits on
 the gradient of the fused CUDA kernel (``--engine cuda``), of the eager
@@ -21,7 +31,9 @@ entry point; in a render ``physical`` is the forward kernel, which has no
 gradient to choose). ``--mode geometry`` moves the first emissive sphere
 and recovers its centre, ``--mode roughness`` sets every roughness to 0.5
 and recovers it by the score-function gradient; both need a physical
-engine and take ``physical`` where none is named.
+engine and take ``physical`` where none is named. ``--checkpoint-path`` saves
+the fit's state every ``--checkpoint-every`` steps, and a fit resumes from
+it.
 
 ``--device cuda`` (the default) needs a CUDA device and raises without
 one; it never carries on on the CPU. ``--device cpu`` runs the same
@@ -32,8 +44,12 @@ every image size through the kernel.
 Usage:
     python -m path_tracer_c_tpu_torch.app.main render --scene glossy \
         --width 1024 --height 1024 --spp 64 --max-bounces 8 --out out.bmp
+    python -m path_tracer_c_tpu_torch.app.main render --config \
+        configs/config3_glossy_1024.json --checkpoint-every 16 \
+        --checkpoint-path render.ckpt.npz
+    python -m path_tracer_c_tpu_torch.app.main animate --frames 24 --out-dir frames/
     python -m path_tracer_c_tpu_torch.app.main fit \
-        --config configs/config4_inverse_spheres32.json
+        --config configs/config4_inverse_spheres32.json --checkpoint-path fit.ckpt.npz
 """
 
 from __future__ import annotations
@@ -44,6 +60,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -101,17 +118,6 @@ def _check_ported(cfg, engines=_ENGINES):
             "a multi-device mesh is not ported yet: see ROADMAP.md A11 "
             "(parallel layer)"
         )
-    _refuse_if_set(cfg, ("checkpoint_every", "checkpoint_path", "progressive", "debug_nans"))
-
-
-def _refuse_if_set(cfg, names):
-    """Settings of ROADMAP.md A12 (checkpoints and the rest of the CLI)."""
-    for name in names:
-        if getattr(cfg, name):
-            raise SystemExit(
-                f"{name} is not ported yet: see ROADMAP.md A12 "
-                "(checkpoint and the rest of the CLI)"
-            )
 
 
 def _device(name: str) -> torch.device:
@@ -140,45 +146,91 @@ def _renderer(cfg):
     return rk.render_kernel if cfg.engine == "cuda" else render_radiance
 
 
-def cmd_render(args):
+def _u8(image: np.ndarray) -> np.ndarray:
+    """The accumulator's float32 mean image as RGB8."""
     from ..models.integrator import render_image_u8
+
+    return render_image_u8(torch.from_numpy(image)).numpy()
+
+
+def cmd_render(args):
     from ..ops.camera import Camera
     from ..utils import bitmap
+    from ..utils import checkpoint as ckpt_mod
     from ..utils.config import RenderConfig, load
-    from ..utils.metrics import MetricsLogger, Timer, throughput
+    from ..utils.metrics import MetricsLogger, throughput
 
     cfg = load(args.config) if args.config else RenderConfig()
-    for name in ("width", "height", "spp", "max_bounces", "seed", "scene", "engine"):
+    for name in ("width", "height", "spp", "max_bounces", "seed", "scene", "engine",
+                 "checkpoint_every", "checkpoint_path"):
         v = getattr(args, name)
         if v is not None:
             setattr(cfg, name, v)
     cfg.engine = _ENGINE_ALIASES.get(cfg.engine, cfg.engine)
-    if args.tri_nee:
-        cfg.tri_nee = True
+    for name in ("tri_nee", "debug_nans", "progressive"):
+        if getattr(args, name):
+            setattr(cfg, name, True)
     if args.out:
         cfg.output = args.out
     _check_ported(cfg)
+    viewer = None
+    if args.live:
+        from ..utils.termview import TerminalViewer
+
+        viewer = TerminalViewer()
+    if (cfg.progressive or viewer is not None) and not cfg.checkpoint_every:
+        cfg.checkpoint_every = max(1, cfg.spp // 8)  # 8 previews
     device = _device(args.device)
 
     scene = get_scene(cfg.scene, device)
     camera = Camera.reference(device, cfg.fov_deg)
     metrics = MetricsLogger(args.metrics)
     render = _renderer(cfg)
-    with Timer() as t:
-        rad = render(
-            scene, camera, cfg.height, cfg.width, cfg.spp, cfg.max_bounces,
-            cfg.seed, jitter=cfg.jitter,
-        )
-        u8 = render_image_u8(rad).cpu().numpy()  # waits for the device
-    rps = throughput(cfg.height, cfg.width, cfg.spp, cfg.max_bounces, t.seconds)
-    metrics.log("render", engine=cfg.engine, device=str(device),
-                seconds=t.seconds, rays_per_sec=rps)
-    print(f"spp {cfg.spp}  {t.seconds:.2f}s  {rps:.3e} rays/s  "
-          f"({cfg.engine} on {device})")
+    ck = None
+    spp_done = spp_start = 0
+    if cfg.checkpoint_path and Path(cfg.checkpoint_path).exists():
+        ck = ckpt_mod.load_render(cfg.checkpoint_path)
+        spp_done = spp_start = ck.spp_done
+        print(f"resuming from {cfg.checkpoint_path}: {spp_done} spp done")
+    chunk = cfg.checkpoint_every or (cfg.spp - spp_done)
+    seconds = 0.0
+    while spp_done < cfg.spp:
+        n = min(chunk, cfg.spp - spp_done)
+        t0 = time.perf_counter()
+        rad = render(scene, camera, cfg.height, cfg.width, n, cfg.max_bounces, cfg.seed,
+                     jitter=cfg.jitter, sample_offset=spp_done)
+        rad = rad.cpu().numpy()  # waits for the device
+        dt = time.perf_counter() - t0
+        seconds += dt
+        if cfg.debug_nans and not np.isfinite(rad).all():
+            bad = int(np.count_nonzero(~np.isfinite(rad)))
+            raise FloatingPointError(
+                f"non-finite radiance in chunk at spp_done={spp_done}: {bad} values "
+                f"(seed {cfg.seed}, engine {cfg.engine})")
+        ck = ckpt_mod.accumulate(ck, rad, n, cfg.seed)
+        spp_done = ck.spp_done
+        if cfg.checkpoint_every:
+            rps = throughput(cfg.height, cfg.width, n, cfg.max_bounces, dt)
+            metrics.log("render_chunk", spp_done=spp_done, seconds=dt, rays_per_sec=rps)
+            print(f"spp {spp_done}/{cfg.spp}  {dt:.2f}s  {rps:.3e} rays/s")
+        if cfg.checkpoint_path:
+            ckpt_mod.save_render(cfg.checkpoint_path, ck)
+        if cfg.progressive and spp_done < cfg.spp:
+            bitmap.write_bitmap(cfg.output, _u8(ck.image), y_inverted=True)
+            metrics.log("progressive_preview", spp_done=spp_done)
+        if viewer is not None:
+            viewer.show(_u8(ck.image), caption=f"spp {spp_done}/{cfg.spp}")
+    rendered = cfg.spp - spp_start
+    rps = throughput(cfg.height, cfg.width, rendered, cfg.max_bounces, seconds) if rendered else 0.0
+    metrics.log("render", engine=cfg.engine, device=str(device), spp=rendered,
+                seconds=seconds, rays_per_sec=rps, writer="numpy")
+    print(f"spp {rendered}  {seconds:.2f}s  {rps:.3e} rays/s  ({cfg.engine} on {device})")
     if args.bounce_stats:
         _bounce_stats(cfg, scene, camera, metrics)
-    bitmap.write_bitmap(cfg.output, u8, y_inverted=True)
-    print(f"wrote {cfg.output} ({cfg.width}x{cfg.height}, {cfg.spp} spp)")
+    # The image is the accumulator's mean, (rad * spp) / spp for one chunk,
+    # as the JAX package writes it.
+    bitmap.write_bitmap(cfg.output, _u8(ck.image), y_inverted=True)
+    print(f"wrote {cfg.output} ({cfg.width}x{cfg.height}, {cfg.spp} spp, writer numpy)")
 
 
 def _bounce_stats(cfg, scene, camera, metrics):
@@ -197,6 +249,110 @@ def _bounce_stats(cfg, scene, camera, metrics):
     stats = {k: v.tolist() for k, v in stats.items()}
     metrics.log("bounce_histogram", spp=stats_spp, engine=cfg.engine, **stats)
     print(f"bounce histogram ({stats_spp} spp, per bounce): {stats}")
+
+
+def _orbit_cameras(acfg, device):
+    """The sweep's cameras: frame ``f`` on the circle of ``orbit_radius``
+    around ``target``, at ``orbit_height``, looking at ``target``."""
+    from ..ops.camera import Camera
+
+    cams = []
+    for f in range(acfg.frames):
+        ang = 2.0 * np.pi * f / acfg.frames
+        eye = (acfg.orbit_radius * np.sin(ang), acfg.orbit_height,
+               acfg.target[2] - acfg.orbit_radius * np.cos(ang))
+        cams.append(Camera.look_at(eye, acfg.target, device, fov_deg=acfg.render.fov_deg))
+    return cams
+
+
+def cmd_animate(args):
+    """Camera sweep: frame ``f`` at seed ``seed + f``, written as
+    ``frame_{f:04d}.bmp``. The device renders frame ``f + 1`` while the
+    host copies out and hands over frame ``f``: its copy goes into pinned
+    memory behind the render, and the host waits for that copy only after
+    it has queued the next render. The native writer encodes and writes on
+    its own threads; without it numpy encodes on this thread."""
+    from ..models.integrator import render_image_u8
+    from ..utils import bitmap, native
+    from ..utils.config import AnimationConfig, load
+    from ..utils.metrics import MetricsLogger, rays_per_render
+
+    acfg = load(args.config, AnimationConfig) if args.config else AnimationConfig()
+    cfg = acfg.render
+    for name in ("width", "height", "spp", "max_bounces", "scene", "engine"):
+        v = getattr(args, name)
+        if v is not None:
+            setattr(cfg, name, v)
+    if args.frames:
+        acfg.frames = args.frames
+    if args.out_dir:
+        acfg.out_dir = args.out_dir
+    cfg.engine = _ENGINE_ALIASES.get(cfg.engine, cfg.engine)
+    _check_ported(cfg)
+    device = _device(args.device)
+
+    scene = get_scene(cfg.scene, device)
+    cameras = _orbit_cameras(acfg, device)
+    out_dir = Path(acfg.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    metrics = MetricsLogger(args.metrics)
+    viewer = None
+    if args.live:
+        from ..utils.termview import TerminalViewer
+
+        viewer = TerminalViewer()
+    writer = native.AsyncBitmapWriter() if native.available() else None
+    writer_name = "native" if writer is not None else "numpy"
+    rays = rays_per_render(cfg.height, cfg.width, cfg.spp, cfg.max_bounces)
+    render = _renderer(cfg)
+    last = time.perf_counter()
+
+    def hand_over(f, host, copied):
+        """Wait for frame ``f``'s copy, give it to the writer, report the
+        time since the last frame was handed over."""
+        nonlocal last
+        if copied is not None:
+            copied.synchronize()
+        u8 = host.numpy()
+        path = out_dir / f"frame_{f:04d}.bmp"
+        if writer is not None:
+            writer.submit(path, u8, True)
+        else:
+            bitmap.write_bitmap(path, u8, y_inverted=True)
+        if viewer is not None:
+            viewer.show(u8, caption=f"frame {f + 1}/{acfg.frames}")
+        now = time.perf_counter()
+        dt, last = now - last, now
+        metrics.log("frame", frame=f, seconds=dt, rays_per_sec=rays / dt, writer=writer_name,
+                    engine=cfg.engine)
+        print(f"frame {f + 1}/{acfg.frames}  {dt:.3f}s  {rays / dt:.3e} rays/s  "
+              f"(writer {writer_name})")
+
+    t0 = time.perf_counter()
+    pending = None
+    for f, camera in enumerate(cameras):
+        u8 = render_image_u8(render(scene, camera, cfg.height, cfg.width, cfg.spp,
+                                    cfg.max_bounces, cfg.seed + f, jitter=cfg.jitter))
+        copied = None
+        if device.type == "cuda":
+            host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(u8, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+        else:
+            host = u8
+        if pending is not None:
+            hand_over(*pending)
+        pending = (f, host, copied)
+    if pending is not None:
+        hand_over(*pending)
+    if writer is not None:
+        writer.drain()
+    seconds = time.perf_counter() - t0
+    metrics.log("animate", frames=acfg.frames, seconds=seconds, writer=writer_name,
+                engine=cfg.engine, device=str(device))
+    print(f"wrote {acfg.frames} frames to {out_dir} in {seconds:.2f}s "
+          f"({cfg.engine} on {device}, writer {writer_name})")
 
 
 def _named_engine(args):
@@ -230,6 +386,12 @@ def cmd_fit(args):
             setattr(cfg, name, v)
     if args.steps:
         fcfg.steps = args.steps
+    if args.checkpoint_path:
+        fcfg.checkpoint_path = args.checkpoint_path
+    if args.checkpoint_every:
+        fcfg.checkpoint_every = args.checkpoint_every
+    if fcfg.checkpoint_path and not fcfg.checkpoint_every:
+        fcfg.checkpoint_every = max(1, fcfg.steps // 10)
     if args.tri_nee:
         cfg.tri_nee = True
     mode = args.mode or fcfg.mode or "materials"
@@ -252,7 +414,6 @@ def cmd_fit(args):
                 f"engine '{named}' belongs to the reference tier, which keeps "
                 f"{'geometry' if mode == 'geometry' else 'roughness'} detached by contract")
     _check_ported(cfg, _FIT_ENGINES)
-    _refuse_if_set(fcfg, ("checkpoint_every", "checkpoint_path"))
     device = _device(args.device)
     physical = cfg.engine in _FIT_PHYSICAL_ENGINES
 
@@ -277,7 +438,8 @@ def cmd_fit(args):
     if args.metrics:
         callback = lambda i, l: metrics.log("fit_step", step=i, loss=l, engine=cfg.engine)
     common = dict(steps=fcfg.steps, lr=fcfg.lr, seed0=cfg.seed, callback=callback,
-                  engine=cfg.engine)
+                  engine=cfg.engine, checkpoint_path=fcfg.checkpoint_path or None,
+                  checkpoint_every=fcfg.checkpoint_every)
     shape = (cfg.height, cfg.width, cfg.spp, cfg.max_bounces)
     mats = true_scene.materials
 
@@ -356,8 +518,43 @@ def build_parser():
                    help="log and print the per-bounce event histogram (hits, "
                         "misses, TIR deaths; light samples on the physical "
                         "engines) of a render at min(spp, 4)")
+    r.add_argument("--checkpoint-every", type=int, dest="checkpoint_every",
+                   help="render in chunks of this many spp, each folded into "
+                        "the accumulator (default: the config's, else one chunk)")
+    r.add_argument("--checkpoint-path", dest="checkpoint_path",
+                   help="save the accumulator here after every chunk; a render "
+                        "whose file exists resumes from it")
+    r.add_argument("--progressive", action="store_true",
+                   help="rewrite the output BMP with the mean so far after every "
+                        "chunk (chunks of spp/8 unless set)")
+    r.add_argument("--debug-nans", action="store_true", dest="debug_nans",
+                   help="raise FloatingPointError when a chunk's radiance is not "
+                        "finite, with the count, seed and engine: a check on the "
+                        "host after each chunk (the JAX package's jax_debug_nans, "
+                        "which re-runs the faulty operation, has no counterpart)")
+    r.add_argument("--live", action="store_true",
+                   help="draw the accumulating image in the terminal after every "
+                        "chunk (ANSI truecolor; chunks of spp/8 unless set)")
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     r.set_defaults(fn=cmd_render)
+
+    a = sub.add_parser("animate", help="camera sweep to frames/")
+    a.add_argument("--config", help="JSON animation config file (a render block, "
+                                     "frames, orbit_radius, orbit_height, target, out_dir)")
+    a.add_argument("--scene")
+    a.add_argument("--width", type=int)
+    a.add_argument("--height", type=int)
+    a.add_argument("--spp", type=int)
+    a.add_argument("--max-bounces", type=int, dest="max_bounces")
+    a.add_argument("--engine", choices=list(_ENGINES) + list(_ENGINE_ALIASES),
+                   help="as in render")
+    a.add_argument("--frames", type=int)
+    a.add_argument("--out-dir", dest="out_dir")
+    a.add_argument("--metrics", help="metrics JSONL output path")
+    a.add_argument("--live", action="store_true",
+                   help="draw each frame in the terminal as it is written")
+    a.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    a.set_defaults(fn=cmd_animate)
 
     f = sub.add_parser("fit", help="inverse rendering: recover materials, a "
                                    "light's position or roughness")
@@ -388,6 +585,12 @@ def build_parser():
                    help="physical engines: light-sample emissive triangles "
                         "too, in the target and in a geometry fit (default: "
                         "the config's)")
+    f.add_argument("--checkpoint-path", dest="checkpoint_path",
+                   help="save the fit's state (variables, Adam's state, step, "
+                        "losses) here; a fit whose file exists resumes from it, "
+                        "bit for bit")
+    f.add_argument("--checkpoint-every", type=int, dest="checkpoint_every",
+                   help="steps between saves (default: steps/10 when a path is set)")
     f.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     f.set_defaults(fn=cmd_fit)
     return p

@@ -17,6 +17,15 @@ tier's estimator stays differentiable:
 A fixed seed makes a render deterministic, so two engines' gradients are
 compared path for path, not statistically.
 
+The fits take ``checkpoint_path`` and ``checkpoint_every``: the variables,
+Adam's state, the step counter and the loss history (and the camera fit's
+best pose) are saved every ``checkpoint_every`` steps and at the last, and a
+fit whose file exists resumes from it (``utils/checkpoint.save_fit``). Step
+seeds are step-indexed, so a resumed fit equals the uninterrupted one bit
+for bit. The autograd engines run each sample under
+``torch.utils.checkpoint`` (``remat``), as the JAX package does, so their
+memory holds one sample's intermediates at a time.
+
 The physical tier (``models/physical.py``) does touch geometry, roughness
 and the camera continuously: its light samples carry cosine and
 solid-angle factors, and its lobe choice has a score function. The
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -57,6 +67,7 @@ from ..ops.render_physical import (
 )
 from ..ops.render_physical_grad import render_physical_kernel_vjp
 from ..scene.scene import Scene
+from ..utils import checkpoint as _ckpt
 
 __all__ = [
     "mse_loss",
@@ -118,10 +129,11 @@ def render_loss(
     elif engine == "physical":
         img = render_physical(
             scene, camera, height, width, spp, max_bounces, seed,
-            jitter=False, rough_grad=rough_grad)
+            jitter=False, rough_grad=rough_grad, remat=True)
+    elif engine == "core":
+        img = render_radiance(scene, camera, height, width, spp, max_bounces, seed, remat=True)
     else:
-        render = render_kernel_vjp if engine == "cuda" else render_radiance
-        img = render(scene, camera, height, width, spp, max_bounces, seed)
+        img = render_kernel_vjp(scene, camera, height, width, spp, max_bounces, seed)
     return mse_loss(img, target)
 
 
@@ -223,21 +235,92 @@ geometry_params_from_arrays = material_params_from_arrays
 geometry_params_to_arrays = material_params_to_arrays
 
 
-def _run_fit_loop(step_fn, steps, seed0, callback):
-    """The optimizer loop. Per-step seeds are step-indexed
-    (``seed0 + i + 1``), so a run resumed at step ``i`` replays the seeds an
-    uninterrupted run would have used. Losses stay on the device until the
-    end unless a callback wants each one, so the host does not wait for
-    the device every step."""
-    losses = []
-    for i in range(steps):
+# The state tensors of torch.optim.Adam, per variable, in the order saved.
+_ADAM_FIELDS = ("step", "exp_avg", "exp_avg_sq")
+
+
+def _adam(params: dict, lr: float) -> torch.optim.Adam:
+    """Adam as ``optax.adam`` updates: betas 0.9 and 0.999, eps 1e-8
+    outside the root."""
+    return torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _adam_state(opt: torch.optim.Adam, params: dict) -> dict:
+    """Adam's state, flat, as ``{"<variable>.<field>": tensor}``. A
+    variable that has had no step yet gets Adam's initial state (step 0,
+    zero moments), which is what its first step would create."""
+    state = opt.state_dict()["state"]
+    out = {}
+    for i, (name, p) in enumerate(params.items()):
+        st = state.get(i, {})
+        out[f"{name}.step"] = st.get("step", torch.tensor(0.0))
+        out[f"{name}.exp_avg"] = st.get("exp_avg", torch.zeros_like(p))
+        out[f"{name}.exp_avg_sq"] = st.get("exp_avg_sq", torch.zeros_like(p))
+    return out
+
+
+def _restore_adam(opt: torch.optim.Adam, params: dict, flat: dict) -> None:
+    sd = opt.state_dict()
+    sd["state"] = {i: {f: flat[f"{name}.{f}"] for f in _ADAM_FIELDS}
+                   for i, name in enumerate(params)}
+    opt.load_state_dict(sd)
+
+
+def _adam_step(opt: torch.optim.Adam, loss_fn):
+    """One optimizer step as ``step(seed) -> loss``: ``opt`` (``_adam``) on
+    the gradient of ``loss_fn(seed)`` with respect to its variables."""
+
+    def step(seed):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(seed)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def _run_fit_loop(step_fn, steps, seed0, callback, params, opt, checkpoint_path=None,
+                  checkpoint_every: int = 0, state: dict | None = None):
+    """The optimizer loop. Per-step seeds are step-indexed (``seed0 + i +
+    1``), so a run resumed at step ``i`` replays the seeds an uninterrupted
+    run would have used. ``params`` are ``opt``'s variables; ``state``
+    holds further tensors that ``step_fn`` reads and replaces (by key) and
+    the checkpoint carries. With ``checkpoint_path`` and
+    ``checkpoint_every``, every ``checkpoint_every``-th and the last step
+    save the variables, ``state``, Adam's state and the losses; an existing
+    file is resumed from, and one that is complete runs no step. Losses
+    stay on the device until a save or the end unless a callback wants each
+    one, so the host does not wait for the device every step."""
+    state = {} if state is None else state
+    start, losses, pending = 0, [], []
+    if checkpoint_path and Path(checkpoint_path).exists():
+        start, saved, saved_opt, losses = _ckpt.load_fit(
+            checkpoint_path, {**params, **state}, _adam_state(opt, params))
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(saved[name])
+        state.update({k: saved[k] for k in state})
+        _restore_adam(opt, params, saved_opt)
+
+    def flush():
+        if pending:
+            losses.extend(torch.stack(pending).tolist())
+            pending.clear()
+
+    for i in range(start, steps):
         loss = step_fn((seed0 + i + 1) & 0xFFFFFFFF)
         if callback is not None:
-            loss = float(loss)
-            callback(i, loss)
-        losses.append(loss)
-    if losses and callback is None:
-        losses = torch.stack(losses).tolist()
+            losses.append(float(loss))
+            callback(i, losses[-1])
+        else:
+            pending.append(loss)
+        if checkpoint_path and checkpoint_every and (
+                (i + 1) % checkpoint_every == 0 or i + 1 == steps):
+            flush()
+            _ckpt.save_fit(checkpoint_path, i + 1, {**params, **state},
+                           _adam_state(opt, params), losses)
+    flush()
     return losses
 
 
@@ -256,6 +339,8 @@ def fit_materials(
     engine: str = "auto",
     params: dict | None = None,
     rough_grad: bool = False,
+    checkpoint_path=None,
+    checkpoint_every: int = 0,
 ):
     """Recover albedo and emission from a target image.
 
@@ -269,8 +354,9 @@ def fit_materials(
     roughness, by the score-function estimator (physical engines only; the
     kernel engine emits it as three more Jacobian planes per material). That
     term has more variance than the smooth material gradients, so prefer
-    more spp or a lower ``lr`` where roughness dominates. Returns ``(scene,
-    losses)``.
+    more spp or a lower ``lr`` where roughness dominates.
+    ``checkpoint_path`` and ``checkpoint_every``: see ``_run_fit_loop``.
+    Returns ``(scene, losses)``.
     """
     engine = _resolve_engine(engine)
     if rough_grad and engine not in _PHYSICAL:
@@ -284,26 +370,12 @@ def fit_materials(
             apply_material_params(scene_init, params), target, camera, height,
             width, spp, max_bounces, seed, engine=engine, rough_grad=rough_grad)
 
-    losses = _run_fit_loop(_adam_step(params, lr, loss_fn), steps, seed0, callback)
+    opt = _adam(params, lr)
+    losses = _run_fit_loop(_adam_step(opt, loss_fn), steps, seed0, callback, params,
+                           opt, checkpoint_path, checkpoint_every)
     with torch.no_grad():
         fitted = apply_material_params(scene_init, params)
     return fitted, losses
-
-
-def _adam_step(params: dict, lr: float, loss_fn):
-    """One optimizer step as ``step(seed) -> loss``: Adam as ``optax.adam``
-    updates (betas 0.9 and 0.999, eps 1e-8 outside the root) on the
-    gradient of ``loss_fn(seed)`` with respect to ``params``."""
-    opt = torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-
-    def step(seed):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(seed)
-        loss.backward()
-        opt.step()
-        return loss.detach()
-
-    return step
 
 
 # -- geometry recovery (physical tier) ---------------------------------------
@@ -375,6 +447,8 @@ def fit_geometry(
     triangle_indices=(),
     tri_nee: bool | None = None,
     params: dict | None = None,
+    checkpoint_path=None,
+    checkpoint_every: int = 0,
 ):
     """Recover geometry (sphere centre and radius, triangle vertices, or
     both) from a target image, on the physical tier, without jitter.
@@ -391,7 +465,8 @@ def fit_geometry(
     True when triangles are fitted (their chain only exists in the
     ``tri_nee`` estimator). ``params`` starts the fit from given variables
     (as ``make_geometry_params`` makes them). Gradients are interior ones in
-    both engines: silhouettes are not modelled. Returns ``(scene, losses)``.
+    both engines: silhouettes are not modelled. ``checkpoint_path`` and
+    ``checkpoint_every``: see ``_run_fit_loop``. Returns ``(scene, losses)``.
     """
     engine = _resolve_engine(engine)
     if engine not in _PHYSICAL:
@@ -431,10 +506,12 @@ def fit_geometry(
                 n_em_cap=n_em_cap, tri_nee=tri_nee, tri_em_cap=tri_em_cap)
         else:
             img = render_physical(scene, camera, height, width, spp, max_bounces, seed,
-                                  nee=True, jitter=False, tri_nee=tri_nee)
+                                  nee=True, jitter=False, tri_nee=tri_nee, remat=True)
         return mse_loss(img, target)
 
-    losses = _run_fit_loop(_adam_step(params, lr, loss_fn), steps, seed0, callback)
+    opt = _adam(params, lr)
+    losses = _run_fit_loop(_adam_step(opt, loss_fn), steps, seed0, callback, params,
+                           opt, checkpoint_path, checkpoint_every)
     with torch.no_grad():
         fitted = apply_geometry_params(scene_init, params, sphere_indices, triangle_indices)
     return fitted, losses
@@ -461,6 +538,8 @@ def fit_camera(
     engine: str = "physical",
     fd_eps: float = 1e-3,
     fov_deg: float | None = None,
+    checkpoint_path=None,
+    checkpoint_every: int = 0,
 ):
     """Recover the camera's pose (origin and look-at target, 6 scalars)
     from a target image, on the physical tier, without jitter.
@@ -474,8 +553,10 @@ def fit_camera(
     that silently does not move must not be constructible. The field of view
     and the up hint come from ``camera_init`` unless ``fov_deg`` is given.
     The pose landscape is steep and narrow, and Adam overshoots: the pose
-    with the least loss seen is returned, not the last. Returns ``(camera,
-    losses)``.
+    with the least loss seen is returned, not the last; it rides in the
+    checkpoint (``checkpoint_path`` and ``checkpoint_every``, see
+    ``_run_fit_loop``), so a resumed or already complete fit returns it too.
+    Returns ``(camera, losses)``.
     """
     if engine == "physical_pallas":
         raise ValueError(
@@ -502,7 +583,7 @@ def fit_camera(
     if engine == "physical":
         def loss_fn(seed):
             img = render_physical(scene, cam_of(params["origin"], params["target"]), height,
-                                  width, spp, max_bounces, seed, jitter=False)
+                                  width, spp, max_bounces, seed, jitter=False, remat=True)
             return mse_loss(img, target)
     else:
         def loss_val(flat, seed):
@@ -526,20 +607,22 @@ def fit_camera(
             both = torch.cat([params["origin"], params["target"]])
             return base + torch.sum((both - both.detach()) * grad)
 
-    adam = _adam_step(params, lr, loss_fn)
+    opt = _adam(params, lr)
+    adam = _adam_step(opt, loss_fn)
     # The least loss seen and the pose that gave it, kept on the device.
-    best = {"loss": torch.full((), float("inf"), device=dev),
-            "pose": {k: v.detach().clone() for k, v in params.items()}}
+    best = {f"best.{k}": v.detach().clone() for k, v in params.items()}
+    best["best_loss"] = torch.full((), float("inf"), device=dev)
 
     def step(seed):
         pose = {k: v.detach().clone() for k, v in params.items()}
         loss = adam(seed)
-        better = loss < best["loss"]
-        best["pose"] = {k: torch.where(better, pose[k], best["pose"][k]) for k in pose}
-        best["loss"] = torch.minimum(best["loss"], loss)
+        better = loss < best["best_loss"]
+        for k in pose:
+            best[f"best.{k}"] = torch.where(better, pose[k], best[f"best.{k}"])
+        best["best_loss"] = torch.minimum(best["best_loss"], loss)
         return loss
 
-    losses = _run_fit_loop(step, steps, seed0, callback)
-    pose = best["pose"]
+    losses = _run_fit_loop(step, steps, seed0, callback, params, opt, checkpoint_path,
+                           checkpoint_every, state=best)
     with torch.no_grad():
-        return cam_of(pose["origin"], pose["target"]), losses
+        return cam_of(best["best.origin"], best["best.target"]), losses

@@ -13,12 +13,18 @@ Exactly 3 PCG draws per ray per bounce (2 for the unit sphere, 1 for the
 branch), drawn unconditionally, so this path, the JAX package and the
 CUDA kernel (``ops/render_kernel.py``) consume the same streams.
 
+``variant="cpu"`` is the reference's CPU tier instead: the biased cube
+sampler (3 draws for the sphere, so 4 a bounce), the normal perturbed by
+half the roughness, every refractive index 1.5, and each sample's radiance
+clamped to [0, 1]. It exists here only, not in the kernel.
+
 This is the eager spec; the main path's speed comes from the hand kernel.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import rng as _rng
 from ..ops.camera import Camera, pixel_indices, primary_rays
@@ -43,7 +49,8 @@ EPS_OFFSET_SCALE = _f32(4e-6)  # extra offset per unit |hit point|
 
 
 def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
-                count_rounds: bool = False, collect_stats: bool = False):
+                count_rounds: bool = False, collect_stats: bool = False,
+                variant: str = "gpu"):
     """Incident radiance for a batch of rays.
 
     ``origins``/``directions`` are (N, 3) (unit directions), ``state`` the
@@ -60,7 +67,13 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
     sky. Every random decision is detached: the branch compares against
     ``transparency.detach()``, and the ratio factor below re-attaches its
     derivative.
+
+    ``variant``: ``"gpu"`` (the reference's shader) or ``"cpu"`` (its CPU
+    tier, see the module docstring).
     """
+    if variant not in ("gpu", "cpu"):
+        raise ValueError(f"unknown variant {variant!r}")
+    cpu_tier = variant == "cpu"
     n = origins.shape[0]
     sky = scene.sky_color[None, :]
     mats = scene.materials
@@ -87,11 +100,14 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
         rough = mats.roughness[m]
         transp = mats.transparency[m]
         ior = mats.refractive_index[m]
+        if cpu_tier:
+            rough = rough * 0.5
+            ior = torch.full_like(ior, 1.5)
 
         total = total + torch.where(live, thr * emission, 0.0)
         thr = torch.where(live, thr * albedo, thr)
 
-        st, sph = _rng.unit_sphere(st)
+        st, sph = (_rng.unit_sphere_biased if cpu_tier else _rng.unit_sphere)(st)
         st, u_branch = _rng.uniform(st)
 
         nrm = perturb_normal(hit.normal, sph, rough)
@@ -140,6 +156,8 @@ def trace_paths(scene: Scene, origins, directions, state, max_bounces: int,
                 stats[key].append(mask.sum())
 
     total = total + torch.where(alive[:, None], thr * sky, 0.0)
+    if cpu_tier:
+        total = torch.clamp(total, 0.0, 1.0)
     out = (total, st) + ((rounds,) if count_rounds else ())
     if collect_stats:
         out += ({k: torch.stack(v) for k, v in stats.items()},)
@@ -156,6 +174,8 @@ def render_tile(
     seed,
     jitter: bool = False,
     sample_offset: int = 0,
+    remat: bool = False,
+    variant: str = "gpu",
 ):
     """Monte-Carlo radiance, (H, W, 3) float32 mean over ``spp`` samples.
 
@@ -163,6 +183,11 @@ def render_tile(
     streams key on global pixel and sample indices; ``sample_offset``
     shifts the sample indices, so a render split into sample ranges sums
     to the unsplit one.
+
+    ``remat=True`` runs each sample under ``torch.utils.checkpoint``:
+    backward recomputes the sample's bounces instead of keeping their
+    intermediates, so autograd's memory holds one sample's at a time. The
+    values and gradients do not change. ``variant``: see ``trace_paths``.
     """
     device = scene.device
     if camera.device != device:
@@ -170,13 +195,18 @@ def render_tile(
     pix = pixel_indices(height, width, device)
     rays = primary_rays(camera, height, width)
     accum = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
-    for s in range(spp):
+
+    def one_sample(s):
         st = _rng.seed_state(pix, s + sample_offset, seed)
         if jitter:
             o, d, st = primary_rays(camera, height, width, st)
         else:
             o, d = rays
-        radiance, _ = trace_paths(scene, o, d, st, max_bounces)
+        return trace_paths(scene, o, d, st, max_bounces, variant=variant)[0]
+
+    for s in range(spp):
+        radiance = (checkpoint(one_sample, s, use_reentrant=False) if remat
+                    else one_sample(s))
         accum = accum + radiance
     return (accum / spp).reshape(height, width, 3)
 
@@ -191,11 +221,14 @@ def render_radiance(
     seed,
     jitter: bool = False,
     sample_offset: int = 0,
+    remat: bool = False,
+    variant: str = "gpu",
 ):
-    """Full-image radiance, (H, W, 3) float32, on the scene's device."""
+    """Full-image radiance, (H, W, 3) float32, on the scene's device; see
+    ``render_tile``."""
     return render_tile(
         scene, camera, height, width, spp, max_bounces, seed,
-        jitter=jitter, sample_offset=sample_offset,
+        jitter=jitter, sample_offset=sample_offset, remat=remat, variant=variant,
     )
 
 

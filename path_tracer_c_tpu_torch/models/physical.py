@@ -39,6 +39,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import rng as _rng
 from ..ops.camera import Camera, pixel_indices, primary_rays
@@ -58,7 +59,7 @@ _VIS_SLACK = _f32(1e-4)
 # Arguments of the JAX functions that wait for a later ROADMAP.md item.
 _NOT_PORTED = {
     "row_start": "A8 (row blocks)", "rows": "A8 (row blocks)",
-    "remat": "A12", "vma_axes": "A11 (parallel layer)",
+    "vma_axes": "A11 (parallel layer)",
 }
 _STAT_KEYS = ("hits", "misses", "tir_deaths")
 _NEE_STAT_KEYS = ("nee_candidates", "nee_visible")
@@ -375,12 +376,16 @@ def render_physical(
     rough_grad: bool = False,
     tri_nee: bool = False,
     count_rounds: bool = False,
+    remat: bool = False,
     **unported,
 ):
     """Physical-tier radiance image (H, W, 3) float32 on the scene's device,
     the mean over ``spp`` samples. Anti-aliasing jitter is on by default,
     unlike the reference tier. With ``count_rounds`` returns ``(image,
-    rounds)``, see ``trace_paths_physical``."""
+    rounds)``, see ``trace_paths_physical``. ``remat=True`` runs each
+    sample under ``torch.utils.checkpoint``, as
+    ``models.integrator.render_tile`` does: backward recomputes it, and no
+    value or gradient changes."""
     _refuse(unported)
     device = scene.device
     if camera.device != device:
@@ -389,16 +394,20 @@ def render_physical(
     rays = primary_rays(camera, height, width)
     accum = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
     rounds = 0
-    for s in range(spp):
+
+    def one_sample(s):
         st = _rng.seed_state(pix, s + sample_offset, seed)
         if jitter:
             o, d, st = primary_rays(camera, height, width, st)
         else:
             o, d = rays
-        out = trace_paths_physical(
+        return trace_paths_physical(
             scene, o, d, st, max_bounces, nee=nee, rough_grad=rough_grad,
             tri_nee=tri_nee, count_rounds=count_rounds,
         )
+
+    for s in range(spp):
+        out = checkpoint(one_sample, s, use_reentrant=False) if remat else one_sample(s)
         accum = accum + out[0]
         if count_rounds:
             rounds += int(out[2])

@@ -1,13 +1,13 @@
 """Render configuration as data, JSON-compatible with the JAX package.
 
 ``load`` reads the JAX package's config files (``configs/*.json``): a
-render config, or with ``cls=FitConfig`` a fit config, whose ``render``
-block is a render config. Keys
-this package does not know, such as the TPU tile sizes, are ignored, as
-the JAX loader ignores them. The fields for features not ported yet
-(``mesh``, checkpointing, progressive output, ``debug_nans``) are kept so
-that the CLI can refuse a config that sets them, instead of silently
-rendering something else.
+render config, or with ``cls=FitConfig`` a fit config and with
+``cls=AnimationConfig`` a camera sweep's, whose ``render`` block is a
+render config. Keys this package does not know, such as the TPU tile
+sizes, are ignored, as the JAX loader ignores them; ``save`` writes every
+field, nested blocks included. The one field for a feature not ported yet,
+a multi-device ``mesh``, is kept so that the CLI can refuse a config that
+sets it, instead of silently rendering something else.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import json
 from dataclasses import dataclass, field
 from pathlib import Path
 
-__all__ = ["RenderConfig", "MeshConfig", "FitConfig", "load"]
+__all__ = ["RenderConfig", "MeshConfig", "FitConfig", "AnimationConfig", "load", "save"]
 
 
 @dataclass
@@ -50,10 +50,10 @@ class RenderConfig:
     engine: str = "cuda"
     output: str = "output.bmp"
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    checkpoint_every: int = 0
-    checkpoint_path: str = ""
-    debug_nans: bool = False
-    progressive: bool = False
+    checkpoint_every: int = 0  # spp a chunk; 0: one chunk
+    checkpoint_path: str = ""  # resumes from the file where it exists
+    debug_nans: bool = False  # raise on non-finite radiance in a chunk
+    progressive: bool = False  # rewrite the output after every chunk
     tri_nee: bool = False  # physical engines: light-sample emissive triangles too
 
 
@@ -65,9 +65,22 @@ class FitConfig:
     steps: int = 200
     lr: float = 0.05
     target: str = ""  # target image path (npy), or empty to render one
-    checkpoint_every: int = 0
-    checkpoint_path: str = ""
+    checkpoint_every: int = 0  # steps between fit checkpoints; 0: none
+    checkpoint_path: str = ""  # resumes from the file where it exists
     mode: str = "materials"  # materials | geometry | roughness; the CLI's --mode overrides
+
+
+@dataclass
+class AnimationConfig:
+    """Camera sweep: ``frames`` renders on a circle of ``orbit_radius`` at
+    ``orbit_height``, each looking at ``target``."""
+
+    render: RenderConfig = field(default_factory=RenderConfig)
+    frames: int = 48
+    orbit_radius: float = 8.0
+    orbit_height: float = 1.5
+    target: tuple = (0.0, 0.0, 6.0)
+    out_dir: str = "frames"
 
 
 _NESTED = {"mesh": MeshConfig, "render": RenderConfig}
@@ -81,6 +94,8 @@ def _from_dict(cls, d: dict):
         v = d[f.name]
         if f.name in _NESTED and isinstance(v, dict):
             v = _from_dict(_NESTED[f.name], v)
+        elif f.name == "target" and isinstance(v, list):  # the sweep's look-at point
+            v = tuple(v)
         kwargs[f.name] = v
     return cls(**kwargs)
 
@@ -88,3 +103,9 @@ def _from_dict(cls, d: dict):
 def load(path, cls=RenderConfig):
     """A ``RenderConfig`` (or ``cls``) from a JSON file."""
     return _from_dict(cls, json.loads(Path(path).read_text()))
+
+
+def save(cfg, path) -> None:
+    """Write a config as JSON, nested blocks included; ``load(path,
+    type(cfg))`` reads it back equal."""
+    Path(path).write_text(json.dumps(dataclasses.asdict(cfg), indent=2) + "\n")

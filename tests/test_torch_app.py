@@ -71,16 +71,26 @@ def test_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("settings, item", [
     (None, "geometry fit (physical): 1 steps in "),  # fit --mode geometry
     ({"mesh": {"tile": 4, "spp": 2}}, "A11"),
-    ({"checkpoint_every": 2}, "A12"),
+    ({"checkpoint_every": 2, "spp": 4}, "spp 4/4 "),  # a chunked render
     ({"tri_nee": True}, "fit: 1 steps in "),  # in a fit of the reference tier: ignored
 ])
 def test_unported_settings_name_the_roadmap_item(tmp_path, capsys, settings, item):
     """The render settings still to be ported are refused by ROADMAP item.
     The physical tier renders and, since its gradient was ported, fits:
     `fit --mode geometry` and `tri_nee` in a fit run and print their
-    result line."""
+    result line. ``checkpoint_every``, refused until chunked renders were
+    ported, renders in chunks and prints a line per chunk."""
     cfg = tmp_path / "c.json"
     render = {"width": 8, "height": 8, "spp": 1, **(settings or {})}
+    if item.startswith("spp "):
+        cfg.write_text(json.dumps(render))
+        app.main(["render", "--device", "cpu", "--config", str(cfg),
+                  "--out", str(tmp_path / "x.bmp")])
+        lines = capsys.readouterr().out.splitlines()
+        assert [l.split()[1] for l in lines if l.startswith("spp ") and "/" in l.split()[1]] == [
+            "2/4", "4/4"]
+        assert len((tmp_path / "x.bmp").read_bytes()) == 54 + 8 * 8 * 3
+        return
     if item.startswith("A"):
         cfg.write_text(json.dumps(render))
         with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
@@ -113,7 +123,9 @@ def test_port_does_not_import_jax():
             "path_tracer_c_tpu_torch.ops.render_physical_grad, "
             "path_tracer_c_tpu_torch.grad.diff, path_tracer_c_tpu_torch.utils.config, "
             "path_tracer_c_tpu_torch.utils.flops, path_tracer_c_tpu_torch.utils.profiling, "
-            "path_tracer_c_tpu_torch.utils.sol_decompose, path_tracer_c_tpu_torch.ops.sol_probes; "
+            "path_tracer_c_tpu_torch.utils.sol_decompose, path_tracer_c_tpu_torch.ops.sol_probes, "
+            "path_tracer_c_tpu_torch.utils.checkpoint, path_tracer_c_tpu_torch.utils.native, "
+            "path_tracer_c_tpu_torch.utils.termview; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'path_tracer_c_tpu' not in sys.modules, 'the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)

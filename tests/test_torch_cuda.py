@@ -595,3 +595,168 @@ def test_tables_above_the_shared_budget_are_read_from_device_memory(cuda_device)
                            rk.render_kernel_reference(*args))
         assert torch.equal(rp.render_physical_kernel_variant(*args, variant, **kw),
                            rp.render_physical_kernel_reference(*args, **kw))
+
+
+# -- the long runs: chunked and resumed renders, the sweep, resumed fits -------
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def _render_argv(out, engine, path=None):
+    argv = ["render", "--scene", "glossy", "--engine", engine, "--width", "96", "--height",
+            "64", "--spp", "4", "--max-bounces", "4", "--seed", "3", "--checkpoint-every", "1",
+            "--out", str(out)]
+    return argv + (["--checkpoint-path", str(path)] if path else [])
+
+
+@pytest.mark.parametrize("engine, kernel", [("cuda", rk.render_kernel),
+                                            ("physical", rp.render_physical_kernel)])
+def test_resumed_render_equals_uninterrupted_on_the_card(cuda_device, tmp_path, monkeypatch,
+                                                         engine, kernel):
+    """Chunks of 1 spp through the kernel, interrupted after the second
+    save and resumed: the bytes of the uninterrupted chunked render."""
+    from path_tracer_c_tpu_torch.app import main as app
+    from path_tracer_c_tpu_torch.utils import checkpoint as ck
+
+    ref, out, path = tmp_path / "ref.bmp", tmp_path / "out.bmp", tmp_path / "r.npz"
+    launches = kernel.launches
+    app.main(_render_argv(ref, engine))
+    assert kernel.launches == launches + 4
+    real_save = ck.save_render
+    saves = []
+
+    def save_then_stop(p, c):
+        real_save(p, c)
+        saves.append(c.spp_done)
+        if len(saves) == 2:
+            raise _Interrupt
+
+    monkeypatch.setattr(ck, "save_render", save_then_stop)
+    with pytest.raises(_Interrupt):
+        app.main(_render_argv(out, engine, path))
+    monkeypatch.setattr(ck, "save_render", real_save)
+    app.main(_render_argv(out, engine, path))
+    assert out.read_bytes() == ref.read_bytes()
+    assert kernel.launches == launches + 8
+
+
+@pytest.mark.parametrize("spp, offset", [(1, 0), (1, 5), (1, 2**31 - 2), (3, 2**31 - 4)])
+def test_forward_kernels_at_chunk_offsets(cuda_device, spp, offset):
+    """A chunk of one sample under path regeneration, and the last sample
+    offsets the launchers take (``sample_offset < 2**31 - spp``): B1 and B3
+    equal their twins bit for bit."""
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    for kernel, twin in ((rk.render_kernel, rk.render_kernel_reference),
+                         (rp.render_physical_kernel, rp.render_physical_kernel_reference)):
+        args = (scene, cam, 37, 45, spp, 4, 9)
+        assert torch.equal(kernel(*args, sample_offset=offset), twin(*args, sample_offset=offset))
+    with pytest.raises(ValueError):
+        rk.render_kernel(scene, cam, 8, 8, spp, 1, 0, sample_offset=2**31 - spp)
+
+
+def test_debug_nans_through_the_kernel(cuda_device, tmp_path):
+    from path_tracer_c_tpu_torch.app import main as app
+    from path_tracer_c_tpu_torch.scene.io import save_scene
+
+    scene = pdemo.diffuse_sphere_scene("cpu")
+    bad = dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, emission_strength=torch.full_like(scene.materials.emission_strength,
+                                                            float("nan"))))
+    save_scene(tmp_path / "nan.json", bad)
+    launches = rk.render_kernel.launches
+    with pytest.raises(FloatingPointError, match="engine cuda"):
+        app.main(["render", "--scene", str(tmp_path / "nan.json"), "--width", "32", "--height",
+                  "16", "--spp", "1", "--max-bounces", "1", "--debug-nans",
+                  "--out", str(tmp_path / "nan.bmp")])
+    assert rk.render_kernel.launches == launches + 1
+
+
+def test_animate_on_the_card(cuda_device, tmp_path):
+    """3 frames through the kernel, written by the native writer where it
+    builds: frame f is the kernel's render at camera f, seed f."""
+    import json
+
+    from path_tracer_c_tpu_torch.app import main as app
+    from path_tracer_c_tpu_torch.utils import bitmap, native
+    from path_tracer_c_tpu_torch.utils.config import AnimationConfig
+
+    launches = rk.render_kernel.launches
+    app.main(["animate", "--scene", "demo", "--width", "48", "--height", "32", "--spp", "4",
+              "--max-bounces", "3", "--frames", "3", "--out-dir", str(tmp_path / "fr"),
+              "--metrics", str(tmp_path / "m.jsonl")])
+    assert rk.render_kernel.launches == launches + 3
+    recs = [json.loads(line) for line in (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert recs[-1]["writer"] == ("native" if native.available() else "numpy")
+    scene = pdemo.demo_scene(cuda_device)
+    for f, cam in enumerate(app._orbit_cameras(AnimationConfig(frames=3), cuda_device)):
+        img = rk.render_kernel(scene, cam, 32, 48, 4, 3, f)
+        data = (tmp_path / "fr" / f"frame_{f:04d}.bmp").read_bytes()
+        assert data == bitmap.bitmap_bytes(P.render_image_u8(img).cpu().numpy())
+
+
+def _fit_case(kind, device):
+    from path_tracer_c_tpu_torch.grad import diff
+
+    cam = P.Camera.reference(device)
+    if kind == "materials":
+        scene = pdemo.random_spheres_scene(device)
+        target = rk.render_kernel(scene, cam, 32, 32, 2, 3, 12345)
+        init = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials, albedo=torch.full_like(scene.materials.albedo, 0.5)))
+        return lambda steps, path: diff.fit_materials(
+            init, target, cam, 32, 32, 2, 3, steps=steps, engine="cuda",
+            checkpoint_path=path, checkpoint_every=2)
+    scene = pdemo.cornell_spheres_scene(device)
+    target = rp.render_physical_kernel(scene, cam, 32, 32, 4, 3, 1, jitter=False)
+    li = int(rp.live_emitter_mask(scene).argmax())
+    center = scene.spheres.center.clone()
+    center[li] += torch.tensor([0.2, -0.1, 0.1], device=device)
+    init = dataclasses.replace(scene, spheres=dataclasses.replace(scene.spheres, center=center))
+    return lambda steps, path: diff.fit_geometry(
+        init, target, cam, 32, 32, 4, 3, sphere_indices=(li,), steps=steps,
+        engine="physical_pallas", checkpoint_path=path, checkpoint_every=2)
+
+
+@pytest.mark.parametrize("kind, kernel", [("materials", rg.render_fused),
+                                          ("geometry", pg.render_physical_fused)])
+def test_resumed_fit_equals_uninterrupted_on_the_card(cuda_device, tmp_path, kind, kernel):
+    """2 steps, then a resume to 4, through the fused kernel: parameters and
+    losses bit for bit those of 4 uninterrupted steps."""
+    fit = _fit_case(kind, cuda_device)
+    launches = kernel.launches
+    ref, ref_losses = fit(4, None)
+    fit(2, tmp_path / "f.npz")
+    got, losses = fit(4, tmp_path / "f.npz")
+    assert kernel.launches == launches + 8
+    assert losses == ref_losses
+    for table in ("materials", "spheres"):
+        for a, b in zip(dataclasses.astuple(getattr(got, table)),
+                        dataclasses.astuple(getattr(ref, table))):
+            assert torch.equal(a, b)
+
+
+def test_remat_lowers_peak_memory(cuda_device, monkeypatch):
+    """``loss_and_grad(engine="core")`` (every float leaf differentiated,
+    each sample recomputed in backward) holds less memory at its peak than
+    the same call with the recomputation turned off, and its gradient is
+    the same."""
+    from path_tracer_c_tpu_torch.grad import diff
+
+    scene, cam = pdemo.random_spheres_scene(cuda_device), P.Camera.reference(cuda_device)
+    target = rk.render_kernel(scene, cam, 64, 64, 4, 3, 12345)
+    real = diff.render_radiance
+    peaks, grads = {}, {}
+    for remat in (True, False):
+        if not remat:
+            monkeypatch.setattr(diff, "render_radiance",
+                                lambda *a, remat, **k: real(*a, remat=False, **k))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, d_scene = diff.loss_and_grad(scene, target, cam, 64, 64, 4, 3, 1, engine="core")
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        grads[remat] = d_scene.materials.albedo
+    assert peaks[True] < peaks[False]
+    assert torch.equal(grads[True], grads[False])

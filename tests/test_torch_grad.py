@@ -205,15 +205,18 @@ def test_fit_cli_reads_a_target_file_and_steps_override(tmp_path, capsys):
     (["--engine", "physical"], None, {}, "fit: 4 steps in "),
     ([], {"engine": "physical_pallas"}, {}, "fit: 4 steps in "),
     ([], {"mesh": {"tile": 2, "spp": 1}}, {}, "A11"),
-    ([], None, {"checkpoint_path": "fit.ckpt"}, "A12"),
-    ([], None, {"checkpoint_every": 5}, "A12"),
+    ([], None, {"checkpoint_path": "fit.ckpt"}, "fit: 4 steps in "),
+    ([], None, {"checkpoint_every": 5}, "fit: 4 steps in "),
 ])
 def test_fit_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, render, top, item):
     """What is still to be ported is refused by ROADMAP item; the physical
-    tier's modes and engines, refused until its gradient was ported, run
-    and print their result line."""
+    tier's modes and engines, refused until its gradient was ported, and
+    the fit's checkpoints, refused until they were ported, run and print
+    their result line (a checkpoint path also leaves its file, at step 4)."""
+    if "checkpoint_path" in top:
+        top = {**top, "checkpoint_path": str(tmp_path / top["checkpoint_path"])}
     argv = ["fit", "--device", "cpu", "--config", fit_config(tmp_path, render, **top)] + argv
-    if item in ("A11", "A12"):
+    if item == "A11":
         with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
             app.main(argv)
         return
@@ -222,6 +225,9 @@ def test_fit_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, render, top,
     assert line.startswith(item), line
     m = re.search(r"loss ([\d.e+-]+) -> ([\d.e+-]+), max [a-z -]+ err ([\d.]+)$", line)
     assert m and all(np.isfinite(float(x)) for x in m.groups()), line
+    if "checkpoint_path" in top:
+        with np.load(top["checkpoint_path"]) as z:
+            assert int(z["step"]) == 4 and len(z["losses"]) == 4
 
 
 def test_fit_cli_device_cuda_without_a_card_raises(tmp_path, monkeypatch):

@@ -89,3 +89,43 @@ def test_render_image_u8_matches_jax():
     p = pint.render_image_u8(torch.from_numpy(x))
     assert p.dtype == torch.uint8
     np.testing.assert_array_equal(p.numpy(), j)
+
+
+@pytest.mark.parametrize("name, h, w, spp, bounces, seed, jitter, offset", [
+    ("demo_scene", 16, 32, 2, 3, 5, False, 0),
+    ("cornell_spheres_scene", 16, 32, 2, 3, 9, True, 3),
+])
+def test_cpu_variant_matches_jax(name, h, w, spp, bounces, seed, jitter, offset):
+    """The reference's CPU tier (biased cube sampler, half roughness, IOR
+    1.5, per-sample clamp) against the JAX package's ``variant="cpu"``."""
+    j = jint.render_radiance(
+        getattr(jdemo, name)(), J.Camera.reference(), h, w, spp, bounces,
+        jnp.uint32(seed), jitter=jitter, sample_offset=offset, variant="cpu")
+    t = pint.render_radiance(
+        getattr(pdemo, name)("cpu"), P.Camera.reference("cpu"), h, w, spp, bounces, seed,
+        jitter=jitter, sample_offset=offset, variant="cpu")
+    assert_close(j, t)
+    assert float(t.max()) <= 1.0 and float(t.min()) >= 0.0
+    gpu = pint.render_radiance(getattr(pdemo, name)("cpu"), P.Camera.reference("cpu"), h, w,
+                               spp, bounces, seed, jitter=jitter, sample_offset=offset)
+    assert not torch.equal(gpu, t)
+    with pytest.raises(ValueError):
+        pint.render_radiance(pdemo.demo_scene("cpu"), P.Camera.reference("cpu"), 2, 2, 1, 1, 0,
+                             variant="tpu")
+
+
+def test_remat_gradients_equal_without():
+    """``remat=True`` recomputes each sample in backward: the image and the
+    gradient of every material leaf and the sky are those without it."""
+    from path_tracer_c_tpu_torch.ops.render_grad import _grad_leaves, _with_leaves
+
+    scene, cam = pdemo.demo_scene("cpu"), P.Camera.reference("cpu")
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal((16, 32, 3)).astype(np.float32))
+    out = {}
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_() for t in _grad_leaves(scene)]
+        img = pint.render_radiance(_with_leaves(scene, leaves), cam, 16, 32, 3, 3, 7,
+                                   jitter=True, remat=remat)
+        out[remat] = (img.detach(),) + torch.autograd.grad(img, leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(out[False], out[True]))
+    assert any(bool(x.any()) for x in out[True][1:])

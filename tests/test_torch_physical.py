@@ -155,8 +155,20 @@ def test_tri_nee_reduces_variance_and_keeps_the_mean():
 def test_unported_arguments_are_refused_by_name(name):
     """Arguments still to be ported are refused with their ROADMAP item.
     ``collect_stats`` is ported: ``trace_paths_physical`` takes it, and
-    ``render_physical``, like the JAX function, has no such argument."""
+    ``render_physical``, like the JAX function, has no such argument.
+    ``remat`` is ported: the image and the gradient do not change."""
     pscene = carry(jdemo.diffuse_sphere_scene())
+    if name == "remat":
+        out = {}
+        for remat in (False, True):
+            albedo = pscene.materials.albedo.clone().requires_grad_()
+            live = dataclasses.replace(pscene, materials=dataclasses.replace(
+                pscene.materials, albedo=albedo))
+            img = render_physical(live, PCAM, 8, 8, 2, 2, 0, remat=remat)
+            out[remat] = (img.detach(), torch.autograd.grad(img.sum(), albedo)[0])
+        assert all(torch.equal(a, b) for a, b in zip(out[False], out[True]))
+        assert bool(out[True][1].any())
+        return
     if name == "collect_stats":
         o, d = P.primary_rays(PCAM, 2, 2)
         from path_tracer_c_tpu_torch.ops import rng

@@ -77,3 +77,57 @@ def test_seed_state_bit_exact(sample, seed):
     j = jrng.seed_state(jnp.asarray(pix), jnp.int32(sample), jnp.uint32(seed))
     t = trng.seed_state(torch.from_numpy(pix.astype(np.int64)), sample, seed)
     np.testing.assert_array_equal(np.asarray(j, np.int64), t.numpy())
+
+
+@pytest.mark.parametrize("name, draws", [
+    ("normal", 2), ("unit_sphere_gaussian", 6), ("unit_sphere_biased", 3)])
+def test_other_samplers_bit_exact(name, draws):
+    """Box-Muller and the two unit-sphere samplers of the JAX package,
+    states and values bit for bit; each consumes its fixed draws."""
+    states = _states(5, n=65536)
+    js, jv = getattr(jrng, name)(jnp.asarray(states))
+    ts, tv = getattr(trng, name)(_t(states))
+    assert tv.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(js, np.int64), ts.numpy())
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    s = _t(states)
+    for _ in range(draws):
+        s, _ = trng.pcg_next(s)
+    np.testing.assert_array_equal(s.numpy(), ts.numpy())
+    if name != "normal":
+        np.testing.assert_allclose(np.linalg.norm(tv.numpy(), axis=-1), 1.0, atol=1e-6)
+
+
+def test_log_and_cos_bit_exact():
+    """The float32 log and cos these samplers take, against jnp.log and
+    jnp.cos on the CPU, over uniforms, the edge cases and the angles
+    2 pi u (cos covers |x| < 120 and refuses more). The reference is one
+    XLA build's CPU code: transcribed from jaxlib 0.9.0 on an x86-64 host
+    with FMA (XLA's Cephes-style log with fused multiply-adds; glibc's
+    cosf). Another jaxlib or host may round these differently; the
+    assertion names the build and host it ran on. The edge cases give NaN,
+    so JAX's ``jax_debug_nans`` is held off (the JAX CLI's ``--debug-nans``
+    turns it on for the rest of the process it runs in)."""
+    import platform
+
+    import jax
+
+    where = f"jax {jax.__version__}, jaxlib {jax.lib.__version__}, {platform.machine()}"
+    rng = np.random.default_rng(6)
+    u = (rng.integers(0, 2**32, 200000, dtype=np.uint64).astype(np.float32)
+         * np.float32(1 / 4294967295.0))
+    edges = np.array([0.0, 1e-38, 1.2e-38, 1e-30, 0.5, 0.70710677, 1.0, 2.0, 97.5,
+                      np.inf, -1.0, np.nan], np.float32)
+    x = np.concatenate([u, edges, rng.random(20000, dtype=np.float32) * 100])
+    with jax.debug_nans(False):
+        j_log = np.asarray(jnp.log(x))
+    np.testing.assert_array_equal(j_log, trng.log_f32(torch.from_numpy(x)).numpy(),
+                                  err_msg=f"log_f32 against jnp.log on {where}")
+    th = np.concatenate([np.float32(6.2831855) * u, -u * 50, [0.0, 2.4e-4, 0.7853982, 119.9]])
+    th = th.astype(np.float32)
+    with jax.debug_nans(False):
+        j_cos = np.asarray(jnp.cos(th))
+    np.testing.assert_array_equal(j_cos, trng.cos_f32(torch.from_numpy(th)).numpy(),
+                                  err_msg=f"cos_f32 against jnp.cos on {where}")
+    with pytest.raises(ValueError):
+        trng.cos_f32(torch.tensor([120.0]))
