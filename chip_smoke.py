@@ -122,8 +122,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``loss_and_grad(engine="core")`` at config 4's fit shape with each
    sample recomputed in backward (as it runs) and without.
 
+16. row blocks and the parallel layer: B1-B4 and each of their
+   instantiations (timed, counting, measurement) over four blocks of 256
+   rows at the main shape and 7 + 12 rows of a ragged 19x45 against the
+   whole launch, bit for bit (images, planes, counters summed), B5's blocks
+   summed against the whole at ``BWD_RTOL``; then, on meshes of cuda:0
+   repeated: config 5's frame (2048^2, 256 spp, 4 bounces, B1) through
+   ``render_sharded`` on 8x1 (bit for bit) and 4x2 (``SHARD_RTOL``), each
+   eight launches of B1, timed beside the unsharded frame; config 3 through
+   ``render_sharded(engine="physical_pallas")`` on 4x1 and 2x2 (B3); the
+   sharded gradient on a 2x2 mesh and ``make_train_step``'s against the
+   unsharded (B2, ``SHARD_GRAD_RTOL``); config 4's CLI ``fit`` on a 2x2 mesh
+   for 20 steps (80 launches of B2, the loss falls); a geometry step on B4
+   with ``geom=True`` against the unsharded; two processes on cuda:0 over
+   gloo rendering on a 2x1 mesh, equal to one process bit for bit; the CLI's
+   refusal of config 5's 4x2 mesh (``animate --config``) on this machine's
+   cards; ``render
+   --engine split`` on the card against the split tier on the CPU.
+
 The line before the last is one JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+last line is ``{"ok": true, "device": {...}}``. ``--worker`` runs one
+process of phase 16's two-process render; nothing else passes arguments.
 """
 
 from __future__ import annotations
@@ -194,6 +213,37 @@ PHYS_GRAD_RTOL, PHYS_GRAD_ATOL = 5e-3, 3e-5
 # its twin (the twin runs one PyTorch operation a step).
 CALIB_ULPS = 2
 CALIB_CHECK_REPS, CALIB_TIMED_REPS = 4, 64
+
+# Phase 16. Row blocks: four blocks of 256 rows at the main shape, 7 + 12
+# rows at a ragged 19x45; each block must equal the same rows of the whole
+# launch bit for bit (image, planes, counters summed), B5's cotangents summed
+# over the blocks the whole's at BWD_RTOL. The sharded renders against the
+# unsharded: bit for bit with no spp split. With one, bit for bit against
+# the same fixed-order mean of unsharded renders of each sample range, and
+# against the unsharded render at spp_split_rtol: the two sum the same spp
+# non-negative float32 terms in another association, and each such sum is
+# within (spp - 1) * 2^-24 of its exact value relative to it (the standard
+# bound), so the two within twice that. At the JAX suite's 8 spp
+# (tests/test_parallel.py) that is 8.3e-7, its rtol 1e-6 (SHARD_RTOL, the
+# floor); at config 5's 256 spp it is 3.0e-5. Sharded gradients at its gate for the kernel
+# engine's (rtol 1e-3, atol 1e-7), the geometry gradient at its gate for
+# geometry (rtol 1e-4) with an absolute floor of BWD_ATOL_SCALE of the
+# largest entry; the split engine on the card against itself on the CPU at
+# tests/test_split.py's tolerance (rtol 2e-4, atol 2e-5). The two-process
+# run is killed after MP_TIMEOUT seconds.
+MAIN_BLOCKS = 4
+RAGGED_BLOCKS = (19, 45, (7, 12))
+SHARD_RTOL = SHARD_ATOL = 1e-6
+
+
+def spp_split_rtol(spp: int) -> float:
+    """The tolerance of a render whose samples were split against the
+    unsplit one (see SHARD_RTOL)."""
+    return max(SHARD_RTOL, 2 * (spp - 1) * 2.0**-24)
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 1e-3, 1e-7
+GEOM_GRAD_RTOL = 1e-4
+SPLIT_RTOL, SPLIT_ATOL = 2e-4, 2e-5
+MP_TIMEOUT = 300
 
 
 def log(msg: str) -> None:
@@ -897,7 +947,8 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
         acfg = load(root / SWEEP_CONFIG, AnimationConfig)
         r = acfg.render
         result["sweep"] = {"config": SWEEP_CONFIG, "reduced": [
-            f"mesh {acfg.render.mesh.tile}x{acfg.render.mesh.spp} -> 1x1 (one card; ROADMAP A11)",
+            f"mesh {acfg.render.mesh.tile}x{acfg.render.mesh.spp} -> 1x1 (one card; phase 16 "
+            f"lays the mesh on cuda:0 repeated for one frame)",
             f"frames {acfg.frames} -> {SWEEP_FRAMES} (time limit)"],
             "shape": f"{r.scene} {r.width}x{r.height} {r.spp}spp {r.max_bounces}b engine {r.engine}"}
         if not native.available():
@@ -1078,6 +1129,443 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
         f"{mem[False][0]['peak_bytes'] / 2**20:.1f} MiB without; wall ms {walls[True]} / "
         f"{walls[False]}; d_albedo max |delta| {diff_max:.3g} [{card}]")
     return {"launches": launches, "result": result, "max_abs_err": errs}
+
+
+def _row_blocks(h: int, parts) -> list:
+    """``(row_start, rows)`` of the blocks: ``parts`` equal blocks, or the
+    blocks of the heights ``parts`` names."""
+    sizes = [h // parts] * parts if isinstance(parts, int) else list(parts)
+    return [(sum(sizes[:i]), n) for i, n in enumerate(sizes)]
+
+
+def _join(outs: list, width: int):
+    """The blocks' outputs as one: tensors concatenated along their rows
+    (dim 0 of an (rows, W, 3) image, dim 1 of (planes, rows, W) planes),
+    counts and dicts of counts summed."""
+    import torch
+
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        dim = 0 if first.shape[-1] == 3 and first.shape[1] == width else 1
+        return torch.cat(outs, dim=dim)
+    if isinstance(first, dict):
+        return {k: sum(o[k] for o in outs) for k in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(_join([o[i] for o in outs], width) for i in range(len(first)))
+    return sum(outs)
+
+
+def check_row_blocks(what: str, fn, args, kw, parts) -> float:
+    """``fn(*args, **kw)`` over the whole image against ``fn`` over its row
+    blocks (``_row_blocks(H, parts)``), joined: every tensor, count and dict
+    of counts equal. Returns the largest |delta| (0)."""
+    import torch
+
+    h, width = args[2], args[3]
+    whole = fn(*args, **kw)
+    joined = _join([fn(*args, row_start=r0, rows=n, **kw) for r0, n in _row_blocks(h, parts)],
+                   width)
+    items = (whole, joined) if isinstance(whole, tuple) else ((whole,), (joined,))
+    worst = 0.0
+    for a, b in zip(*items):
+        if isinstance(a, torch.Tensor):
+            if a.shape != b.shape:
+                raise AssertionError(f"{what}: shapes {tuple(a.shape)}/{tuple(b.shape)}")
+            worst = max(worst, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: the blocks differ from the whole (max |delta| "
+                                     f"{worst:.3g})")
+        elif a != b:
+            raise AssertionError(f"{what}: the blocks' counts {b} differ from the whole's {a}")
+    log(f"  {what}: {len(_row_blocks(h, parts))} blocks equal the whole")
+    return worst
+
+
+def row_block_checks(pt, dev, glossy, cam) -> None:
+    """Phase 16a: B1-B4 and every instantiation (timed kernel, counting,
+    measurement) over row blocks against the whole launch, at the main shape
+    and at a ragged 19x45; B5's cotangents summed over the blocks against
+    the whole's."""
+    import torch
+    from path_tracer_c_tpu_torch.ops import render_grad as rg
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+
+    log("row blocks: each block equals the same rows of the whole launch (images, planes, "
+        "counters summed):")
+    n_live = rp.live_emitter_count(glossy)
+    rh, rw, rparts = RAGGED_BLOCKS
+    for shape, parts, seed in (((H, W, SPP, BOUNCES), MAIN_BLOCKS, 1), ((rh, rw, 4, 8), rparts, 7)):
+        args = (glossy, cam, *shape, seed)
+        where = "{}x{} {}spp {}b".format(*shape)
+        check_row_blocks(f"B1 {where}", rk.render_kernel, args, dict(count_rounds=True), parts)
+        for v in (None, *rk.VARIANTS):
+            check_row_blocks(f"B1 counting {v or 'kernel'} {where}", rk.render_kernel_round_counts,
+                             args, dict(variant=v), parts)
+            if v:
+                check_row_blocks(f"B1 {v} {where}", rk.render_kernel_variant, args[:7] + (v,),
+                                 {}, parts)
+        check_row_blocks(f"B2 {where}", rg.render_fused, args, dict(count_rounds=True), parts)
+        check_row_blocks(f"B2 counting {where}", rg.render_fused_round_counts, args, {}, parts)
+        for v in rg.VARIANTS:
+            vargs = args if v != "registers" else args[:5] + (rg.REGISTER_ROUNDS - 1, seed)
+            check_row_blocks(f"B2 {v} {where}", rg.render_fused_variant, vargs + (v,), {}, parts)
+        check_row_blocks(f"B3 {where}", rp.render_physical_kernel, args,
+                         dict(count_events=True), parts)
+        for v in (None, *rk.VARIANTS):
+            check_row_blocks(f"B3 counting {v or 'kernel'} {where}",
+                             rp.render_physical_kernel_round_counts, args, dict(variant=v), parts)
+            if v:
+                check_row_blocks(f"B3 {v} {where}", rp.render_physical_kernel_variant,
+                                 args + (v,), {}, parts)
+        check_row_blocks(f"B4 {where} n_em_cap={n_live} tri_nee", pg.render_physical_fused, args,
+                         dict(n_em_cap=n_live, count_events=True, tri_nee=True,
+                              tri_em_cap=rp.live_tri_emitter_count(glossy)), parts)
+        check_row_blocks(f"B4 {where} rough_grad", pg.render_physical_fused, args,
+                         dict(rough_grad=True), parts)
+        check_row_blocks(f"B4 counting {where}", pg.render_physical_fused_round_counts, args, {},
+                         parts)
+        for v in pg.VARIANTS:
+            vargs = args if v != "registers" else args[:5] + (rg.REGISTER_ROUNDS - 1, seed)
+            check_row_blocks(f"B4 {v} {where}", pg.render_physical_fused_variant, vargs + (v,),
+                             dict(n_em_cap=n_live), parts)
+        g = torch.randn((shape[0], shape[1], 3), generator=torch.Generator().manual_seed(3)).to(dev)
+        whole = pg.render_physical_bwd(glossy, cam, g, *shape, seed, n_em_cap=n_live)
+        blocks = [pg.render_physical_bwd(glossy, cam, g[r0:r0 + n], *shape, seed, n_em_cap=n_live,
+                                         row_start=r0, rows=n)
+                  for r0, n in _row_blocks(shape[0], parts)]
+        leaves = [lf for lf in pg._GRAD_LEAVES if lf[0] != "triangles" and lf[1] != "roughness"]
+        summed = pg.replace_leaves(whole, [
+            (tb, nm, sum(getattr(getattr(b, tb) if tb else b, nm) for b in blocks))
+            for tb, nm in leaves])
+        compare_cotangents(summed, whole, leaves, f"B5 {where}: blocks summed vs whole")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def worker(argv) -> int:
+    """One process of phase 16's two-process render: ``--worker RANK WORLD
+    PORT OUT``. Joins the group over gloo (NCCL takes one process a card,
+    and both run on cuda:0), checks its health, renders glossy 1024^2, 64
+    spp, 8 bounces through B1 on a 2x1 mesh of cuda:0 (one slot a process),
+    and on rank 0 saves the image, the status and its time to OUT."""
+    import torch
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import path_tracer_c_tpu_torch as pt
+    from path_tracer_c_tpu_torch import parallel
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+
+    dev = torch.device("cuda", 0)
+    parallel.distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        mesh = parallel.make_mesh(tile=world, spp=1, devices=[dev])
+        status = parallel.distributed.health_check(mesh)
+        glossy, cam = pt.demo.glossy_scene(dev), pt.Camera.reference(dev)
+        rk.render_kernel.launches = 0
+        t0 = time.perf_counter()
+        img = parallel.render_sharded(glossy, cam, H, W, SPP, BOUNCES, 1, mesh, engine="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = rk.render_kernel.launches
+        if rank == 0:
+            torch.save({"image": img.cpu(), "status": status, "seconds": seconds,
+                        "launches": launches,
+                        "backend": torch.distributed.get_backend()}, out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_process_render(root: Path, tmp: Path) -> dict:
+    """Two processes on cuda:0 over gloo (``worker``), each killed after
+    MP_TIMEOUT seconds; a worker that fails fails the phase. Returns rank
+    0's record and the wall time from start to both exits."""
+    import torch
+
+    port, out = _free_port(), tmp / "rank0.pt"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--worker", str(r),
+                               "2", str(port), str(out)], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs, failed = [], False
+    for p in procs:
+        try:
+            text, _ = p.communicate(timeout=max(1.0, MP_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            text, _ = p.communicate()
+            failed = True
+        logs.append(text)
+        failed = failed or p.returncode != 0
+    wall = time.perf_counter() - t0
+    for q in procs:
+        if q.poll() is None:
+            q.kill()
+            q.wait()
+    if failed or not out.exists():
+        raise AssertionError("two-process render failed:\n" + "\n".join(
+            f"rank {r} (rc {p.returncode}):\n{t[-4000:]}" for r, (p, t) in
+            enumerate(zip(procs, logs))))
+    rec = torch.load(out)
+    rec["wall_seconds"] = wall
+    return rec
+
+
+def check_spp_split(img, whole, shape, n_spp: int, render, what: str) -> None:
+    """A render sharded over ``n_spp`` sample ranges: bit for bit against
+    the fixed-order mean of ``render(spp / n_spp, offset)`` over the ranges
+    (each range rendered unsharded), and against the unsplit render
+    ``whole`` of ``shape`` (H, W, spp, ...) within spp_split_rtol; logs the
+    share of values outside SHARD_RTOL."""
+    import torch
+
+    spp = shape[2]
+    k = spp // n_spp
+    acc = render(k, 0)
+    for si in range(1, n_spp):
+        acc = acc + render(k, si * k)
+    if not torch.equal(img, acc / n_spp):
+        raise AssertionError(f"{what}: differs from the mean of its sample ranges")
+    rtol = spp_split_rtol(spp)
+    torch.testing.assert_close(img, whole, rtol=rtol, atol=SHARD_ATOL)
+    d = (img - whole).abs()
+    rel = float((d / whole.abs().clamp_min(1e-30)).max())
+    out = float((d > SHARD_ATOL + SHARD_RTOL * whole.abs()).double().mean())
+    log(f"  {what}: the mean of its sample ranges bit for bit; against the unsplit render max "
+        f"|delta| {float(d.max()):.3g}, max relative {rel:.3g} (rtol {rtol:.3g} for {spp} spp), "
+        f"share outside rtol {SHARD_RTOL} {out:.4f}")
+
+
+def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
+    """Phase 16: row blocks, then the parallel layer on one card, its slots
+    on cuda:0 repeated: config 5's frame through B1 on 8x1 and 4x2 meshes,
+    timed beside the unsharded frame; config 3's physical render on 4x1
+    and 2x2 meshes (B3); the sharded gradients (B2, B4) and config 4's CLI
+    fit on a 2x2 mesh; the two-process render over gloo; the CLI's refusal
+    of config 5's 4x2 mesh (its sweep) on one card; the split engine. Returns the
+    record and each kernel's launches by path."""
+    import torch
+    from path_tracer_c_tpu_torch import parallel
+    from path_tracer_c_tpu_torch.grad import diff
+    from path_tracer_c_tpu_torch.models.split import render_split
+    from path_tracer_c_tpu_torch.ops import render_grad as rg
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+    from path_tracer_c_tpu_torch.utils.bitmap import bitmap_bytes
+    from path_tracer_c_tpu_torch.utils.config import AnimationConfig, FitConfig, RenderConfig, load
+
+    result, launches = {}, {name: {} for name in ("render_fwd", "render_fused", "render_phys",
+                                                   "render_phys_fused")}
+    row_block_checks(pt, dev, glossy, cam)
+    mesh = lambda tile, spp: parallel.make_mesh(tile=tile, spp=spp, devices=[dev] * (tile * spp))
+
+    # Config 5's frame at full width through B1.
+    acfg = load(root / SWEEP_CONFIG, AnimationConfig)
+    c5 = acfg.render
+    demo = pt.demo.demo_scene(dev) if c5.scene == "demo" else None
+    frame = (c5.height, c5.width, c5.spp, c5.max_bounces, c5.seed)
+    log(f"config 5's frame ({c5.scene} {c5.width}x{c5.height} {c5.spp}spp {c5.max_bounces}b, "
+        f"B1) through render_sharded on cuda:0 repeated:")
+    whole = rk.render_kernel(demo, cam, *frame)
+    sharded = {}
+    for tile, spp_ax in ((8, 1), (c5.mesh.tile, c5.mesh.spp)):
+        m = mesh(tile, spp_ax)
+        rk.render_kernel.launches = 0
+        img = parallel.render_sharded(demo, cam, *frame, m, engine="cuda")
+        torch.cuda.synchronize()
+        n = rk.render_kernel.launches
+        launches["render_fwd"][f"render_sharded config 5 {tile}x{spp_ax}"] = n
+        if n != tile * spp_ax:
+            raise AssertionError(f"{tile}x{spp_ax}: B1 launched {n} times, not {tile * spp_ax}")
+        err = float((img - whole).abs().max())
+        if spp_ax == 1:
+            if not torch.equal(img, whole):
+                raise AssertionError(f"config 5 {tile}x1: differs from the unsharded frame ({err})")
+            log(f"  {tile}x1: {n} launches of B1, bit for bit")
+        else:
+            check_spp_split(img, whole, frame, spp_ax,
+                            lambda k, off: rk.render_kernel(demo, cam, *frame[:2], k, frame[3],
+                                                            frame[4], sample_offset=off),
+                            f"config 5 {tile}x{spp_ax}: {n} launches of B1")
+        sharded[f"{tile}x{spp_ax}"] = (m, err)
+    times = {}
+    for label, fn in (("unsharded", lambda seed: rk.render_kernel(demo, cam, *frame[:4], seed)),
+                      *((f"mesh {k}", (lambda m: lambda seed: parallel.render_sharded(
+                          demo, cam, *frame[:4], seed, m, engine="cuda"))(m))
+                        for k, (m, _) in sharded.items()),
+                      ("unsharded again", lambda seed: rk.render_kernel(demo, cam, *frame[:4],
+                                                                         seed))):
+        times[label] = median_ms(fn, warm=(50,), seeds=(1, 2, 3))
+        log(f"time config 5 frame, {label}: {times[label]:.3f} ms [{card}]")
+    result["config5_frame"] = {"shape": frame[:4], "ms": times,
+                               "max_abs_err": {k: e for k, (_, e) in sharded.items()}}
+
+    # Config 3's physical render through B3 (jitter as the config).
+    pcfg = load(root / PHYS_CONFIG, RenderConfig)
+    pkw = dict(jitter=pcfg.jitter, tri_nee=pcfg.tri_nee)
+    pshape = (pcfg.height, pcfg.width, pcfg.spp, pcfg.max_bounces, 1)
+    pwhole = rp.render_physical_kernel(glossy, cam, *pshape, **pkw)
+    for tile, spp_ax in ((4, 1), (2, 2)):
+        rp.render_physical_kernel.launches = 0
+        img = parallel.render_sharded(glossy, cam, *pshape, mesh(tile, spp_ax),
+                                      engine="physical_pallas", **pkw)
+        torch.cuda.synchronize()
+        launches["render_phys"][f"render_sharded config 3 {tile}x{spp_ax}"] = \
+            rp.render_physical_kernel.launches
+        what = (f"config 3 through render_sharded(physical_pallas) {tile}x{spp_ax}: "
+                f"{rp.render_physical_kernel.launches} launches of B3")
+        if spp_ax == 1:
+            if not torch.equal(img, pwhole):
+                raise AssertionError(f"{what}: differs from the unsharded render")
+            log(f"{what}, bit for bit")
+        else:
+            check_spp_split(img, pwhole, pshape, spp_ax,
+                            lambda k, off: rp.render_physical_kernel(
+                                glossy, cam, *pshape[:2], k, pshape[3], pshape[4],
+                                sample_offset=off, **pkw), what)
+
+    # Training on config 4's shape (B2) on a 2x2 mesh.
+    fcfg = load(root / FIT_CONFIG, FitConfig)
+    cfg = fcfg.render
+    spheres = pt.demo.random_spheres_scene(dev)
+    fshape = (cfg.height, cfg.width, cfg.spp, cfg.max_bounces)
+    target = rk.render_kernel(spheres, cam, *fshape, 12345)
+    m22 = mesh(2, 2)
+    leaves = [(tb, nm) for tb, nm in rg._GRAD_LEAVES]
+    live = [getattr(getattr(spheres, tb) if tb else spheres, nm).detach().clone().requires_grad_()
+            for tb, nm in leaves]
+    rg.render_fused.launches = 0
+    img = parallel.render_sharded(rg.replace_leaves(spheres, [(tb, nm, t) for (tb, nm), t in
+                                                               zip(leaves, live)]),
+                                  cam, *fshape, 3, m22, engine="cuda")
+    g_sharded = torch.autograd.grad(torch.mean((img - target) ** 2), live)
+    launches["render_fused"]["render_sharded 2x2 gradient"] = rg.render_fused.launches
+    _, d_scene = diff.loss_and_grad(spheres, target, cam, *fshape, 3, engine="cuda")
+    for (tb, nm), g in zip(leaves, g_sharded):
+        ref = getattr(getattr(d_scene, tb) if tb else d_scene, nm)
+        torch.testing.assert_close(g, ref, rtol=SHARD_GRAD_RTOL, atol=SHARD_GRAD_ATOL,
+                                   msg=lambda msg: f"sharded gradient d_{nm}: {msg}")
+    log(f"sharded gradient (2x2, B2) = loss_and_grad(engine='cuda') at rtol {SHARD_GRAD_RTOL}: "
+        f"{len(leaves)} leaves")
+    params = diff.make_material_params(spheres)
+    step = parallel.make_train_step(cam, *fshape, m22, diff.apply_material_params, engine="cuda")
+    rg.render_fused.launches = 0
+    step(params, type("NoStep", (), {"step": staticmethod(lambda: None)})(), spheres, target, 3)
+    launches["render_fused"]["make_train_step 2x2"] = rg.render_fused.launches
+    probe = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    ref_loss = diff.render_loss(diff.apply_material_params(spheres, probe), target, cam, *fshape, 3,
+                                engine="cuda")
+    ref_g = torch.autograd.grad(ref_loss, list(probe.values()), allow_unused=True)
+    for (k, v), g in zip(params.items(), ref_g):
+        torch.testing.assert_close(v.grad, g if g is not None else torch.zeros_like(v),
+                                   rtol=SHARD_GRAD_RTOL, atol=SHARD_GRAD_ATOL,
+                                   msg=lambda msg: f"train step d_{k}: {msg}")
+    log("make_train_step (2x2, B2): its gradient = the unsharded one at rtol "
+        f"{SHARD_GRAD_RTOL}, {launches['render_fused']['make_train_step 2x2']} launches")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        raw = json.loads((root / FIT_CONFIG).read_text())
+        raw["render"]["mesh"] = {"tile": 2, "spp": 2, "devices": ["cuda:0"] * 4}
+        raw["steps"] = 20
+        fit_cfg = tmp / "fit_2x2.json"
+        fit_cfg.write_text(json.dumps(raw))
+        rg.render_fused.launches = 0
+        line = _cli_quiet(cli_main, ["fit", "--config", str(fit_cfg)])
+        n = rg.render_fused.launches
+        launches["render_fused"]["CLI fit on a 2x2 mesh"] = n
+        got = re.search(r"fit on mesh 2x2: 20 steps in .*loss ([\d.e+-]+) -> ([\d.e+-]+)", line)
+        if not got or n != 80 or not float(got.group(2)) < float(got.group(1)):
+            raise AssertionError(f"CLI fit on a 2x2 mesh: {line!r}, {n} launches of B2")
+        log(f"CLI fit on a 2x2 mesh of cuda:0: {line.strip()}; {n} launches of B2")
+        result["fit_2x2"] = line.strip()
+
+        # A physical geometry step on B4 with geom=True.
+        lscene = light_fit_scene(pt, dev)
+        gshape = (256, 256, 16, 4)
+        gtarget = rp.render_physical_kernel(lscene, cam, *gshape, 5, jitter=False)
+        li = int(rp.live_emitter_mask(lscene).argmax())
+        shift = torch.zeros_like(lscene.spheres.center)
+        shift[li] = torch.tensor([0.3, -0.2, 0.25], device=dev)
+        moved = dataclasses.replace(lscene, spheres=dataclasses.replace(
+            lscene.spheres, center=lscene.spheres.center + shift))
+        apply_geo = lambda sc, p: diff.apply_geometry_params(sc, p, (li,))
+        gparams = diff.make_geometry_params(moved, (li,))
+        gstep = parallel.make_train_step(cam, *gshape, m22, apply_geo, engine="physical_pallas",
+                                         geom=True)
+        pg.render_physical_fused.launches = 0
+        gstep(gparams, type("NoStep", (), {"step": staticmethod(lambda: None)})(), moved,
+              gtarget, 9)
+        launches["render_phys_fused"]["make_train_step 2x2 geometry"] = \
+            pg.render_physical_fused.launches
+        gprobe = {k: v.detach().clone().requires_grad_() for k, v in gparams.items()}
+        img = pg.render_physical_kernel_vjp(apply_geo(moved, gprobe), cam, *gshape, 9,
+                                            jitter=False, geom=True)
+        gref = torch.autograd.grad(torch.mean((img - gtarget) ** 2), list(gprobe.values()))
+        for (k, v), g in zip(gparams.items(), gref):
+            if not bool(g.abs().max() > 0):
+                raise AssertionError(f"geometry step: the unsharded d_{k} is zero")
+            torch.testing.assert_close(v.grad, g, rtol=GEOM_GRAD_RTOL,
+                                       atol=BWD_ATOL_SCALE * float(g.abs().max()),
+                                       msg=lambda msg: f"geometry step d_{k}: {msg}")
+        log(f"make_train_step (2x2, B4, geom=True): the light's gradient = the unsharded one "
+            f"at rtol {GEOM_GRAD_RTOL}")
+
+        # Two processes on cuda:0 over gloo.
+        rec = two_process_render(root, tmp)
+        single = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 1)
+        if not torch.equal(rec["image"], single.cpu()):
+            raise AssertionError("the two-process render differs from the single-process one")
+        launches["render_fwd"]["two-process render_sharded 2x1 (rank 0)"] = rec["launches"]
+        log(f"two processes on cuda:0 (backend {rec['backend']}): health {rec['status']}; "
+            f"glossy {W}x{H} {SPP}spp {BOUNCES}b on a 2x1 mesh equals the single-process "
+            f"render bit for bit; render {rec['seconds']:.3f} s on rank 0, wall "
+            f"{rec['wall_seconds']:.1f} s from start to both exits [{card}]")
+        result["two_process"] = {"backend": rec["backend"], "status": rec["status"],
+                                 "render_seconds": rec["seconds"],
+                                 "wall_seconds": rec["wall_seconds"]}
+
+        # The CLI refuses config 5's sweep, with its 4x2 mesh, on this
+        # machine's cards.
+        try:
+            _cli_quiet(cli_main, ["animate", "--config", str(root / SWEEP_CONFIG), "--frames",
+                                  "1", "--out-dir", str(tmp / "refused")])
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            msg = ""
+        n_dev = torch.cuda.device_count()
+        if f"!= {n_dev} devices" not in msg or (tmp / "refused").exists():
+            raise AssertionError(f"config 5's mesh on {n_dev} card(s) was not refused: {msg!r}")
+        log(f"CLI animate of config 5 refused: {msg}")
+        result["config5_refused"] = msg
+
+        # The split engine on the card against itself on the CPU.
+        out = tmp / "split.bmp"
+        line = _cli_quiet(cli_main, ["render", "--engine", "split", "--width", "160", "--height",
+                                     "100", "--spp", "4", "--max-bounces", "4", "--out", str(out)])
+        check_bmp(out.read_bytes(), 160, 100)
+        card_img = render_split(pt.demo.demo_scene(dev), cam, 100, 160, 4, 4, 0)
+        cpu_img = render_split(pt.demo.demo_scene("cpu"), pt.Camera.reference("cpu"), 100, 160,
+                               4, 4, 0)
+        torch.testing.assert_close(card_img.cpu(), cpu_img, rtol=SPLIT_RTOL, atol=SPLIT_ATOL)
+        if bitmap_bytes(pt.render_image_u8(card_img).cpu().numpy()) != out.read_bytes():
+            raise AssertionError("the CLI's split BMP differs from the encoded card image")
+        log(f"split engine: {line.strip()}; card = CPU within rtol {SPLIT_RTOL} atol "
+            f"{SPLIT_ATOL} (max |delta| {float((card_img.cpu() - cpu_img).abs().max()):.3g})")
+    return {"result": result, "launches": launches}
 
 
 def main() -> int:
@@ -1726,6 +2214,11 @@ def main() -> int:
     longr = long_runs(pt, root, dev, card, cli_main)
     log(f"long runs: phase 15 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 16. row blocks and the parallel layer --
+    t0 = time.perf_counter()
+    shard = sharded_runs(pt, root, dev, card, cli_main, glossy, cam)
+    log(f"sharded runs: phase 16 took {time.perf_counter() - t0:.1f} s")
+
     # launches: the main paths' runs; every time, bound and round count: the
     # glossy shape named in "timed_at".
     common = {"route": "cuda", "library_ms": None, "timed_at": where}
@@ -1773,6 +2266,11 @@ def main() -> int:
         extra = longr["launches"].get(entry["name"], {})
         entry["launches_by_path"].update(extra)
         entry["launches"] += sum(extra.values())
+    for entry in kernels:
+        extra = shard["launches"].get(entry["name"], {})
+        entry["launches_by_path"].update(extra)
+        entry["launches"] += sum(extra.values())
+    log(json.dumps({"sharded_runs": shard["result"]}))
     log(json.dumps({"long_runs": longr["result"]}))
     log(json.dumps({"kernels": kernels + sol["entries"]}))
     log(json.dumps({"ok": True, "device": {
@@ -1781,4 +2279,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(sys.argv[2:]))
     sys.exit(main())

@@ -35,6 +35,17 @@ engine and take ``physical`` where none is named. ``--checkpoint-path`` saves
 the fit's state every ``--checkpoint-every`` steps, and a fit resumes from
 it.
 
+``--engine split`` renders the reference shader's two-branch estimator
+(``models/split.py``), an eager parity tier on one device.
+
+A config's ``mesh`` of more than one slot renders ``render``, its chunks
+and ``animate`` through ``parallel.render_sharded``, and fits materials
+through ``parallel.make_train_step`` (``_fit_sharded_materials``). Its
+slots lie on every visible CUDA device, on the CPU under ``--device cpu``,
+or on the mesh's own ``devices`` (a device may repeat, and each must be of
+``--device``'s type); a mesh that is not exactly those devices is refused
+with their count.
+
 ``--device cuda`` (the default) needs a CUDA device and raises without
 one; it never carries on on the CPU. ``--device cpu`` runs the same
 engines on the CPU, where a kernel engine takes the kernel's plain twin.
@@ -91,33 +102,53 @@ def get_scene(name: str, device):
     )
 
 
-# Engines and settings of the JAX CLI that this package has not ported
-# yet, with the ROADMAP.md item that ports them.
-_NOT_PORTED_ENGINES = {"split": "A10 (split tier)"}
 # The JAX package's names for its kernel engines, and this package's, in a
 # render.
 _ENGINE_ALIASES = {"pallas": "cuda", "physical_pallas": "physical"}
 _PHYSICAL_ENGINES = ("physical", "physical_core")
-_ENGINES = ("cuda", "core") + _PHYSICAL_ENGINES
+_ENGINES = ("cuda", "core") + _PHYSICAL_ENGINES + ("split",)
+# A render engine's name in parallel.render_sharded, which takes the JAX
+# package's (the physical kernel is "physical_pallas" there).
+_SHARDED_ENGINES = {"cuda": "cuda", "core": "core", "physical": "physical_pallas",
+                    "physical_core": "physical"}
 # In a fit the physical engines carry the JAX package's names (grad/diff.py).
 _FIT_ALIASES = {"auto": "cuda", "pallas": "cuda", "physical_core": "physical"}
 _FIT_PHYSICAL_ENGINES = ("physical", "physical_pallas")
 _FIT_ENGINES = ("cuda", "core") + _FIT_PHYSICAL_ENGINES
 
 
-def _check_ported(cfg, engines=_ENGINES):
-    if cfg.engine in _NOT_PORTED_ENGINES:
-        raise SystemExit(
-            f"engine '{cfg.engine}' is not ported to PyTorch yet: see "
-            f"ROADMAP.md {_NOT_PORTED_ENGINES[cfg.engine]}"
-        )
+def _check_engine(cfg, engines=_ENGINES):
     if cfg.engine not in engines:
         raise SystemExit(f"unknown engine '{cfg.engine}'; available: {', '.join(engines)}")
-    if cfg.mesh.tile * cfg.mesh.spp > 1:
+    if _sharded(cfg) and cfg.engine == "split":
         raise SystemExit(
-            "a multi-device mesh is not ported yet: see ROADMAP.md A11 "
-            "(parallel layer)"
+            "engine 'split' is a single-device parity/analysis tier "
+            "and does not support a multi-device mesh; drop the mesh "
+            "or use engine core/cuda/physical"
         )
+
+
+def _sharded(cfg) -> bool:
+    return cfg.mesh.tile * cfg.mesh.spp > 1
+
+
+def _mesh(cfg, device):
+    """The config's mesh: on its ``devices`` where it names them, else on
+    every visible CUDA device, or the CPU for a CPU run. A mesh that is not
+    exactly those devices, or that names a device of another type than
+    ``--device``, is refused."""
+    from .. import parallel
+
+    other = [d for d in cfg.mesh.devices if torch.device(d).type != device.type]
+    if other:
+        raise SystemExit(
+            f"mesh {cfg.mesh.tile}x{cfg.mesh.spp} refused: its devices {other} are not "
+            f"of --device {device.type}'s type")
+    devices = cfg.mesh.devices or ("cpu" if device.type == "cpu" else None)
+    try:
+        return parallel.make_mesh(tile=cfg.mesh.tile, spp=cfg.mesh.spp, devices=devices)
+    except ValueError as e:
+        raise SystemExit(f"mesh {cfg.mesh.tile}x{cfg.mesh.spp} refused: {e}") from None
 
 
 def _device(name: str) -> torch.device:
@@ -130,20 +161,38 @@ def _device(name: str) -> torch.device:
 
 def _renderer(cfg):
     """The configured engine as ``render(scene, camera, H, W, spp, bounces,
-    seed, jitter=...)``. ``tri_nee`` reaches the physical engines only; the
-    reference tier has no light sampling and ignores it, as the JAX CLI
-    does."""
+    seed, jitter=..., sample_offset=...)`` on one device. ``tri_nee``
+    reaches the physical engines only; the reference tier has no light
+    sampling and ignores it, as the JAX CLI does."""
     import functools
 
     from ..models.integrator import render_radiance
     from ..models.physical import render_physical
+    from ..models.split import render_split
     from ..ops import render_kernel as rk
     from ..ops import render_physical as rp
 
+    if cfg.engine == "split":
+        return lambda *a, jitter=False, **kw: render_split(*a, **kw)
     if cfg.engine in _PHYSICAL_ENGINES:
         render = rp.render_physical_kernel if cfg.engine == "physical" else render_physical
         return functools.partial(render, tri_nee=cfg.tri_nee)
     return rk.render_kernel if cfg.engine == "cuda" else render_radiance
+
+
+def _render_fn(cfg, device):
+    """``_renderer``'s call through ``parallel.render_sharded`` on the
+    config's mesh where it has more than one slot (the mesh is refused
+    here, before any work, if it does not fit the devices)."""
+    if not _sharded(cfg):
+        return _renderer(cfg)
+    import functools
+
+    from ..parallel import render_sharded
+
+    return functools.partial(render_sharded, mesh=_mesh(cfg, device),
+                             engine=_SHARDED_ENGINES[cfg.engine],
+                             tri_nee=cfg.tri_nee and cfg.engine in _PHYSICAL_ENGINES)
 
 
 def _u8(image: np.ndarray) -> np.ndarray:
@@ -172,7 +221,7 @@ def cmd_render(args):
             setattr(cfg, name, True)
     if args.out:
         cfg.output = args.out
-    _check_ported(cfg)
+    _check_engine(cfg)
     viewer = None
     if args.live:
         from ..utils.termview import TerminalViewer
@@ -181,11 +230,11 @@ def cmd_render(args):
     if (cfg.progressive or viewer is not None) and not cfg.checkpoint_every:
         cfg.checkpoint_every = max(1, cfg.spp // 8)  # 8 previews
     device = _device(args.device)
+    render = _render_fn(cfg, device)
 
     scene = get_scene(cfg.scene, device)
     camera = Camera.reference(device, cfg.fov_deg)
     metrics = MetricsLogger(args.metrics)
-    render = _renderer(cfg)
     ck = None
     spp_done = spp_start = 0
     if cfg.checkpoint_path and Path(cfg.checkpoint_path).exists():
@@ -222,9 +271,11 @@ def cmd_render(args):
             viewer.show(_u8(ck.image), caption=f"spp {spp_done}/{cfg.spp}")
     rendered = cfg.spp - spp_start
     rps = throughput(cfg.height, cfg.width, rendered, cfg.max_bounces, seconds) if rendered else 0.0
+    mesh = [cfg.mesh.tile, cfg.mesh.spp]
     metrics.log("render", engine=cfg.engine, device=str(device), spp=rendered,
-                seconds=seconds, rays_per_sec=rps, writer="numpy")
-    print(f"spp {rendered}  {seconds:.2f}s  {rps:.3e} rays/s  ({cfg.engine} on {device})")
+                seconds=seconds, rays_per_sec=rps, writer="numpy", mesh=mesh)
+    where = f"mesh {mesh[0]}x{mesh[1]} on {device.type}" if _sharded(cfg) else str(device)
+    print(f"spp {rendered}  {seconds:.2f}s  {rps:.3e} rays/s  ({cfg.engine} on {where})")
     if args.bounce_stats:
         _bounce_stats(cfg, scene, camera, metrics)
     # The image is the accumulator's mean, (rad * spp) / spp for one chunk,
@@ -288,8 +339,9 @@ def cmd_animate(args):
     if args.out_dir:
         acfg.out_dir = args.out_dir
     cfg.engine = _ENGINE_ALIASES.get(cfg.engine, cfg.engine)
-    _check_ported(cfg)
+    _check_engine(cfg)
     device = _device(args.device)
+    render = _render_fn(cfg, device)
 
     scene = get_scene(cfg.scene, device)
     cameras = _orbit_cameras(acfg, device)
@@ -304,7 +356,6 @@ def cmd_animate(args):
     writer = native.AsyncBitmapWriter() if native.available() else None
     writer_name = "native" if writer is not None else "numpy"
     rays = rays_per_render(cfg.height, cfg.width, cfg.spp, cfg.max_bounces)
-    render = _renderer(cfg)
     last = time.perf_counter()
 
     def hand_over(f, host, copied):
@@ -333,6 +384,7 @@ def cmd_animate(args):
     for f, camera in enumerate(cameras):
         u8 = render_image_u8(render(scene, camera, cfg.height, cfg.width, cfg.spp,
                                     cfg.max_bounces, cfg.seed + f, jitter=cfg.jitter))
+        u8 = u8.to(device)  # a mesh's image lies on its first slot's device
         copied = None
         if device.type == "cuda":
             host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
@@ -413,7 +465,10 @@ def cmd_fit(args):
                 f"fit --mode {mode} needs a physical engine ({', '.join(_FIT_PHYSICAL_ENGINES)}); "
                 f"engine '{named}' belongs to the reference tier, which keeps "
                 f"{'geometry' if mode == 'geometry' else 'roughness'} detached by contract")
-    _check_ported(cfg, _FIT_ENGINES)
+    _check_engine(cfg, _FIT_ENGINES)
+    if _sharded(cfg) and mode != "materials":
+        raise SystemExit(f"fit --mode {mode} runs on one device; a mesh shards the "
+                         "materials fit only (drop the mesh)")
     device = _device(args.device)
     physical = cfg.engine in _FIT_PHYSICAL_ENGINES
 
@@ -430,8 +485,8 @@ def cmd_fit(args):
             true_scene, camera, cfg.height, cfg.width, cfg.spp, cfg.max_bounces,
             target_seed, jitter=False, tri_nee=cfg.tri_nee)
     else:
-        target = _renderer(cfg)(true_scene, camera, cfg.height, cfg.width, cfg.spp,
-                                cfg.max_bounces, target_seed)
+        target = _render_fn(cfg, device)(true_scene, camera, cfg.height, cfg.width, cfg.spp,
+                                         cfg.max_bounces, target_seed)
 
     t0 = time.time()
     callback = None
@@ -480,10 +535,41 @@ def cmd_fit(args):
     init = dataclasses.replace(true_scene, materials=dataclasses.replace(
         mats, albedo=torch.full_like(mats.albedo, 0.5),
         emission_strength=torch.full_like(mats.emission_strength, 0.1)))
-    fitted, losses = diff.fit_materials(init, target, camera, *shape, **common)
+    if _sharded(cfg):
+        fitted, losses = _fit_sharded_materials(init, target, camera, cfg, fcfg, metrics,
+                                                device, bool(args.metrics))
+    else:
+        fitted, losses = diff.fit_materials(init, target, camera, *shape, **common)
     err = float((fitted.materials.albedo - mats.albedo).abs().max())
-    print(f"fit: {fcfg.steps} steps in {time.time() - t0:.1f}s, "
+    where = f" on mesh {cfg.mesh.tile}x{cfg.mesh.spp}" if _sharded(cfg) else ""
+    print(f"fit{where}: {fcfg.steps} steps in {time.time() - t0:.1f}s, "
           f"loss {losses[0]:.3e} -> {losses[-1]:.3e}, max albedo err {err:.4f}")
+
+
+def _fit_sharded_materials(init, target, camera, cfg, fcfg, metrics, device, log_steps):
+    """Mesh-sharded material fit: ``parallel.make_train_step`` for every
+    step, with the fit loop, seeds and checkpoints of ``diff.fit_materials``
+    (``--checkpoint-path`` resumes it). Every step is logged with the mesh
+    where metrics are written. Returns ``(scene, losses)``."""
+    from .. import parallel
+    from ..grad import diff
+
+    mesh = _mesh(cfg, device)
+    step = parallel.make_train_step(
+        camera, cfg.height, cfg.width, cfg.spp, cfg.max_bounces, mesh,
+        diff.apply_material_params, engine=cfg.engine)
+    params = diff.make_material_params(init)
+    opt = diff._adam(params, fcfg.lr)
+    shape = [cfg.mesh.tile, cfg.mesh.spp]
+    callback = None
+    if log_steps:
+        callback = lambda i, l: metrics.log("fit_step", step=i, loss=l, engine=cfg.engine,
+                                            mesh=shape)
+    losses = diff._run_fit_loop(
+        lambda seed: step(params, opt, init, target, seed), fcfg.steps, cfg.seed, callback,
+        params, opt, fcfg.checkpoint_path or None, fcfg.checkpoint_every)
+    with torch.no_grad():
+        return diff.apply_material_params(init, params), losses
 
 
 def build_parser():
@@ -506,10 +592,11 @@ def build_parser():
         "--engine", choices=list(_ENGINES) + list(_ENGINE_ALIASES),
         help="cuda: the reference tier's hand kernel; core: its eager "
              "integrator; physical: the physical tier's hand kernel; "
-             "physical_core: its eager integrator. A kernel engine takes "
-             "its plain twin on --device cpu. pallas and physical_pallas, "
-             "the JAX package's names, mean cuda and physical (default: "
-             "the config's, else cuda)",
+             "physical_core: its eager integrator; split: the reference "
+             "shader's two-branch estimator (eager, one device). A kernel "
+             "engine takes its plain twin on --device cpu. pallas and "
+             "physical_pallas, the JAX package's names, mean cuda and "
+             "physical (default: the config's, else cuda)",
     )
     r.add_argument("--tri-nee", action="store_true", dest="tri_nee",
                    help="physical engines: light-sample emissive triangles "

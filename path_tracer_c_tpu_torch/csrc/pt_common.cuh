@@ -58,6 +58,21 @@ struct Params {
   float fx, fy, fz;  // forward
 };
 constexpr int kNumParams = 17;
+
+// A pixel of a row block: a launch covers `rows` rows of the image from its
+// global row `row_start` (the unit of image sharding, parallel/render.py).
+// The pixel's global row keys its PCG stream (`pix`) and its camera ray
+// (`frow`); its row in the block indexes the outputs (`local`), so a block's
+// image, planes and counters are the same rows of the whole launch's.
+struct RowBlock {
+  uint32_t pix;  // global row-major pixel index
+  size_t local;  // row-major pixel index in the block
+  float frow;    // global row
+  __device__ __forceinline__ RowBlock(int row, int col, int row_start, int width)
+      : pix(static_cast<uint32_t>((row_start + row) * width + col)),
+        local(static_cast<size_t>(row) * static_cast<size_t>(width) + col),
+        frow(static_cast<float>(row_start + row)) {}
+};
 static_assert(sizeof(Params) == kNumParams * sizeof(float), "Params layout");
 
 // The scene tables, as device pointers. No kernel writes them. They are

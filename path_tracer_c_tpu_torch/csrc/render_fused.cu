@@ -125,22 +125,24 @@ using RegistersPolicy = Policy<LocalRecords<kRegisterRounds>, PlaneAdds, kRegist
 using MovedPolicy = Policy<LocalRecords<kMaxRounds>, PlaneAdds, 0, 4>;
 
 // One pixel's radiance into `img` and Jacobian into the planes of `jac`
-// (plane stride `hw`); returns the bounce rounds it ran. `smem` is the
-// block's dynamic shared memory.
+// (plane stride `hw`, the pixels of the block); returns the bounce rounds it
+// ran. `row` is the pixel's row in the block of rows from `row_start`
+// (RowBlock, pt_common.cuh). `smem` is the block's dynamic shared memory.
 template <bool kCount, class Pol>
 __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
                                             float* __restrict__ img,
                                             float* __restrict__ jac, size_t hw,
-                                            int row, int col, int height,
+                                            int row, int col, int row_start, int height,
                                             int width, int spp, int max_bounces,
                                             uint32_t seed, int sample_offset,
                                             int jitter, float inv_spp, unsigned lanes,
                                             int& warp_rounds, unsigned char* smem) {
-  const uint32_t pix = static_cast<uint32_t>(row * width + col);
+  const RowBlock rb(row, col, row_start, width);
+  const uint32_t pix = rb.pix;
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
   const float fcol = static_cast<float>(col);
-  const float frow = static_cast<float>(row);
+  const float frow = rb.frow;
   const float inf = pos_inf();
 
   float pdx, pdy, pdz;
@@ -154,7 +156,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
   int rounds = 0;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   float k_r = 0.0f, k_g = 0.0f, k_b = 0.0f;  // the sky planes
-  float* const jpix = jac + pix;
+  float* const jpix = jac + rb.local;
   for (int s = 0; s < spp; ++s) {
     Path q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
                         static_cast<uint32_t>(s + sample_offset), seed, jitter);
@@ -231,7 +233,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
       t_b = mt.em_b + mt.alb_b * th_b;
     });
   }
-  float* o = img + 3 * static_cast<size_t>(pix);
+  float* o = img + 3 * rb.local;
   o[0] = acc_r * inv_spp;
   o[1] = acc_g * inv_spp;
   o[2] = acc_b * inv_spp;
@@ -251,12 +253,12 @@ render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m
                     const float* __restrict__ mat, int n_mat,
                     const float* __restrict__ par, float* __restrict__ img,
                     float* __restrict__ jac, unsigned long long* counter,
-                    int height, int width, int spp, int max_bounces,
-                    uint32_t seed, int sample_offset, int jitter,
+                    int height, int width, int row_start, int rows, int spp,
+                    int max_bounces, uint32_t seed, int sample_offset, int jitter,
                     float inv_spp) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  const bool in_range = col < width && row < height;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
   const unsigned lanes = kCount ? __ballot_sync(0xffffffffu, in_range) : 0u;
@@ -265,9 +267,9 @@ render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m
   if (in_range) {
     const Params p = *reinterpret_cast<const Params*>(par);
     const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
-    const size_t hw = static_cast<size_t>(height) * static_cast<size_t>(width);
-    rounds = render_pixel<kCount, Pol>(sc, p, img, jac, hw, row, col, height, width,
-                                       spp, max_bounces, seed, sample_offset, jitter,
+    const size_t hw = static_cast<size_t>(rows) * static_cast<size_t>(width);
+    rounds = render_pixel<kCount, Pol>(sc, p, img, jac, hw, row, col, row_start, height,
+                                       width, spp, max_bounces, seed, sample_offset, jitter,
                                        inv_spp, lanes, warp_rounds,
                                        reinterpret_cast<unsigned char*>(smem));
   }
@@ -283,8 +285,9 @@ render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m
 template <bool kCount, class Pol>
 int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
            int n_tri, const float* mat, int n_mat, const float* par, float* img, float* jac,
-           unsigned long long* counter, int height, int width, int spp, int max_bounces,
-           unsigned int seed, int sample_offset, int jitter, int device, void* stream) {
+           unsigned long long* counter, int height, int width, int row_start, int rows, int spp,
+           int max_bounces, unsigned int seed, int sample_offset, int jitter, int device,
+           void* stream) {
   constexpr int kRounds = Pol::kUnroll ? Pol::kUnroll : kMaxRounds;
   if (max_bounces + 1 > kRounds || (Pol::Records::kShared && n_mat > kMaxMaterials))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -293,7 +296,7 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
+                  (rows + block.y - 1) / block.y);
   size_t smem = 0;
   if constexpr (Pol::Records::kShared) {
     err = records_smem(render_fused_kernel<kCount, Pol>, max_bounces,
@@ -302,7 +305,7 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   }
   render_fused_kernel<kCount, Pol><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, counter,
-      height, width, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
+      height, width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,9 +314,9 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
 // The most bounces render_fused takes; the wrapper asks and raises above it.
 extern "C" int render_fused_max_bounces() { return kMaxRounds - 1; }
 
-// C entry, bound with ctypes. Tables and `par` as for render_fwd; `img` is
-// (height, width, 3) float32; `jac` is (9 * n_mat + 3, height, width)
-// float32 and must arrive zero-filled; `counter` is null, or two zeroed
+// C entry, bound with ctypes. Tables, `par` and the block of `rows` rows
+// from `row_start` as for render_fwd; `img` is (rows, width, 3) float32;
+// `jac` is (9 * n_mat + 3, rows, width) float32 and must arrive zero-filled; `counter` is null, or two zeroed
 // int64 that receive the executed thread-rounds and the warp lane-rounds
 // (the counting instantiation runs then). Launches on `stream` of device
 // `device` and returns cudaGetLastError(), or cudaErrorInvalidValue if
@@ -322,12 +325,13 @@ extern "C" int render_fused(const float* sph, const int* sph_m, int n_sph,
                             const float* tri, const int* tri_m, int n_tri,
                             const float* mat, int n_mat, const float* par,
                             float* img, float* jac, unsigned long long* counter,
-                            int height, int width, int spp, int max_bounces,
-                            unsigned int seed, int sample_offset, int jitter,
-                            int device, void* stream) {
+                            int height, int width, int row_start, int rows, int spp,
+                            int max_bounces, unsigned int seed, int sample_offset,
+                            int jitter, int device, void* stream) {
   auto go = counter ? launch<true, KernelPolicy> : launch<false, KernelPolicy>;
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, counter, height,
-            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
+            width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
+            stream);
 }
 
 // A measurement instantiation of render_fused (pt_fused.cuh `Variant`), with
@@ -336,9 +340,10 @@ extern "C" int render_fused(const float* sph, const int* sph_m, int n_sph,
 extern "C" int render_fused_variant(int variant, const float* sph, const int* sph_m,
                                     int n_sph, const float* tri, const int* tri_m, int n_tri,
                                     const float* mat, int n_mat, const float* par, float* img,
-                                    float* jac, int height, int width, int spp,
-                                    int max_bounces, unsigned int seed, int sample_offset,
-                                    int jitter, int device, void* stream) {
+                                    float* jac, int height, int width, int row_start,
+                                    int rows, int spp, int max_bounces, unsigned int seed,
+                                    int sample_offset, int jitter, int device,
+                                    void* stream) {
   decltype(&launch<false, KernelPolicy>) go = nullptr;
   switch (variant) {
     case kVarSink: go = launch<false, SinkPolicy>; break;
@@ -347,5 +352,6 @@ extern "C" int render_fused_variant(int variant, const float* sph, const int* sp
   }
   if (!go) return static_cast<int>(cudaErrorInvalidValue);
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, nullptr, height,
-            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
+            width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
+            stream);
 }

@@ -49,19 +49,22 @@ using namespace ptc;
 using KernelPolicy = FwdPolicy<Regen, SharedTables>;
 
 // One pixel's radiance into `out` (lanes in the image only), its rounds into
-// `counts` (kCount). Every lane of the warp calls it.
+// `counts` (kCount). Every lane of the warp calls it. `row` is the pixel's row
+// in the block of rows from `row_start` (RowBlock, pt_common.cuh).
 template <bool kCount, class Pol>
 __device__ __forceinline__ void render_pixel(const Tables& sc, const Params& p,
                                             float* __restrict__ out, bool in_range,
-                                            int row, int col, int height, int width,
-                                            int spp, int max_bounces, uint32_t seed,
-                                            int sample_offset, int jitter, float inv_spp,
-                                            unsigned lanes, RoundCounts& counts) {
-  const uint32_t pix = static_cast<uint32_t>(row * width + col);
+                                            int row, int col, int row_start, int height,
+                                            int width, int spp, int max_bounces,
+                                            uint32_t seed, int sample_offset, int jitter,
+                                            float inv_spp, unsigned lanes,
+                                            RoundCounts& counts) {
+  const RowBlock rb(row, col, row_start, width);
+  const uint32_t pix = rb.pix;
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
   const float fcol = static_cast<float>(col);
-  const float frow = static_cast<float>(row);
+  const float frow = rb.frow;
   const float inf = pos_inf();
 
   float pdx, pdy, pdz;
@@ -94,7 +97,7 @@ __device__ __forceinline__ void render_pixel(const Tables& sc, const Params& p,
       },
       counts);
   if (in_range) {
-    float* o = out + 3 * static_cast<size_t>(pix);
+    float* o = out + 3 * rb.local;
     o[0] = acc_r * inv_spp;
     o[1] = acc_g * inv_spp;
     o[2] = acc_b * inv_spp;
@@ -108,13 +111,13 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                   const int* __restrict__ tri_m, int n_tri,
                   const float* __restrict__ mat, int n_mat,
                   const float* __restrict__ par, float* __restrict__ out,
-                  unsigned long long* counter, int height, int width, int spp,
-                  int max_bounces, uint32_t seed, int sample_offset, int jitter,
-                  float inv_spp) {
+                  unsigned long long* counter, int height, int width, int row_start,
+                  int rows, int spp, int max_bounces, uint32_t seed, int sample_offset,
+                  int jitter, float inv_spp) {
   extern __shared__ uint4 smem[];
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  const bool in_range = col < width && row < height;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
   const unsigned lanes = kCount ? __ballot_sync(kFullWarp, in_range) : 0u;
@@ -126,7 +129,7 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
   }
   const Params p = *reinterpret_cast<const Params*>(par);
   RoundCounts counts;
-  render_pixel<kCount, Pol>(sc, p, out, in_range, row, col, height, width, spp,
+  render_pixel<kCount, Pol>(sc, p, out, in_range, row, col, row_start, height, width, spp,
                             max_bounces, seed, sample_offset, jitter, inv_spp, lanes,
                             counts);
   if (kCount) {
@@ -140,8 +143,9 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
 template <bool kCount, class Pol>
 int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
            int n_tri, const float* mat, int n_mat, const float* par, float* out,
-           unsigned long long* counter, int height, int width, int spp, int max_bounces,
-           unsigned int seed, int sample_offset, int jitter, int device, void* stream) {
+           unsigned long long* counter, int height, int width, int row_start, int rows, int spp,
+           int max_bounces, unsigned int seed, int sample_offset, int jitter, int device,
+           void* stream) {
   const size_t smem =
       Pol::Tab::kShared ? 4 * static_cast<size_t>(table_words(n_sph, n_tri, n_mat, false)) : 0;
   if (smem > kSharedTableBudget) return static_cast<int>(cudaErrorInvalidValue);
@@ -149,10 +153,10 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   // float32(1.0 / spp), rounded from double as the JAX package does.
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  render_fwd_kernel<kCount, Pol><<<fwd_grid(height, width), fwd_block(), smem,
+  render_fwd_kernel<kCount, Pol><<<fwd_grid(rows, width), fwd_block(), smem,
                                    static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height, width,
-      spp, max_bounces, seed, sample_offset, jitter, inv_spp);
+      row_start, rows, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,7 +183,8 @@ extern "C" int render_table_budget() { return kSharedTableBudget; }
 
 // C entry, bound with ctypes. Pointers are device pointers of contiguous
 // float32/int32 tables and the kNumParams camera/sky floats, packed by
-// ops/render_kernel.py; `out` is (height, width, 3) float32. `counter` is
+// ops/render_kernel.py; `out` is (rows, width, 3) float32, the block of
+// `rows` rows from `row_start` of the height x width image. `counter` is
 // null, or two zeroed int64 that receive the executed thread-rounds and warp
 // lane-rounds (the counting instantiation runs then). Launches on `stream` of device
 // `device` and returns cudaGetLastError().
@@ -187,14 +192,15 @@ extern "C" int render_fwd(const float* sph, const int* sph_m, int n_sph,
                           const float* tri, const int* tri_m, int n_tri,
                           const float* mat, int n_mat, const float* par,
                           float* out, unsigned long long* counter, int height,
-                          int width, int spp, int max_bounces,
+                          int width, int row_start, int rows, int spp, int max_bounces,
                           unsigned int seed, int sample_offset, int jitter,
                           int device, void* stream) {
   // Above the budget, the kernel with its tables in device memory.
   Launch go = pick<KernelPolicy>(counter != nullptr, n_sph, n_tri, n_mat);
   if (!go) go = pick<GlobalTablesOf<KernelPolicy>>(counter != nullptr, n_sph, n_tri, n_mat);
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height,
-            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
+            width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
+            stream);
 }
 
 // A measurement instantiation of render_fwd (pt_sched.cuh `FwdVariant`), with
@@ -204,9 +210,10 @@ extern "C" int render_fwd(const float* sph, const int* sph_m, int n_sph,
 extern "C" int render_fwd_variant(int variant, const float* sph, const int* sph_m, int n_sph,
                                   const float* tri, const int* tri_m, int n_tri,
                                   const float* mat, int n_mat, const float* par, float* out,
-                                  unsigned long long* counter, int height, int width, int spp,
-                                  int max_bounces, unsigned int seed, int sample_offset,
-                                  int jitter, int device, void* stream) {
+                                  unsigned long long* counter, int height, int width,
+                                  int row_start, int rows, int spp, int max_bounces,
+                                  unsigned int seed, int sample_offset, int jitter,
+                                  int device, void* stream) {
   const bool count = counter != nullptr;
   Launch go = nullptr;
   switch (variant) {
@@ -219,5 +226,6 @@ extern "C" int render_fwd_variant(int variant, const float* sph, const int* sph_
   }
   if (!go) return static_cast<int>(cudaErrorInvalidValue);
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height,
-            width, spp, max_bounces, seed, sample_offset, jitter, device, stream);
+            width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
+            stream);
 }

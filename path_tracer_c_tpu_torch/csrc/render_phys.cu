@@ -81,20 +81,22 @@ __device__ __forceinline__ void stage_emitters(Emitters& em, const Tables& sc,
 
 // One pixel's radiance into `out` (lanes in the image only); with kCount its
 // events into `ev` and its rounds into `counts`. Every lane of the warp calls
-// it.
+// it. `row` is the pixel's row in the block of rows from `row_start`
+// (RowBlock, pt_common.cuh).
 template <bool kCount, bool kTriNee, class Pol>
 __device__ __forceinline__ void render_pixel(const Tables& sc, const Emitters& em,
                                             const Params& p, float* __restrict__ out,
-                                            bool in_range, int row, int col, int height,
-                                            int width, int spp, int max_bounces,
+                                            bool in_range, int row, int col, int row_start,
+                                            int height, int width, int spp, int max_bounces,
                                             uint32_t seed, int sample_offset, int jitter,
                                             bool nee, float inv_spp, unsigned lanes,
                                             int* ev, RoundCounts& counts) {
-  const uint32_t pix = static_cast<uint32_t>(row * width + col);
+  const RowBlock rb(row, col, row_start, width);
+  const uint32_t pix = rb.pix;
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
   const float fcol = static_cast<float>(col);
-  const float frow = static_cast<float>(row);
+  const float frow = rb.frow;
   const float inf = pos_inf();
 
   float pdx, pdy, pdz;
@@ -135,7 +137,7 @@ __device__ __forceinline__ void render_pixel(const Tables& sc, const Emitters& e
       },
       counts);
   if (in_range) {
-    float* o = out + 3 * static_cast<size_t>(pix);
+    float* o = out + 3 * rb.local;
     o[0] = acc_r * inv_spp;
     o[1] = acc_g * inv_spp;
     o[2] = acc_b * inv_spp;
@@ -153,12 +155,13 @@ render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                    const float* __restrict__ tri_area, const float* __restrict__ mat_est,
                    const int* __restrict__ counts, const float* __restrict__ par,
                    float* __restrict__ out, unsigned long long* counter, int nee,
-                   int height, int width, int spp, int max_bounces, uint32_t seed,
-                   int sample_offset, int jitter, float inv_spp) {
+                   int height, int width, int row_start, int rows, int spp,
+                   int max_bounces, uint32_t seed, int sample_offset, int jitter,
+                   float inv_spp) {
   extern __shared__ uint4 smem[];
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  const bool in_range = col < width && row < height;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
   const unsigned lanes = kCount ? __ballot_sync(kFullWarp, in_range) : 0u;
@@ -173,9 +176,9 @@ render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
   const Params p = *reinterpret_cast<const Params*>(par);
   int ev[kNumEvents] = {0, 0, 0, 0};
   RoundCounts rc;
-  render_pixel<kCount, kTriNee, Pol>(sc, em, p, out, in_range, row, col, height, width, spp,
-                                     max_bounces, seed, sample_offset, jitter, nee != 0,
-                                     inv_spp, lanes, ev, rc);
+  render_pixel<kCount, kTriNee, Pol>(sc, em, p, out, in_range, row, col, row_start, height,
+                                     width, spp, max_bounces, seed, sample_offset, jitter,
+                                     nee != 0, inv_spp, lanes, ev, rc);
   if (kCount) {
     block_add(rc.thread, counter);
 #pragma unroll
@@ -194,9 +197,9 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
            int n_tri, const float* mat, int n_mat, const int* em_list, const float* le_sph,
            const int* tri_list, const float* le_tri, const float* tri_area,
            const float* mat_est, const int* counts, const float* par, float* out,
-           unsigned long long* counter, int nee, int height, int width, int spp,
-           int max_bounces, unsigned int seed, int sample_offset, int jitter, int device,
-           void* stream) {
+           unsigned long long* counter, int nee, int height, int width, int row_start,
+           int rows, int spp, int max_bounces, unsigned int seed, int sample_offset, int jitter,
+           int device, void* stream) {
   const size_t smem =
       Pol::Tab::kShared ? 4 * static_cast<size_t>(table_words(n_sph, n_tri, n_mat, true)) : 0;
   if (smem > kSharedTableBudget) return static_cast<int>(cudaErrorInvalidValue);
@@ -204,11 +207,11 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   // float32(1.0 / spp), rounded from double as the JAX package does.
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  render_phys_kernel<kCount, kTriNee, Pol><<<fwd_grid(height, width), fwd_block(), smem,
+  render_phys_kernel<kCount, kTriNee, Pol><<<fwd_grid(rows, width), fwd_block(), smem,
                                              static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list, le_tri,
-      tri_area, mat_est, counts, par, out, counter, nee, height, width, spp, max_bounces,
-      seed, sample_offset, jitter, inv_spp);
+      tri_area, mat_est, counts, par, out, counter, nee, height, width, row_start, rows, spp,
+      max_bounces, seed, sample_offset, jitter, inv_spp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,8 +235,9 @@ Launch pick(bool count, bool tri_nee, int n_sph, int n_tri, int n_mat) {
 
 // C entry, bound with ctypes. The scene tables and `par` are those of
 // render_fwd; the emitter tables and `counts` = (n_em, n_em_t), two int32
-// on the device, are packed by ops/render_physical.py. `out` is (height,
-// width, 3) float32. `counter` is null, or kNumCounters zeroed int64 that
+// on the device, are packed by ops/render_physical.py. `out` is (rows,
+// width, 3) float32, the block of `rows` rows from `row_start` as for
+// render_fwd. `counter` is null, or kNumCounters zeroed int64 that
 // receive the executed thread-rounds, the diffuse vertices among them, the
 // light samples computed, the shadow scans run, and the warp lane-rounds,
 // those with a light sample and those with a shadow scan (the counting
@@ -248,16 +252,16 @@ extern "C" int render_phys(const float* sph, const int* sph_m, int n_sph,
                            const float* mat_est, const int* counts,
                            const float* par, float* out,
                            unsigned long long* counter, int nee, int tri_nee,
-                           int height, int width, int spp, int max_bounces,
-                           unsigned int seed, int sample_offset, int jitter,
-                           int device, void* stream) {
+                           int height, int width, int row_start, int rows, int spp,
+                           int max_bounces, unsigned int seed, int sample_offset,
+                           int jitter, int device, void* stream) {
   // Above the budget, the kernel with its tables in device memory.
   const bool count = counter != nullptr, tn = tri_nee != 0;
   Launch go = pick<KernelPolicy>(count, tn, n_sph, n_tri, n_mat);
   if (!go) go = pick<GlobalTablesOf<KernelPolicy>>(count, tn, n_sph, n_tri, n_mat);
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
-            le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width, spp,
-            max_bounces, seed, sample_offset, jitter, device, stream);
+            le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width,
+            row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device, stream);
 }
 
 // A measurement instantiation of render_phys (pt_sched.cuh `FwdVariant`),
@@ -271,9 +275,10 @@ extern "C" int render_phys_variant(int variant, const float* sph, const int* sph
                                    const float* le_tri, const float* tri_area,
                                    const float* mat_est, const int* counts, const float* par,
                                    float* out, unsigned long long* counter, int nee,
-                                   int tri_nee, int height, int width, int spp,
-                                   int max_bounces, unsigned int seed, int sample_offset,
-                                   int jitter, int device, void* stream) {
+                                   int tri_nee, int height, int width, int row_start,
+                                   int rows, int spp, int max_bounces, unsigned int seed,
+                                   int sample_offset, int jitter, int device,
+                                   void* stream) {
   const bool count = counter != nullptr, tn = tri_nee != 0;
   Launch go = nullptr;
   switch (variant) {
@@ -286,6 +291,6 @@ extern "C" int render_phys_variant(int variant, const float* sph, const int* sph
   }
   if (!go) return static_cast<int>(cudaErrorInvalidValue);
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
-            le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width, spp,
-            max_bounces, seed, sample_offset, jitter, device, stream);
+            le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width,
+            row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device, stream);
 }

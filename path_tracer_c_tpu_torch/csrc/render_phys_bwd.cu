@@ -58,24 +58,27 @@ namespace {
 using namespace ptc;
 
 // One pixel's cotangents into the block's shared table `acc`: rows of 8 per
-// material, the sky's row, then rows of 4 per tracked emitter ordinal.
+// material, the sky's row, then rows of 4 per tracked emitter ordinal. `row`
+// is the pixel's row in the block of rows from `row_start` (RowBlock,
+// pt_common.cuh); `g` holds the block's rows.
 template <bool kTriNee>
 __device__ __forceinline__ void backward_pixel(
     const Tables& sc, const Emitters& em, const float* __restrict__ mat_eco,
     const Params& p, const float* __restrict__ g, float* acc, int n_em_cap, int row,
-    int col, int height, int width, int spp, int max_bounces, uint32_t seed,
+    int col, int row_start, int height, int width, int spp, int max_bounces, uint32_t seed,
     int sample_offset, int jitter, bool nee, float inv_spp) {
-  const uint32_t pix = static_cast<uint32_t>(row * width + col);
+  const RowBlock rb(row, col, row_start, width);
+  const uint32_t pix = rb.pix;
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
   const float fcol = static_cast<float>(col);
-  const float frow = static_cast<float>(row);
+  const float frow = rb.frow;
   const float inf = pos_inf();
   float* const geo = acc + 8 * (sc.n_mat + 1);
 
   float pdx, pdy, pdz;
   camera_dir(p, fcol + 0.5f, frow + 0.5f, fw, fh, pdx, pdy, pdz);
-  const float* gp = g + 3 * static_cast<size_t>(pix);
+  const float* gp = g + 3 * rb.local;
   const float g_r = gp[0] * inv_spp, g_g = gp[1] * inv_spp, g_b = gp[2] * inv_spp;
 
   RoundStores st;
@@ -197,8 +200,9 @@ render_phys_bwd_kernel(const float* __restrict__ sph, const int* __restrict__ sp
                        const float* __restrict__ mat_eco,
                        const int* __restrict__ counts, const float* __restrict__ par,
                        const float* __restrict__ g, float* out, float* geo_out, int nee,
-                       int n_em_cap, int height, int width, int spp, int max_bounces,
-                       uint32_t seed, int sample_offset, int jitter, float inv_spp) {
+                       int n_em_cap, int height, int width, int row_start, int rows,
+                       int spp, int max_bounces, uint32_t seed, int sample_offset,
+                       int jitter, float inv_spp) {
   extern __shared__ float acc[];
   const int n_out = 8 * (n_mat + 1);
   const int n_acc = n_out + 4 * max(n_em_cap, 1);
@@ -207,15 +211,15 @@ render_phys_bwd_kernel(const float* __restrict__ sph, const int* __restrict__ sp
   for (int i = tid; i < n_acc; i += n_threads) acc[i] = 0.0f;
   __syncthreads();
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (col < width && row < height) {
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  if (col < width && row < rows) {
     const Params p = *reinterpret_cast<const Params*>(par);
     const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
     const Emitters em = {em_list, le_sph, tri_list, le_tri, tri_area, mat_est,
                          counts[0], counts[1]};
-    backward_pixel<kTriNee>(sc, em, mat_eco, p, g, acc, n_em_cap, row, col, height, width,
-                            spp, max_bounces, seed, sample_offset, jitter, nee != 0,
-                            inv_spp);
+    backward_pixel<kTriNee>(sc, em, mat_eco, p, g, acc, n_em_cap, row, col, row_start,
+                            height, width, spp, max_bounces, seed, sample_offset, jitter,
+                            nee != 0, inv_spp);
   }
   __syncthreads();
   // The block's table into the output: one atomic per entry that is not zero.
@@ -229,7 +233,9 @@ render_phys_bwd_kernel(const float* __restrict__ sph, const int* __restrict__ sp
 
 // C entry, bound with ctypes. Tables, emitter tables, `counts` and `par` as
 // for render_phys; `mat_eco` is (n_mat, 3) float32, the raw emission colours;
-// `g` is (height, width, 3) float32, the image's cotangent; `out` is (n_mat +
+// `g` is (rows, width, 3) float32, the cotangent of the block of `rows` rows
+// from `row_start` of the height x width image, whose pixels the kernel
+// replays; `out` is (n_mat +
 // 1, 8) float32 and `geo_out` (max(n_em_cap, 1), 4) float32, both zero-filled
 // by the caller. Launches on `stream` of device `device` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue if max_bounces is above the
@@ -242,9 +248,9 @@ extern "C" int render_phys_bwd(const float* sph, const int* sph_m, int n_sph,
                                const float* mat_est, const float* mat_eco,
                                const int* counts, const float* par, const float* g,
                                float* out, float* geo_out, int nee, int tri_nee,
-                               int n_em_cap, int height, int width, int spp,
-                               int max_bounces, unsigned int seed, int sample_offset,
-                               int jitter, int device, void* stream) {
+                               int n_em_cap, int height, int width, int row_start,
+                               int rows, int spp, int max_bounces, unsigned int seed,
+                               int sample_offset, int jitter, int device, void* stream) {
   if (max_bounces + 1 > kMaxRounds || n_em_cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -252,7 +258,7 @@ extern "C" int render_phys_bwd(const float* sph, const int* sph_m, int n_sph,
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
+                  (rows + block.y - 1) / block.y);
   const size_t shared = sizeof(float) * (8 * (n_mat + 1) + 4 * (n_em_cap > 0 ? n_em_cap : 1));
   auto kernel = tri_nee ? render_phys_bwd_kernel<true> : render_phys_bwd_kernel<false>;
   if (shared > 48 * 1024) {
@@ -263,6 +269,6 @@ extern "C" int render_phys_bwd(const float* sph, const int* sph_m, int n_sph,
   kernel<<<grid, block, shared, static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
       le_tri, tri_area, mat_est, mat_eco, counts, par, g, out, geo_out, nee, n_em_cap,
-      height, width, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
+      height, width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
   return static_cast<int>(cudaGetLastError());
 }

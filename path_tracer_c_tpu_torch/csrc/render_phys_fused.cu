@@ -103,10 +103,10 @@ using namespace ptc;
 
 // The plane pointers and sizes of one launch.
 struct Planes {
-  float* jac;   // (mp * n_mat + 3, H, W)
-  float* jgeo;  // (12 * n_em_cap, H, W), or null
-  float* jtri;  // (27 * tri_em_cap, H, W), or null
-  size_t hw;    // plane stride
+  float* jac;   // (mp * n_mat + 3, rows, W)
+  float* jgeo;  // (12 * n_em_cap, rows, W), or null
+  float* jtri;  // (27 * tri_em_cap, rows, W), or null
+  size_t hw;    // plane stride: the pixels of the block
   int n_em_cap, tri_em_cap;
 };
 
@@ -148,22 +148,24 @@ using MovedPolicy = Policy<SharedStores, PlaneAdds, 0, 4>;
 
 // One pixel's radiance into `img` and Jacobian planes into `pl`; returns the
 // bounce rounds it ran and adds to `n_valid` the light samples that counted.
-// `smem` is the block's dynamic shared memory.
+// `row` is the pixel's row in the block of rows from `row_start` (RowBlock,
+// pt_common.cuh). `smem` is the block's dynamic shared memory.
 template <bool kCount, bool kTriNee, bool kRough, class Pol>
 __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em,
                                             const Params& p, float* __restrict__ img,
                                             const Planes& pl, int row, int col,
-                                            int height, int width, int spp,
+                                            int row_start, int height, int width, int spp,
                                             int max_bounces, uint32_t seed,
                                             int sample_offset, int jitter, bool nee,
                                             float inv_spp, unsigned lanes, int& n_valid,
                                             int& warp_rounds, unsigned char* smem) {
   constexpr int kMatPlanes = kRough ? 12 : 9;
-  const uint32_t pix = static_cast<uint32_t>(row * width + col);
+  const RowBlock rb(row, col, row_start, width);
+  const uint32_t pix = rb.pix;
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
   const float fcol = static_cast<float>(col);
-  const float frow = static_cast<float>(row);
+  const float frow = rb.frow;
   const float inf = pos_inf();
   const size_t hw = pl.hw;
 
@@ -176,7 +178,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
   int rounds = 0;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   float k_r = 0.0f, k_g = 0.0f, k_b = 0.0f;  // the sky planes
-  float* const jpix = pl.jac + pix;
+  float* const jpix = pl.jac + rb.local;
   for (int s = 0; s < spp; ++s) {
     Path q = start_path(p, pix, fcol, frow, fw, fh, pdx, pdy, pdz,
                         static_cast<uint32_t>(s + sample_offset), seed, jitter);
@@ -212,7 +214,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
             float dw[4];
             cone_w_adjoint(sc.sph + ls.row * kSphStride, rec.sox, rec.soy, rec.soz,
                            h.nx, h.ny, h.nz, rec.v1, ls.cp, ls.sn, ls.pool_f, dw);
-            float* j = pl.jgeo + static_cast<size_t>(12 * ls.ord) * hw + pix;
+            float* j = pl.jgeo + static_cast<size_t>(12 * ls.ord) * hw + rb.local;
 #pragma unroll
             for (int comp = 0; comp < 4; ++comp) {
               adds.add(j + (3 * comp) * hw, f_r * dw[comp]);
@@ -224,7 +226,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
           float dw[9];
           tri_w_adjoint(sc.tri + (~ls.row) * kTriStride, rec.sox, rec.soy, rec.soz,
                         h.nx, h.ny, h.nz, rec.v1, rec.v2, ls.pool_f, dw);
-          float* j = pl.jtri + static_cast<size_t>(27 * ls.ord) * hw + pix;
+          float* j = pl.jtri + static_cast<size_t>(27 * ls.ord) * hw + rb.local;
 #pragma unroll
           for (int comp = 0; comp < 9; ++comp) {
             adds.add(j + (3 * comp) * hw, f_r * dw[comp]);
@@ -306,7 +308,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
       s_b = (addle ? mt.em_b : 0.0f) + mt.alb_b * sh_b;
     });
   }
-  float* o = img + 3 * static_cast<size_t>(pix);
+  float* o = img + 3 * rb.local;
   o[0] = acc_r * inv_spp;
   o[1] = acc_g * inv_spp;
   o[2] = acc_b * inv_spp;
@@ -334,12 +336,12 @@ render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ 
                          float* __restrict__ img, float* __restrict__ jac,
                          float* __restrict__ jgeo, float* __restrict__ jtri,
                          unsigned long long* counter, int nee, int n_em_cap,
-                         int tri_em_cap, int height, int width, int spp,
-                         int max_bounces, uint32_t seed, int sample_offset, int jitter,
-                         float inv_spp) {
+                         int tri_em_cap, int height, int width, int row_start, int rows,
+                         int spp, int max_bounces, uint32_t seed, int sample_offset,
+                         int jitter, float inv_spp) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  const bool in_range = col < width && row < height;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
   const unsigned lanes = kCount ? __ballot_sync(0xffffffffu, in_range) : 0u;
@@ -351,10 +353,10 @@ render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ 
     const Emitters em = {em_list, le_sph, tri_list, le_tri, tri_area, mat_est,
                          counts[0], counts[1]};
     const Planes pl = {jac, jgeo, jtri,
-                       static_cast<size_t>(height) * static_cast<size_t>(width),
+                       static_cast<size_t>(rows) * static_cast<size_t>(width),
                        n_em_cap, tri_em_cap};
     rounds = render_pixel<kCount, kTriNee, kRough, Pol>(
-        sc, em, p, img, pl, row, col, height, width, spp, max_bounces, seed,
+        sc, em, p, img, pl, row, col, row_start, height, width, spp, max_bounces, seed,
         sample_offset, jitter, nee != 0, inv_spp, lanes, n_valid, warp_rounds,
         reinterpret_cast<unsigned char*>(smem));
   }
@@ -375,8 +377,9 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
            const int* tri_list, const float* le_tri, const float* tri_area,
            const float* mat_est, const int* counts, const float* par, float* img, float* jac,
            float* jgeo, float* jtri, unsigned long long* counter, int nee, int n_em_cap,
-           int tri_em_cap, int height, int width, int spp, int max_bounces, unsigned int seed,
-           int sample_offset, int jitter, int device, void* stream) {
+           int tri_em_cap, int height, int width, int row_start, int rows, int spp,
+           int max_bounces, unsigned int seed, int sample_offset, int jitter, int device,
+           void* stream) {
   constexpr int kRounds = Pol::kUnroll ? Pol::kUnroll : kMaxRounds;
   if (max_bounces + 1 > kRounds || (Pol::Records::kShared && n_mat > 32767) ||
       n_em_cap < 0 || tri_em_cap < 0 || (n_em_cap > 0 && !jgeo) ||
@@ -387,7 +390,7 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
+                  (rows + block.y - 1) / block.y);
   const auto kernel = render_phys_fused_kernel<kCount, kTriNee, kRough, Pol>;
   size_t smem = 0;
   if constexpr (Pol::Records::kShared) {
@@ -397,8 +400,8 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
       le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, jtri, counter, nee,
-      n_em_cap, tri_em_cap, height, width, spp, max_bounces, seed, sample_offset,
-      jitter, inv_spp);
+      n_em_cap, tri_em_cap, height, width, row_start, rows, spp, max_bounces, seed,
+      sample_offset, jitter, inv_spp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,11 +419,12 @@ LaunchFn pick_rough(int rough_grad) {
 // render_phys_bwd); the wrappers ask and raise above it.
 extern "C" int render_phys_grad_max_bounces() { return kMaxRounds - 1; }
 
-// C entry, bound with ctypes. Tables, emitter tables, `counts` and `par` as
-// for render_phys; `img` is (height, width, 3) float32; `jac` is (mp * n_mat +
-// 3, height, width) float32 with mp = 12 if `rough_grad` else 9; `jgeo` is
-// (12 * n_em_cap, height, width) or null when n_em_cap is 0; `jtri` is (27 *
-// tri_em_cap, height, width) or null when tri_em_cap is 0 (it must be 0
+// C entry, bound with ctypes. Tables, emitter tables, `counts`, `par` and the
+// block of `rows` rows from `row_start` as for render_phys; `img` is (rows,
+// width, 3) float32; `jac` is (mp * n_mat + 3, rows, width) float32 with mp =
+// 12 if `rough_grad` else 9; `jgeo` is (12 * n_em_cap, rows, width) or null
+// when n_em_cap is 0; `jtri` is (27 * tri_em_cap, rows, width) or null when
+// tri_em_cap is 0 (it must be 0
 // without `tri_nee`). The planes must arrive zero-filled. `counter` is null,
 // or three zeroed int64 that receive the executed thread-rounds, the light
 // samples that counted and the warp lane-rounds. Launches on
@@ -436,16 +440,16 @@ extern "C" int render_phys_fused(const float* sph, const int* sph_m, int n_sph,
                                  float* jgeo, float* jtri,
                                  unsigned long long* counter, int nee, int tri_nee,
                                  int rough_grad, int n_em_cap, int tri_em_cap,
-                                 int height, int width, int spp, int max_bounces,
-                                 unsigned int seed, int sample_offset, int jitter,
-                                 int device, void* stream) {
+                                 int height, int width, int row_start, int rows, int spp,
+                                 int max_bounces, unsigned int seed, int sample_offset,
+                                 int jitter, int device, void* stream) {
   const LaunchFn go = counter
       ? (tri_nee ? pick_rough<true, true>(rough_grad) : pick_rough<true, false>(rough_grad))
       : (tri_nee ? pick_rough<false, true>(rough_grad) : pick_rough<false, false>(rough_grad));
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
             le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, jtri, counter, nee,
-            n_em_cap, tri_em_cap, height, width, spp, max_bounces, seed, sample_offset,
-            jitter, device, stream);
+            n_em_cap, tri_em_cap, height, width, row_start, rows, spp, max_bounces, seed,
+            sample_offset, jitter, device, stream);
 }
 
 // A measurement instantiation of render_phys_fused (pt_fused.cuh `Variant`),
@@ -460,9 +464,10 @@ extern "C" int render_phys_fused_variant(int variant, const float* sph, const in
                                          const float* tri_area, const float* mat_est,
                                          const int* counts, const float* par, float* img,
                                          float* jac, float* jgeo, int nee, int n_em_cap,
-                                         int height, int width, int spp, int max_bounces,
-                                         unsigned int seed, int sample_offset, int jitter,
-                                         int device, void* stream) {
+                                         int height, int width, int row_start, int rows,
+                                         int spp, int max_bounces, unsigned int seed,
+                                         int sample_offset, int jitter, int device,
+                                         void* stream) {
   LaunchFn go = nullptr;
   switch (variant) {
     case kVarSink: go = launch<false, false, false, SinkPolicy>; break;
@@ -472,6 +477,6 @@ extern "C" int render_phys_fused_variant(int variant, const float* sph, const in
   if (!go) return static_cast<int>(cudaErrorInvalidValue);
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
             le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, nullptr, nullptr, nee,
-            n_em_cap, 0, height, width, spp, max_bounces, seed, sample_offset, jitter, device,
-            stream);
+            n_em_cap, 0, height, width, row_start, rows, spp, max_bounces, seed, sample_offset,
+            jitter, device, stream);
 }

@@ -27,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import rng as _rng
-from ..ops.camera import Camera, pixel_indices, primary_rays
+from ..ops.camera import Camera, check_rows, pixel_indices, primary_rays
 from ..ops.intersect import trace
 from ..ops.rng import _f32, sqrt_rn
 from ..ops.sampling import perturb_normal, reflect, refract
@@ -176,13 +176,19 @@ def render_tile(
     sample_offset: int = 0,
     remat: bool = False,
     variant: str = "gpu",
+    row_start: int = 0,
+    rows: int | None = None,
 ):
-    """Monte-Carlo radiance, (H, W, 3) float32 mean over ``spp`` samples.
+    """Monte-Carlo radiance of a row block, (rows, W, 3) float32 mean over
+    ``spp`` samples.
 
-    Samples run one after another, each a batch over all pixels. RNG
-    streams key on global pixel and sample indices; ``sample_offset``
-    shifts the sample indices, so a render split into sample ranges sums
-    to the unsplit one.
+    Samples run one after another, each a batch over the block's pixels.
+    ``height`` is the full image height; ``row_start`` and ``rows``
+    (default: the whole image) select the block, the unit of image
+    sharding (``parallel/render.py``). RNG streams key on global pixel and
+    sample indices, so a block equals the same rows of the whole image, and
+    ``sample_offset`` shifts the sample indices, so a render split into
+    sample ranges sums to the unsplit one.
 
     ``remat=True`` runs each sample under ``torch.utils.checkpoint``:
     backward recomputes the sample's bounces instead of keeping their
@@ -192,14 +198,15 @@ def render_tile(
     device = scene.device
     if camera.device != device:
         raise ValueError(f"camera on {camera.device}, scene on {device}")
-    pix = pixel_indices(height, width, device)
-    rays = primary_rays(camera, height, width)
-    accum = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
+    rows = check_rows(height, row_start, rows)
+    pix = pixel_indices(height, width, device, row_start, rows)
+    rays = primary_rays(camera, height, width, row_start=row_start, rows=rows)
+    accum = torch.zeros((rows * width, 3), dtype=torch.float32, device=device)
 
     def one_sample(s):
         st = _rng.seed_state(pix, s + sample_offset, seed)
         if jitter:
-            o, d, st = primary_rays(camera, height, width, st)
+            o, d, st = primary_rays(camera, height, width, st, row_start=row_start, rows=rows)
         else:
             o, d = rays
         return trace_paths(scene, o, d, st, max_bounces, variant=variant)[0]
@@ -208,7 +215,7 @@ def render_tile(
         radiance = (checkpoint(one_sample, s, use_reentrant=False) if remat
                     else one_sample(s))
         accum = accum + radiance
-    return (accum / spp).reshape(height, width, 3)
+    return (accum / spp).reshape(rows, width, 3)
 
 
 def render_radiance(

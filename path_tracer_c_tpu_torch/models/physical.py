@@ -42,7 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import rng as _rng
-from ..ops.camera import Camera, pixel_indices, primary_rays
+from ..ops.camera import Camera, check_rows, pixel_indices, primary_rays
 from ..ops.intersect import ray_sphere_t, trace
 from ..ops.rng import _f32, sqrt_rn
 from ..ops.sampling import reflect, refract
@@ -56,21 +56,17 @@ _SIN2_CAP = _f32(1.0 - 1e-7)
 _VIS_SCALE = _f32(1.0 - 1e-3)
 _VIS_SLACK = _f32(1e-4)
 
-# Arguments of the JAX functions that wait for a later ROADMAP.md item.
-_NOT_PORTED = {
-    "row_start": "A8 (row blocks)", "rows": "A8 (row blocks)",
-    "vma_axes": "A11 (parallel layer)",
-}
 _STAT_KEYS = ("hits", "misses", "tir_deaths")
 _NEE_STAT_KEYS = ("nee_candidates", "nee_visible")
 
 
 def _refuse(kwargs):
     for name in kwargs:
-        if name not in _NOT_PORTED:
+        if name != "vma_axes":
             raise TypeError(f"unexpected argument {name!r}")
-        raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet: see ROADMAP.md {_NOT_PORTED[name]}")
+        raise TypeError(
+            "vma_axes types a render's values by mesh axis under JAX's shard_map; "
+            "PyTorch has no counterpart, and parallel/render.py shards without it")
 
 
 def _onb(n):
@@ -377,28 +373,34 @@ def render_physical(
     tri_nee: bool = False,
     count_rounds: bool = False,
     remat: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
     **unported,
 ):
-    """Physical-tier radiance image (H, W, 3) float32 on the scene's device,
-    the mean over ``spp`` samples. Anti-aliasing jitter is on by default,
-    unlike the reference tier. With ``count_rounds`` returns ``(image,
-    rounds)``, see ``trace_paths_physical``. ``remat=True`` runs each
-    sample under ``torch.utils.checkpoint``, as
-    ``models.integrator.render_tile`` does: backward recomputes it, and no
-    value or gradient changes."""
+    """Physical-tier radiance image (rows, W, 3) float32 on the scene's
+    device, the mean over ``spp`` samples. Anti-aliasing jitter is on by
+    default, unlike the reference tier. ``row_start`` and ``rows`` (default:
+    the whole image) select a row block of the ``height``-row image, as in
+    ``models.integrator.render_tile``: a block equals the same rows of the
+    whole image. With ``count_rounds`` returns ``(image, rounds)``, see
+    ``trace_paths_physical``. ``remat=True`` runs each sample under
+    ``torch.utils.checkpoint``, as ``render_tile`` does: backward
+    recomputes it, and no value or gradient changes. The JAX package's
+    ``vma_axes`` is refused by name (``_refuse``)."""
     _refuse(unported)
     device = scene.device
     if camera.device != device:
         raise ValueError(f"camera on {camera.device}, scene on {device}")
-    pix = pixel_indices(height, width, device)
-    rays = primary_rays(camera, height, width)
-    accum = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
+    rows = check_rows(height, row_start, rows)
+    pix = pixel_indices(height, width, device, row_start, rows)
+    rays = primary_rays(camera, height, width, row_start=row_start, rows=rows)
+    accum = torch.zeros((rows * width, 3), dtype=torch.float32, device=device)
     rounds = 0
 
     def one_sample(s):
         st = _rng.seed_state(pix, s + sample_offset, seed)
         if jitter:
-            o, d, st = primary_rays(camera, height, width, st)
+            o, d, st = primary_rays(camera, height, width, st, row_start=row_start, rows=rows)
         else:
             o, d = rays
         return trace_paths_physical(
@@ -411,7 +413,7 @@ def render_physical(
         accum = accum + out[0]
         if count_rounds:
             rounds += int(out[2])
-    img = (accum / spp).reshape(height, width, 3)
+    img = (accum / spp).reshape(rows, width, 3)
     return (img, rounds) if count_rounds else img
 
 

@@ -41,7 +41,9 @@ _SCENE = [_P, _P, _I,  # spheres, sphere materials, count
           _P, _P, _I,  # triangles, triangle materials, count
           _P, _I,  # materials, count
           _P]  # camera and sky params
-_RUN = [_I, _I, _I, _I,  # height, width, spp, max_bounces
+_RUN = [_I, _I,  # height, width
+        _I, _I,  # row_start, rows: the block of rows the launch renders
+        _I, _I,  # spp, max_bounces
         _U, _I, _I,  # seed, sample_offset, jitter
         _I, _P]  # device index, stream
 _SIGNATURES = {

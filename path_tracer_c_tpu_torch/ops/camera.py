@@ -16,7 +16,7 @@ import torch
 
 from . import rng as _rng
 
-__all__ = ["Camera", "primary_rays", "pixel_indices"]
+__all__ = ["Camera", "primary_rays", "pixel_indices", "check_rows"]
 
 
 @dataclass(frozen=True)
@@ -79,16 +79,35 @@ class Camera:
         return Camera(**vals)
 
 
-def pixel_indices(height: int, width: int, device) -> torch.Tensor:
-    """Global row-major pixel index of every pixel, int64 (H*W,). The RNG
-    is keyed on it, so a later row-block cut keeps each pixel's stream."""
-    return torch.arange(height * width, dtype=torch.int64, device=device)
+def check_rows(height: int, row_start: int, rows: int | None) -> int:
+    """The row count of the block of ``rows`` rows (None: the rest of the
+    image) from ``row_start`` of an image ``height`` rows high; raises
+    unless ``0 <= row_start``, ``rows >= 1`` and ``row_start + rows <=
+    height``."""
+    row_start = int(row_start)
+    rows = height - row_start if rows is None else int(rows)
+    if row_start < 0 or rows < 1 or row_start + rows > height:
+        raise ValueError(f"row block of {rows} rows from row {row_start} is outside "
+                         f"an image of {height} rows")
+    return rows
 
 
-def primary_rays(camera: Camera, height: int, width: int, jitter_state=None):
-    """Camera rays for the whole image, ``(origins (N, 3), dirs (N, 3))``
-    with N = H*W, row-major from the top-left pixel, on the camera's
-    device.
+def pixel_indices(height: int, width: int, device, row_start: int = 0,
+                  rows: int | None = None) -> torch.Tensor:
+    """Global row-major pixel index of every pixel of the row block of
+    ``rows`` rows (default: all) from ``row_start``, int64 (rows*W,). The
+    RNG is keyed on it, so a row block keeps each pixel's stream."""
+    rows = height if rows is None else rows
+    return row_start * width + torch.arange(rows * width, dtype=torch.int64, device=device)
+
+
+def primary_rays(camera: Camera, height: int, width: int, jitter_state=None,
+                 row_start: int = 0, rows: int | None = None):
+    """Camera rays for a block of image rows, ``(origins (N, 3), dirs (N,
+    3))`` with N = rows*W, row-major from the block's top-left pixel, on the
+    camera's device. ``height`` is the full image height (it sets the NDC
+    mapping and the aspect); ``row_start`` and ``rows`` (default: all)
+    select the block.
 
     With ``jitter_state`` (a uint32 state per pixel, see ``ops.rng``),
     sub-pixel uniforms replace the pixel centre and the advanced state is
@@ -98,10 +117,11 @@ def primary_rays(camera: Camera, height: int, width: int, jitter_state=None):
     aspect = _rng._f32(width / height)
     tan_fov_2 = torch.tan(camera.fov * 0.5)
 
+    rows = height if rows is None else rows
     px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
-    py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
-    px = px.expand(height, width).reshape(-1)
-    py = py.expand(height, width).reshape(-1)
+    py = torch.arange(row_start, row_start + rows, dtype=torch.float32, device=device)[:, None]
+    px = px.expand(rows, width).reshape(-1)
+    py = py.expand(rows, width).reshape(-1)
 
     if jitter_state is not None:
         jitter_state, jx = _rng.uniform(jitter_state)

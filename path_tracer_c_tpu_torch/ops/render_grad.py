@@ -37,7 +37,7 @@ import torch
 
 from . import rng as _rng
 from . import render_kernel as _rk
-from .camera import Camera, pixel_indices
+from .camera import Camera
 from .rng import _f32
 from ..scene.scene import Scene
 
@@ -85,11 +85,15 @@ def render_fused(
     sample_offset: int = 0,
     jitter: bool = False,
     count_rounds: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
-    """``(image (H, W, 3), jac (9 * M + 3, H, W))`` float32, on the scene's
-    device; with ``count_rounds`` also the executed thread-rounds (see
-    ``render_kernel``; this kernel stops a thread at a miss or a death
-    only, so it runs more rounds where a material is exactly black).
+    """``(image (rows, W, 3), jac (9 * M + 3, rows, W))`` float32, on the
+    scene's device, of the block of ``rows`` rows (default: all) from
+    ``row_start``, as ``render_kernel`` takes it; with ``count_rounds`` also
+    the executed thread-rounds (see ``render_kernel``; this kernel stops a
+    thread at a miss or a death only, so it runs more rounds where a
+    material is exactly black).
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
     ``render_fused.launches`` counts its launches. CPU tensors go to
@@ -100,7 +104,8 @@ def render_fused(
     with 15 materials). The wrapper allocates it zero-filled; the kernel
     adds into it.
     """
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     if max_bounces > MAX_BOUNCES:
         raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
                          f"cap of {MAX_BOUNCES}")
@@ -109,9 +114,11 @@ def render_fused(
         return render_fused_reference(
             scene, camera, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, count_rounds=count_rounds,
+            row_start=row_start, rows=rows,
         )
     img, jac, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
-                                sample_offset, jitter, count_rounds)
+                                sample_offset, jitter, count_rounds, row_start=row_start,
+                                rows=rows)
     return (img, jac, int(counter[0])) if count_rounds else (img, jac)
 
 
@@ -119,8 +126,9 @@ render_fused.launches = 0
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            count, variant=None):
-    """Launch B2 on the scene's CUDA device: the timed kernel, its counting
+            count, variant=None, row_start=0, rows=None):
+    """Launch B2 on the scene's CUDA device over the block of ``rows`` rows
+    (None: all) from ``row_start``: the timed kernel, its counting
     instantiation (``count``: the counters, thread-rounds and warp
     lane-rounds, come back beside the planes), or a measurement variant."""
     device = scene.device
@@ -137,11 +145,13 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     operands = _rk._scene_operands(scene)
     par = _rk._camera_params(camera, scene, height, width)
     n_j = _MAT_J_PLANES * scene.num_materials + 3
-    img = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    jac = torch.zeros((n_j, height, width), dtype=torch.float32, device=device)
+    rows = height if rows is None else rows
+    img = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
+    jac = torch.zeros((n_j, rows, width), dtype=torch.float32, device=device)
     counter = torch.zeros(2, dtype=torch.int64, device=device) if count else None
     args = (*_rk._table_args(operands), _rk._ptr(par), _rk._ptr(img), _rk._ptr(jac))
-    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device)
+    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+                        row_start, rows)
     if variant is None:
         err = lib.render_fused(*args, _rk._ptr(counter), *run)
         name = "render_fused"
@@ -167,8 +177,11 @@ def render_fused_round_counts(
     seed: int,
     sample_offset: int = 0,
     jitter: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> dict:
-    """The rounds B2 runs for one render: ``thread_rounds`` (as
+    """The rounds B2 runs for one render (of a row block, as
+    ``render_fused`` takes it: the blocks' counts sum to the whole's): ``thread_rounds`` (as
     ``count_rounds``) and ``warp_lane_rounds``, the rounds each warp runs
     times its lanes in the image, summed over warps: per sample, as many as
     that sample's longest lane (every lane waits at the end of a sample).
@@ -177,28 +190,31 @@ def render_fused_round_counts(
     also gives ``warp_lane_rounds_regen``, the rounds path regeneration
     would run (each warp as many as its busiest lane's total over all
     samples)."""
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     if max_bounces > MAX_BOUNCES:
         raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
                          f"cap of {MAX_BOUNCES}")
     if scene.device.type == "cpu":
         return render_fused_round_counts_reference(
-            scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter)
+            scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+            row_start, rows)
     _, _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
-                            sample_offset, jitter, True)
+                            sample_offset, jitter, True, row_start=row_start, rows=rows)
     thread_rounds, warp_rounds = counter.tolist()
     return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
 
 
 def render_fused_round_counts_reference(scene, camera, height, width, spp, max_bounces, seed,
-                                        sample_offset=0, jitter=False) -> dict:
+                                        sample_offset=0, jitter=False, row_start=0,
+                                        rows=None) -> dict:
     """Plain twin of ``render_fused_round_counts``, on the scene's device:
     the twin's rounds of every (sample, pixel), grouped by warp under both
     schedules (``render_kernel.round_groupings``)."""
     per_sample = []
     render_fused_reference(scene, camera, height, width, spp, max_bounces, seed,
                            sample_offset=sample_offset, jitter=jitter,
-                           on_sample=per_sample.append)
+                           on_sample=per_sample.append, row_start=row_start, rows=rows)
     return _rk.round_groupings(torch.stack(per_sample))
 
 
@@ -213,22 +229,26 @@ def render_fused_variant(
     variant: str,
     sample_offset: int = 0,
     jitter: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """``(image, jac)`` of a measurement instantiation of B2 (``VARIANTS``),
+    of a row block as ``render_fused`` takes it,
     on CUDA tensors only: what the decomposition of B2's time
     (``utils/sol_decompose.fused_decompose``) times beside the kernel. No
     user path runs it. The image and, but for ``sink`` (whose planes hold
     one sum a pixel), the planes equal ``render_fused``'s.
     ``registers`` takes ``max_bounces <= 3``. Counts its launches in
     ``render_fused_variant.launches``."""
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
     cap = REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
     if max_bounces > cap:
         raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap of {cap}")
     img, jac, _ = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                          jitter, False, variant=variant)
+                          jitter, False, variant=variant, row_start=row_start, rows=rows)
     return img, jac
 
 
@@ -250,6 +270,8 @@ def render_fused_reference(
     jitter: bool = False,
     count_rounds: bool = False,
     on_sample=None,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """Plain PyTorch twin of the fused kernel, on the scene's device: the
     forward rounds of ``render_kernel_reference`` with per-bounce stores,
@@ -260,8 +282,10 @@ def render_fused_reference(
     skips. The material planes are updated with one ``scatter_add_`` per
     swept bounce, one index per pixel and plane, so it is deterministic.
     ``on_sample``, where given, receives each sample's (H, W) int64 rounds
-    of every pixel (those its path begins alive), in sample order."""
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    of every pixel (those its path begins alive), in sample order. Over the
+    row block of ``render_fused``: (rows, W) planes and rounds."""
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     if max_bounces > MAX_BOUNCES:
         raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
                          f"cap of {MAX_BOUNCES}")
@@ -269,13 +293,11 @@ def render_fused_reference(
     sph, sph_m, tri, tri_m, mat_tab = _rk._scene_operands(scene)
     par = _rk._camera_params(camera, scene, height, width)
     sky = (par[2], par[3], par[4])
-    n = height * width
+    n = rows * width
     n_mat = mat_tab.shape[0]
-    pix = pixel_indices(height, width, device)
-    rows = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
-    cols = (pix % width).to(torch.float32)
+    pix, prow, cols = _rk._pixel_grid(height, width, row_start, rows, device)
     fw, fh = (torch.tensor(float(v), device=device) for v in (width, height))
-    pd = _rk._camera_dir(par, cols + 0.5, rows + 0.5, fw, fh)
+    pd = _rk._camera_dir(par, cols + 0.5, prow + 0.5, fw, fh)
     origin = tuple(par[i].expand(n) for i in (5, 6, 7))
     zero = torch.zeros(n, dtype=torch.float32, device=device)
     one = torch.ones(n, dtype=torch.float32, device=device)
@@ -291,7 +313,7 @@ def render_fused_reference(
         if jitter:
             st, jx = _rng.uniform(st)
             st, jy = _rng.uniform(st)
-            d = _rk._camera_dir(par, cols + jx, rows + jy, fw, fh)
+            d = _rk._camera_dir(par, cols + jx, prow + jy, fw, fh)
         o, thr, rad = origin, (one, one, one), (zero, zero, zero)
         alive = torch.ones(n, dtype=torch.bool, device=device)
         pixel_rounds = torch.zeros(n, dtype=torch.int64, device=device)
@@ -313,7 +335,7 @@ def render_fused_reference(
             # Structural death only: a miss, or total internal reflection.
             alive = hit_ev & ~died
         if on_sample is not None:
-            on_sample(pixel_rounds.reshape(height, width))
+            on_sample(pixel_rounds.reshape(rows, width))
         acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
         k_sky = [k + t for k, t in zip(k_sky, thr)]  # P_end
 
@@ -340,8 +362,8 @@ def render_fused_reference(
             )
     jac[_MAT_J_PLANES * n_mat:] = torch.stack(k_sky)
     inv = _f32(1.0 / spp)
-    img = torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
-    jac = jac.reshape(-1, height, width)
+    img = torch.stack([a * inv for a in acc], dim=-1).reshape(rows, width, 3)
+    jac = jac.reshape(-1, rows, width)
     return (img, jac, int(rounds)) if count_rounds else (img, jac)
 
 
@@ -420,11 +442,11 @@ class _RenderFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, albedo, emission_color, emission_strength, transparency,
                 sky_color, scene, camera, height, width, spp, max_bounces, seed,
-                sample_offset, jitter):
+                sample_offset, jitter, row_start, rows):
         leaves = (albedo, emission_color, emission_strength, transparency, sky_color)
         img, jac = render_fused(
             _with_leaves(scene, leaves), camera, height, width, spp, max_bounces,
-            seed, sample_offset=sample_offset, jitter=jitter)
+            seed, sample_offset=sample_offset, jitter=jitter, row_start=row_start, rows=rows)
         ctx.save_for_backward(jac, albedo, emission_color, emission_strength)
         ctx.spp = spp
         return img
@@ -434,7 +456,7 @@ class _RenderFused(torch.autograd.Function):
     def backward(ctx, g):
         jac, albedo, emission_color, emission_strength = ctx.saved_tensors
         return (*_contract(jac, g, ctx.spp, albedo, emission_color, emission_strength),
-                *(None,) * 9)
+                *(None,) * 11)
 
 
 def render_kernel_vjp(
@@ -447,8 +469,11 @@ def render_kernel_vjp(
     seed: int,
     sample_offset: int = 0,
     jitter: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> torch.Tensor:
-    """Differentiable fast render: the image (H, W, 3) of ``render_kernel``,
+    """Differentiable fast render: the image (rows, W, 3) of
+    ``render_kernel`` (a row block where ``row_start`` and ``rows`` say so),
     with a backward pass for ``albedo``, ``emission_color``,
     ``emission_strength``, ``transparency`` and ``sky_color``.
 
@@ -468,7 +493,7 @@ def render_kernel_vjp(
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)):
         return _rk.render_kernel(
             scene, camera, height, width, spp, max_bounces, seed,
-            sample_offset=sample_offset, jitter=jitter)
+            sample_offset=sample_offset, jitter=jitter, row_start=row_start, rows=rows)
     return _RenderFused.apply(
         *leaves, scene, camera, height, width, spp, max_bounces, seed,
-        sample_offset, jitter)
+        sample_offset, jitter, row_start, rows)

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import rng as _rng
-from .camera import Camera, pixel_indices
+from .camera import Camera, check_rows, pixel_indices
 from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
 
@@ -83,7 +83,9 @@ _FLOAT_FIELDS = {
 
 
 def _check_inputs(scene: Scene, camera: Camera, height, width, spp,
-                  max_bounces, seed, sample_offset):
+                  max_bounces, seed, sample_offset, row_start=0, rows=None) -> int:
+    """Raise on what the kernels do not take; returns the row count of the
+    block of ``rows`` rows (None: the whole image) from ``row_start``."""
     device = scene.device
     tensors = [("sky_color", scene.sky_color, torch.float32)]
     for table, names in _FLOAT_FIELDS.items():
@@ -108,6 +110,7 @@ def _check_inputs(scene: Scene, camera: Camera, height, width, spp,
         raise ValueError(f"seed {seed} is not a uint32")
     if not 0 <= int(sample_offset) < 2**31 - spp:
         raise ValueError(f"sample_offset {sample_offset} out of range")
+    return check_rows(height, row_start, rows)
 
 
 def _face_normals(v0, v1, v2):
@@ -227,12 +230,14 @@ def _table_args(operands):
             _ptr(mat), mat.shape[0])
 
 
-def _run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device):
-    """The kernels' trailing arguments: sizes, stream seeds, the device
-    and PyTorch's current stream on it."""
+def _run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+              row_start=0, rows=None):
+    """The kernels' trailing arguments: sizes, the block of ``rows`` rows
+    (None: all) from ``row_start``, stream seeds, the device and PyTorch's
+    current stream on it."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    return (height, width, spp, max_bounces,
-            int(seed), int(sample_offset), int(bool(jitter)),
+    return (height, width, int(row_start), height if rows is None else int(rows),
+            spp, max_bounces, int(seed), int(sample_offset), int(bool(jitter)),
             device.index, ctypes.c_void_p(stream))
 
 
@@ -247,8 +252,14 @@ def render_kernel(
     sample_offset: int = 0,
     jitter: bool = False,
     count_rounds: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
-    """Radiance image (H, W, 3) float32, on the scene's device.
+    """Radiance image (rows, W, 3) float32, on the scene's device: the
+    block of ``rows`` rows (default: all ``height``) from ``row_start``, the
+    same rows of the whole image bit for bit (RNG streams and camera rays
+    key on global rows). Raises unless ``0 <= row_start``, ``rows >= 1``
+    and ``row_start + rows <= height``.
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
     ``render_kernel.launches`` counts its launches. CPU tensors go to
@@ -262,15 +273,17 @@ def render_kernel(
     are not comparable. Counting is a second instantiation of the kernel
     and waits for the device; timed renders leave it off.
     """
-    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                         row_start, rows)
     device = scene.device
     if device.type == "cpu":
         return render_kernel_reference(
             scene, camera, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, count_rounds=count_rounds,
+            row_start=row_start, rows=rows,
         )
     out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
-                           sample_offset, jitter, count_rounds)
+                           sample_offset, jitter, count_rounds, row_start=row_start, rows=rows)
     return (out, int(counter[0])) if count_rounds else out
 
 
@@ -278,11 +291,12 @@ render_kernel.launches = 0
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            count, variant=None):
-    """Launch B1 on the scene's CUDA device: the timed kernel, or with
-    ``variant`` an instantiation of ``VARIANTS``; with ``count``, its
-    counting instantiation, whose two counters (thread-rounds, warp
-    lane-rounds of its schedule) come back beside the image."""
+            count, variant=None, row_start=0, rows=None):
+    """Launch B1 on the scene's CUDA device over the block of ``rows`` rows
+    (None: all) from ``row_start``: the timed kernel, or with ``variant`` an
+    instantiation of ``VARIANTS``; with ``count``, its counting
+    instantiation, whose two counters (thread-rounds, warp lane-rounds of
+    its schedule) come back beside the image."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
@@ -291,10 +305,12 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     lib = load_library()
     operands = _scene_operands(scene)
     par = _camera_params(camera, scene, height, width)
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    rows = height if rows is None else rows
+    out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
     counter = torch.zeros(2, dtype=torch.int64, device=device) if count else None
     args = (*_table_args(operands), _ptr(par), _ptr(out), _ptr(counter),
-            *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device))
+            *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+                       row_start, rows))
     if variant is None:
         err, name = lib.render_fwd(*args), "render_fwd"
     else:
@@ -319,18 +335,22 @@ def render_kernel_variant(
     variant: str,
     sample_offset: int = 0,
     jitter: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """The image of an instantiation of B1 (``VARIANTS``), on CUDA tensors
     only: what the decomposition of B1's time
     (``utils/sol_decompose.sol_decompose``) times beside the kernel. No
-    user path runs it; its image equals ``render_kernel``'s. One that stages
-    its tables (``policy``) raises where they exceed ``SHARED_TABLE_BUDGET``.
-    Counts its launches in ``render_kernel_variant.launches``."""
-    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    user path runs it; its image equals ``render_kernel``'s, row blocks
+    included. One that stages its tables (``policy``) raises where they
+    exceed ``SHARED_TABLE_BUDGET``. Counts its launches in
+    ``render_kernel_variant.launches``."""
+    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                         row_start, rows)
     _check_variant(scene, variant)
     _cuda_only(scene, "render_kernel_variant")
     return _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-                   False, variant)[0]
+                   False, variant, row_start, rows)[0]
 
 
 render_kernel_variant.launches = 0
@@ -347,6 +367,8 @@ def render_kernel_round_counts(
     sample_offset: int = 0,
     jitter: bool = False,
     variant: str | None = None,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> dict:
     """The rounds B1 runs for one render: ``thread_rounds`` (as
     ``count_rounds``) and the rounds its warps run times their lanes in the
@@ -360,27 +382,34 @@ def render_kernel_round_counts(
     the timed kernel (a launch: it counts in ``render_kernel.launches``), or
     of ``variant`` (in ``render_kernel_variant.launches``), which gives the
     key of its own schedule; CPU tensors the plain twin, which gives both
-    (``render_kernel_round_counts_reference``)."""
-    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    (``render_kernel_round_counts_reference``). ``row_start`` and ``rows``:
+    a row block, as in ``render_kernel``; the blocks' counts sum to the
+    whole image's."""
+    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                         row_start, rows)
     if scene.device.type == "cpu":
         return render_kernel_round_counts_reference(
-            scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter)
+            scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
+            row_start, rows)
     if variant is not None:
         _check_variant(scene, variant)
     _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         jitter, True, variant)
+                         jitter, True, variant, row_start, rows)
     thread_rounds, warp_rounds = counter.tolist()
     return {"thread_rounds": thread_rounds, _warp_key(variant): warp_rounds}
 
 
 def render_kernel_round_counts_reference(scene, camera, height, width, spp, max_bounces, seed,
-                                         sample_offset=0, jitter=False) -> dict:
+                                         sample_offset=0, jitter=False, row_start=0,
+                                         rows=None) -> dict:
     """Plain twin of ``render_kernel_round_counts``, on the scene's device:
     the twin's rounds of every (sample, pixel), grouped by warp under both
     schedules (``round_groupings``)."""
-    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                         row_start, rows)
     return round_groupings(reference_pixel_rounds(scene, camera, height, width, spp,
-                                                  max_bounces, seed, sample_offset, jitter))
+                                                  max_bounces, seed, sample_offset, jitter,
+                                                  row_start, rows))
 
 
 def warp_lane_rounds(rounds: torch.Tensor) -> int:
@@ -411,13 +440,13 @@ def round_groupings(rounds: torch.Tensor) -> dict:
 
 
 def reference_pixel_rounds(scene, camera, height, width, spp, max_bounces, seed,
-                           sample_offset=0, jitter=False) -> torch.Tensor:
-    """The plain twin's rounds of every (sample, pixel), (spp, H, W) int64:
-    those that begin with nonzero throughput, the rounds a thread of the
-    kernel runs."""
+                           sample_offset=0, jitter=False, row_start=0, rows=None) -> torch.Tensor:
+    """The plain twin's rounds of every (sample, pixel) of the row block,
+    (spp, rows, W) int64: those that begin with nonzero throughput, the
+    rounds a thread of the kernel runs."""
     per_sample = []
     _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-               on_sample=per_sample.append)
+               on_sample=per_sample.append, row_start=row_start, rows=rows)
     return torch.stack(per_sample)
 
 
@@ -615,32 +644,45 @@ def render_kernel_reference(
     sample_offset: int = 0,
     jitter: bool = False,
     count_rounds: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """Plain PyTorch twin of the hand kernel, on the scene's device: the
-    same math on (H*W,) planes, every round run (no early exit). With
-    ``count_rounds`` it also counts the rounds the kernel's threads run:
-    those a path begins with nonzero throughput."""
-    _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    same math on (rows*W,) planes, every round run (no early exit), over
+    the row block of ``render_kernel``. With ``count_rounds`` it also counts
+    the rounds the kernel's threads run: those a path begins with nonzero
+    throughput."""
+    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                         row_start, rows)
     rounds = []
     img = _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                     jitter, on_sample=(lambda r: rounds.append(r.sum())) if count_rounds else None)
+                     jitter, on_sample=(lambda r: rounds.append(r.sum())) if count_rounds else None,
+                     row_start=row_start, rows=rows)
     return (img, int(sum(rounds))) if count_rounds else img
 
 
+def _pixel_grid(height, width, row_start, rows, device):
+    """The row block's global pixel indices, int64 (rows*W,), and their
+    global rows and columns as float32: what the kernels key the streams
+    and the camera rays on."""
+    pix = pixel_indices(height, width, device, row_start, rows)
+    prow = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
+    return pix, prow, (pix % width).to(torch.float32)
+
+
 def _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-               on_sample=None):
-    """The twin's image; ``on_sample``, where given, receives each sample's
-    (H, W) int64 rounds of every pixel."""
+               on_sample=None, row_start=0, rows=None):
+    """The twin's image of the row block; ``on_sample``, where given,
+    receives each sample's (rows, W) int64 rounds of every pixel."""
     device = scene.device
+    rows = height if rows is None else rows
     sph, sph_m, tri, tri_m, mat_tab = _scene_operands(scene)
     par = _camera_params(camera, scene, height, width)
     sky = (par[2], par[3], par[4])
-    n = height * width
-    pix = pixel_indices(height, width, device)
-    rows = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
-    cols = (pix % width).to(torch.float32)
+    n = rows * width
+    pix, prow, cols = _pixel_grid(height, width, row_start, rows, device)
     fw, fh = (torch.tensor(float(v), device=device) for v in (width, height))
-    pd = _camera_dir(par, cols + 0.5, rows + 0.5, fw, fh)
+    pd = _camera_dir(par, cols + 0.5, prow + 0.5, fw, fh)
     origin = tuple(par[i].expand(n) for i in (5, 6, 7))
     zero = torch.zeros(n, dtype=torch.float32, device=device)
     one = torch.ones(n, dtype=torch.float32, device=device)
@@ -652,19 +694,20 @@ def _reference(scene, camera, height, width, spp, max_bounces, seed, sample_offs
         if jitter:
             st, jx = _rng.uniform(st)
             st, jy = _rng.uniform(st)
-            d = _camera_dir(par, cols + jx, rows + jy, fw, fh)
+            d = _camera_dir(par, cols + jx, prow + jy, fw, fh)
         o, thr, rad = origin, (one, one, one), (zero, zero, zero)
-        rounds = torch.zeros(n, dtype=torch.int64, device=device)
+        pixel_rounds = torch.zeros(n, dtype=torch.int64, device=device)
         for _ in range(max_bounces + 1):
             if on_sample is not None:
                 # A miss and a death by total internal reflection zero the
                 # throughput too, so this is the kernel's one exit test.
-                rounds = rounds + ((thr[0] != 0.0) | (thr[1] != 0.0) | (thr[2] != 0.0))
+                pixel_rounds = pixel_rounds + ((thr[0] != 0.0) | (thr[1] != 0.0)
+                                               | (thr[2] != 0.0))
             hit = _closest_hit(sph, sph_m, tri, tri_m, o, d)
             mats = _fetch_materials(mat_tab, hit[2])
             o, d, thr, rad, st, _ = _shade(hit, mats, o, d, thr, rad, st, sky)
         acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
         if on_sample is not None:
-            on_sample(rounds.reshape(height, width))
+            on_sample(pixel_rounds.reshape(rows, width))
     inv = _f32(1.0 / spp)
-    return torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
+    return torch.stack([a * inv for a in acc], dim=-1).reshape(rows, width, 3)

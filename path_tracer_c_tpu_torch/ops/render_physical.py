@@ -32,7 +32,7 @@ import torch
 
 from . import render_kernel as _rk
 from . import rng as _rng
-from .camera import Camera, pixel_indices
+from .camera import Camera
 from .render_kernel import _ptr
 from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
@@ -177,10 +177,13 @@ def render_physical_kernel(
     count_rounds: bool = False,
     tri_nee: bool = False,
     count_events: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
-    """Physical-tier radiance image (H, W, 3) float32, on the scene's
+    """Physical-tier radiance image (rows, W, 3) float32, on the scene's
     device: the estimator of ``models.physical.render_physical`` on the
-    same RNG streams.
+    same RNG streams, over the block of ``rows`` rows (default: all) from
+    ``row_start``, as ``render_kernel.render_kernel`` takes it.
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
     ``render_physical_kernel.launches`` counts its launches. CPU tensors go
@@ -195,16 +198,19 @@ def render_physical_kernel(
     do. Counting is a second instantiation of the kernel and waits for the
     device; timed renders leave it off.
     """
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     device = scene.device
     if device.type == "cpu":
         return render_physical_kernel_reference(
             scene, camera, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, nee=nee,
             count_rounds=count_rounds, tri_nee=tri_nee, count_events=count_events,
+            row_start=row_start, rows=rows,
         )
     out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                           jitter, nee, tri_nee, count_rounds or count_events)
+                           jitter, nee, tri_nee, count_rounds or count_events,
+                           row_start=row_start, rows=rows)
     return _with_counts(out, counter, count_rounds, count_events)
 
 
@@ -212,8 +218,9 @@ render_physical_kernel.launches = 0
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
-            tri_nee, count, variant=None):
-    """Launch B3 on the scene's CUDA device: the timed kernel, or with
+            tri_nee, count, variant=None, row_start=0, rows=None):
+    """Launch B3 on the scene's CUDA device over the block of ``rows`` rows
+    (None: all) from ``row_start``: the timed kernel, or with
     ``variant`` an instantiation of ``render_kernel.VARIANTS``; with
     ``count``, its counting instantiation, whose counters (``EVENTS``, then
     ``WARP_EVENTS`` of its schedule) come back beside the image."""
@@ -226,13 +233,15 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     operands = _rk._scene_operands(scene)
     ph = _phys_operands(scene, operands)
     par = _rk._camera_params(camera, scene, height, width)
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    rows = height if rows is None else rows
+    out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
     counter = None
     if count:
         counter = torch.zeros(len(EVENTS) + len(WARP_EVENTS), dtype=torch.int64, device=device)
     args = (*_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out), _ptr(counter),
             int(bool(nee)), int(bool(tri_nee)),
-            *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device))
+            *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+                           row_start, rows))
     if variant is None:
         err, name = lib.render_phys(*args), "render_phys"
     else:
@@ -260,18 +269,22 @@ def render_physical_kernel_variant(
     jitter: bool = True,
     nee: bool = True,
     tri_nee: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """The image of an instantiation of B3 (``render_kernel.VARIANTS``), on
     CUDA tensors only: what the decomposition of B3's time
     (``utils/sol_decompose.sol_decompose``) times beside the kernel. No
-    user path runs it; its image equals ``render_physical_kernel``'s. One
-    that stages its tables raises where they exceed the shared budget.
-    Counts its launches in ``render_physical_kernel_variant.launches``."""
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    user path runs it; its image equals ``render_physical_kernel``'s, row
+    blocks included. One that stages its tables raises where they exceed
+    the shared budget. Counts its launches in
+    ``render_physical_kernel_variant.launches``."""
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     _rk._check_variant(scene, variant, physical=True)
     _rk._cuda_only(scene, "render_physical_kernel_variant")
     return _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-                   nee, tri_nee, False, variant)[0]
+                   nee, tri_nee, False, variant, row_start, rows)[0]
 
 
 render_physical_kernel_variant.launches = 0
@@ -290,6 +303,8 @@ def render_physical_kernel_round_counts(
     nee: bool = True,
     tri_nee: bool = False,
     variant: str | None = None,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> dict:
     """The rounds and branch events B3 runs for one render:
     ``thread_rounds``, ``light_samples`` and ``shadow_scans`` (as
@@ -302,16 +317,20 @@ def render_physical_kernel_round_counts(
     in ``render_physical_kernel.launches``), or of ``variant`` (in
     ``render_physical_kernel_variant.launches``), which give the keys of
     their own schedule; CPU tensors the plain twin, which gives both
-    (``render_physical_kernel_round_counts_reference``)."""
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
-    kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee)
+    (``render_physical_kernel_round_counts_reference``). ``row_start`` and
+    ``rows``: a row block, as in ``render_physical_kernel``; the blocks'
+    counts sum to the whole image's."""
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
+    kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee,
+              row_start=row_start, rows=rows)
     if scene.device.type == "cpu":
         return render_physical_kernel_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, **kw)
     if variant is not None:
         _rk._check_variant(scene, variant, physical=True)
     _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         jitter, nee, tri_nee, True, variant)
+                         jitter, nee, tri_nee, True, variant, row_start, rows)
     c = counter.tolist()
     suffix = _rk._warp_key(variant)[len("warp_lane_rounds"):]
     return {"thread_rounds": c[0], "light_samples": c[2], "shadow_scans": c[3],
@@ -321,14 +340,19 @@ def render_physical_kernel_round_counts(
 def render_physical_kernel_round_counts_reference(scene, camera, height, width, spp,
                                                   max_bounces, seed, sample_offset=0,
                                                   jitter=True, nee=True,
-                                                  tri_nee=False) -> dict:
+                                                  tri_nee=False, row_start=0,
+                                                  rows=None) -> dict:
     """Plain twin of ``render_physical_kernel_round_counts``, on the scene's
     device: the twin's rounds and branch events of every (sample, round,
-    pixel), grouped by warp under both schedules (``WarpGroupings``)."""
-    groups = WarpGroupings(height, width, spp, max_bounces, scene.device)
+    pixel) of the row block, grouped by warp under both schedules
+    (``WarpGroupings``)."""
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
+    groups = WarpGroupings(rows, width, spp, max_bounces, scene.device)
     render_physical_kernel_reference(scene, camera, height, width, spp, max_bounces, seed,
                                      sample_offset=sample_offset, jitter=jitter, nee=nee,
-                                     tri_nee=tri_nee, on_round=groups.add_round)
+                                     tri_nee=tri_nee, on_round=groups.add_round,
+                                     row_start=row_start, rows=rows)
     return groups.counts()
 
 
@@ -650,6 +674,8 @@ def render_physical_kernel_reference(
     count_events: bool = False,
     on_sample=None,
     on_round=None,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """Plain PyTorch twin of the hand kernel, on the scene's device: the
     same math on (H*W,) planes, every round run for every path (no early
@@ -658,20 +684,21 @@ def render_physical_kernel_reference(
     throughput, and the events of ``EVENTS`` in them. ``on_sample``, where
     given, receives each sample's (H, W) int64 rounds of every pixel;
     ``on_round`` each round's (H*W,) bool masks of the pixels whose thread
-    runs it, computes a light sample in it and runs a shadow scan in it."""
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+    runs it, computes a light sample in it and runs a shadow scan in it.
+    Over the row block of ``render_physical_kernel``: (rows, W) rounds and
+    (rows*W,) masks."""
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     device = scene.device
     tabs = _rk._scene_operands(scene)
     sph, sph_m, tri, tri_m, mat_tab = tabs
     ph = _phys_operands(scene, tabs)
     par = _rk._camera_params(camera, scene, height, width)
     sky = (par[2], par[3], par[4])
-    n = height * width
-    pix = pixel_indices(height, width, device)
-    rows = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
-    cols = (pix % width).to(torch.float32)
+    n = rows * width
+    pix, prow, cols = _rk._pixel_grid(height, width, row_start, rows, device)
     fw, fh = (torch.tensor(float(v), device=device) for v in (width, height))
-    pd = _rk._camera_dir(par, cols + 0.5, rows + 0.5, fw, fh)
+    pd = _rk._camera_dir(par, cols + 0.5, prow + 0.5, fw, fh)
     origin = tuple(par[i].expand(n) for i in (5, 6, 7))
     zero = torch.zeros(n, dtype=torch.float32, device=device)
     one = torch.ones(n, dtype=torch.float32, device=device)
@@ -686,10 +713,10 @@ def render_physical_kernel_reference(
         if jitter:
             st, jx = _rng.uniform(st)
             st, jy = _rng.uniform(st)
-            d = _rk._camera_dir(par, cols + jx, rows + jy, fw, fh)
+            d = _rk._camera_dir(par, cols + jx, prow + jy, fw, fh)
         o, thr, rad = origin, (one, one, one), (zero, zero, zero)
         prevd = torch.zeros(n, dtype=torch.bool, device=device)
-        rounds = torch.zeros(n, dtype=torch.int64, device=device)
+        pixel_rounds = torch.zeros(n, dtype=torch.int64, device=device)
         for _ in range(max_bounces + 1):
             running = (thr[0] != 0.0) | (thr[1] != 0.0) | (thr[2] != 0.0)
             hit = _rk._closest_hit(sph, sph_m, tri, tri_m, o, d)
@@ -706,12 +733,12 @@ def render_physical_kernel_reference(
                 light = diffuse & (pool > 0) if nee else torch.zeros_like(diffuse)
                 counter = counter + torch.stack(
                     [running.sum(), diffuse.sum(), light.sum(), (light & faces).sum()])
-                rounds = rounds + running
+                pixel_rounds = pixel_rounds + running
                 if on_round is not None:
                     on_round(running, light, light & faces)
         acc = tuple(a + (r + t * k) for a, r, t, k in zip(acc, rad, thr, sky))
         if on_sample is not None:
-            on_sample(rounds.reshape(height, width))
+            on_sample(pixel_rounds.reshape(rows, width))
     inv = _f32(1.0 / spp)
-    img = torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
+    img = torch.stack([a * inv for a in acc], dim=-1).reshape(rows, width, 3)
     return _with_counts(img, counter, count_rounds, count_events)

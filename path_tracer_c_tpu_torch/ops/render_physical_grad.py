@@ -56,7 +56,7 @@ import torch
 from . import render_kernel as _rk
 from . import render_physical as _rp
 from . import rng as _rng
-from .camera import Camera, pixel_indices
+from .camera import Camera
 from . import render_grad as _rg
 from .render_grad import replace_leaves, zeros_like_scene
 from .render_kernel import _ptr
@@ -286,8 +286,11 @@ def tri_w_adjoint(tv, so, n, v1, v2, pool_f):
 
 
 def _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                       n_em_cap=0, tri_em_cap=0, tri_nee=False):
-    _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset)
+                       n_em_cap=0, tri_em_cap=0, tri_nee=False, row_start=0, rows=None) -> int:
+    """``render_kernel._check_inputs`` and the caps; returns the row
+    count of the block."""
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
     if max_bounces > MAX_BOUNCES:
         raise ValueError(f"max_bounces {max_bounces} is above the physical gradient "
                          f"kernels' cap of {MAX_BOUNCES}")
@@ -296,6 +299,7 @@ def _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sam
     if tri_em_cap and not tri_nee:
         raise ValueError("tri_em_cap (the triangle-vertex planes) requires tri_nee=True: "
                          "the chain only exists in the tri_nee estimator")
+    return rows
 
 
 def _load_library():
@@ -344,9 +348,12 @@ def render_physical_fused(
     count_rounds: bool = False,
     rough_grad: bool = False,
     count_events: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """``(image (H, W, 3), jac (mp * M + 3, H, W))`` float32 on the scene's
-    device, ``mp`` = 9, or 12 with ``rough_grad``; then, for whichever cap is
+    device (H: the ``rows`` rows from ``row_start`` of a row block, as
+    ``render_kernel.render_kernel`` takes it; default the whole image), ``mp`` = 9, or 12 with ``rough_grad``; then, for whichever cap is
     nonzero, ``jac_geo (12 * n_em_cap, H, W)`` (layout ``[k, comp (cx, cy,
     cz, r), colour]``) and ``jac_tri (27 * tri_em_cap, H, W)`` (``[k, comp
     (v0 xyz, v1 xyz, v2 xyz), colour]``; requires ``tri_nee``); then, with
@@ -365,18 +372,20 @@ def render_physical_fused(
     * 4`` bytes (629 MB at 1024 x 1024 with 15 materials and one tracked
     emitter). The wrapper allocates them zero-filled; the kernel adds.
     """
-    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                       n_em_cap, tri_em_cap, tri_nee)
+    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                              sample_offset, n_em_cap, tri_em_cap, tri_nee, row_start, rows)
     device = scene.device
     kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, n_em_cap=n_em_cap,
               tri_nee=tri_nee, tri_em_cap=tri_em_cap, count_rounds=count_rounds,
-              rough_grad=rough_grad, count_events=count_events)
+              rough_grad=rough_grad, count_events=count_events, row_start=row_start,
+              rows=rows)
     if device.type == "cpu":
         return render_physical_fused_reference(
             scene, camera, height, width, spp, max_bounces, seed, **kw)
     img, jac, jgeo, jtri, counter = _launch_fused(
         scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
-        n_em_cap, tri_nee, tri_em_cap, rough_grad, count_rounds or count_events)
+        n_em_cap, tri_nee, tri_em_cap, rough_grad, count_rounds or count_events,
+        row_start=row_start, rows=rows)
     return _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_rounds,
                           count_events)
 
@@ -394,8 +403,10 @@ VARIANTS = {"sink": 0, "registers": 1, "shared_records": 2}
 
 
 def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-                  nee, n_em_cap, tri_nee, tri_em_cap, rough_grad, count, variant=None):
-    """Launch B4 on the scene's CUDA device: the timed kernel, its counting
+                  nee, n_em_cap, tri_nee, tri_em_cap, rough_grad, count, variant=None,
+                  row_start=0, rows=None):
+    """Launch B4 on the scene's CUDA device over the block of ``rows`` rows
+    (None: all) from ``row_start``: the timed kernel, its counting
     instantiation (``count``: three counters, thread-rounds, light samples
     that counted and warp lane-rounds, come back beside the planes), or a
     measurement variant."""
@@ -406,15 +417,17 @@ def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_o
     operands = _rk._scene_operands(scene)
     ph = _rp._phys_operands(scene, operands)
     par = _rk._camera_params(camera, scene, height, width)
-    planes = lambda k: torch.zeros((k, height, width), dtype=torch.float32, device=device)
-    img = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    rows = height if rows is None else rows
+    planes = lambda k: torch.zeros((k, rows, width), dtype=torch.float32, device=device)
+    img = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
     jac = planes((12 if rough_grad else 9) * scene.num_materials + 3)
     jgeo = planes(12 * n_em_cap) if n_em_cap else None
     jtri = planes(27 * tri_em_cap) if tri_em_cap else None
     counter = torch.zeros(3, dtype=torch.int64, device=device) if count else None
     tables = (*_rk._table_args(operands), *_rp._emitter_args(ph), _ptr(par), _ptr(img),
               _ptr(jac), _ptr(jgeo))
-    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device)
+    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+                        row_start, rows)
     if variant is None:
         err = lib.render_phys_fused(
             *tables, _ptr(jtri), _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
@@ -445,35 +458,41 @@ def render_physical_fused_round_counts(
     jitter: bool = True,
     nee: bool = True,
     tri_nee: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> dict:
-    """The rounds B4 runs for one render, as
+    """The rounds B4 runs for one render (of a row block, as
+    ``render_physical_fused`` takes it), as
     ``render_grad.render_fused_round_counts``: ``thread_rounds`` and
     ``warp_lane_rounds`` (CUDA tensors: the counting instantiation, a launch
     counted in ``render_physical_fused.launches``); CPU tensors take the
     twin, which also gives ``warp_lane_rounds_regen``. The planes do not
     change the rounds, so no cap is taken."""
-    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                       tri_nee=tri_nee)
+    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                              sample_offset, tri_nee=tri_nee, row_start=row_start, rows=rows)
     if scene.device.type == "cpu":
         return render_physical_fused_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
-            tri_nee)
+            tri_nee, row_start, rows)
     *_, counter = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
-                                sample_offset, jitter, nee, 0, tri_nee, 0, False, True)
+                                sample_offset, jitter, nee, 0, tri_nee, 0, False, True,
+                                row_start=row_start, rows=rows)
     thread_rounds, _, warp_rounds = counter.tolist()
     return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
 
 
 def render_physical_fused_round_counts_reference(scene, camera, height, width, spp,
                                                  max_bounces, seed, sample_offset=0,
-                                                 jitter=True, nee=True, tri_nee=False) -> dict:
+                                                 jitter=True, nee=True, tri_nee=False,
+                                                 row_start=0, rows=None) -> dict:
     """Plain twin of ``render_physical_fused_round_counts``: the twin's rounds
     of every (sample, pixel), grouped by warp under both schedules
     (``render_kernel.round_groupings``)."""
     per_sample = []
     render_physical_fused_reference(scene, camera, height, width, spp, max_bounces, seed,
                                     sample_offset=sample_offset, jitter=jitter, nee=nee,
-                                    tri_nee=tri_nee, on_sample=per_sample.append)
+                                    tri_nee=tri_nee, on_sample=per_sample.append,
+                                    row_start=row_start, rows=rows)
     return _rk.round_groupings(torch.stack(per_sample))
 
 
@@ -490,14 +509,17 @@ def render_physical_fused_variant(
     jitter: bool = True,
     nee: bool = True,
     n_em_cap: int = 0,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """``(image, jac[, jac_geo])`` of a measurement instantiation of B4
+    (of a row block, as ``render_physical_fused`` takes it)
     (``VARIANTS``; without tri_nee and rough_grad), on CUDA tensors only: as
     ``render_grad.render_fused_variant``, for
     ``utils/sol_decompose.fused_decompose``. No user path runs it. Counts
     its launches in ``render_physical_fused_variant.launches``."""
-    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                       n_em_cap)
+    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                              sample_offset, n_em_cap, row_start=row_start, rows=rows)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
     cap = _rg.REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
@@ -505,7 +527,8 @@ def render_physical_fused_variant(
         raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap of {cap}")
     img, jac, jgeo, _, _ = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
                                          sample_offset, jitter, nee, n_em_cap, False, 0, False,
-                                         False, variant=variant)
+                                         False, variant=variant, row_start=row_start,
+                                         rows=rows)
     return (img, jac, jgeo) if n_em_cap else (img, jac)
 
 
@@ -515,15 +538,16 @@ render_physical_fused_variant.launches = 0
 # -- the replay both twins share -----------------------------------------------
 
 
-def _replay_setup(scene, camera, height, width, nee, tri_nee):
+def _replay_setup(scene, camera, height, width, nee, tri_nee, row_start=0, rows=None):
+    """What both twins replay the row block of ``rows`` rows (None: all)
+    from ``row_start`` with: tables, camera, the pixels' global indices and
+    rows (``rows``: as float32) and columns."""
     device = scene.device
     tabs = _rk._scene_operands(scene)
     ph = _rp._phys_operands(scene, tabs)
     par = _rk._camera_params(camera, scene, height, width)
-    n = height * width
-    pix = pixel_indices(height, width, device)
-    rows = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
-    cols = (pix % width).to(torch.float32)
+    n = (height if rows is None else rows) * width
+    pix, rows, cols = _rk._pixel_grid(height, width, row_start, rows, device)
     fw, fh = (torch.tensor(float(v), device=device) for v in (width, height))
     return types.SimpleNamespace(
         device=device, tabs=tabs, ph=ph, par=par, sky=(par[2], par[3], par[4]), n=n,
@@ -660,6 +684,8 @@ def render_physical_fused_reference(
     rough_grad: bool = False,
     count_events: bool = False,
     on_sample=None,
+    row_start: int = 0,
+    rows: int | None = None,
 ):
     """Plain PyTorch twin of the fused physical kernel, on the scene's
     device: the forward rounds of ``render_physical_kernel_reference`` with
@@ -672,10 +698,10 @@ def render_physical_fused_reference(
     adjoints are the hand-derived ones, not ``torch.autograd``.
     ``on_sample``, where given, receives each sample's (H, W) int64 rounds
     of every pixel (those its path begins alive: a hit or a miss), in
-    sample order."""
-    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                       n_em_cap, tri_em_cap, tri_nee)
-    cx = _replay_setup(scene, camera, height, width, nee, tri_nee)
+    sample order. Over the row block of ``render_physical_fused``."""
+    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                              sample_offset, n_em_cap, tri_em_cap, tri_nee, row_start, rows)
+    cx = _replay_setup(scene, camera, height, width, nee, tri_nee, row_start, rows)
     device, n, n_mat = cx.device, cx.n, cx.n_mat
     mp = 12 if rough_grad else 9
     plane = torch.arange(mp, device=device)[:, None]
@@ -693,7 +719,7 @@ def render_physical_fused_reference(
             counter = counter + torch.stack(
                 [n_rounds, sum(rec.valid.sum() for rec in records)])
         if on_sample is not None:
-            on_sample(sum((rec.hit | rec.miss).long() for rec in records).reshape(height, width))
+            on_sample(sum((rec.hit | rec.miss).long() for rec in records).reshape(rows, width))
         acc = tuple(a + r for a, r in zip(acc, rad))
         k_sky = [k + t for k, t in zip(k_sky, thr_end)]  # P_end
 
@@ -738,8 +764,8 @@ def render_physical_fused_reference(
                 for em, alb, t, k, c in zip(rec.em, rec.alb, held, cx.sky, carry))
     jac[mp * n_mat:] = torch.stack(k_sky)
     inv = _f32(1.0 / spp)
-    img = torch.stack([a * inv for a in acc], dim=-1).reshape(height, width, 3)
-    shaped = lambda t: t.reshape(-1, height, width)
+    img = torch.stack([a * inv for a in acc], dim=-1).reshape(rows, width, 3)
+    shaped = lambda t: t.reshape(-1, rows, width)
     return _fused_outputs(img, shaped(jac), shaped(jgeo), shaped(jtri), n_em_cap, tri_em_cap,
                           counter, count_rounds, count_events)
 
@@ -905,12 +931,13 @@ class _RenderPhysicalFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *args):
         leaves, (scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                 jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad) = args[:11], args[11:]
+                 jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad, row_start,
+                 rows) = args[:11], args[11:]
         live = _with_leaves(scene, [t.detach() for t in leaves])
         out = render_physical_fused(
             live, camera, height, width, spp, max_bounces, seed, sample_offset=sample_offset,
             jitter=jitter, nee=nee, n_em_cap=geo_cap, tri_nee=tri_nee,
-            tri_em_cap=tri_geo_cap, rough_grad=rough_grad)
+            tri_em_cap=tri_geo_cap, rough_grad=rough_grad, row_start=row_start, rows=rows)
         img, jac, rest = out[0], out[1], list(out[2:])
         jgeo = rest.pop(0) if geo_cap else None
         jtri = rest.pop(0) if tri_geo_cap else None
@@ -930,7 +957,7 @@ class _RenderPhysicalFused(torch.autograd.Function):
         d_tri = (None,) * 3
         if geo_t is not None:
             d_tri = _scatter_tri_emitter_geometry(scene, geo_t, geo_t.shape[0])
-        return (d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, d_c, d_r, *d_tri, *(None,) * 14)
+        return (d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, d_c, d_r, *d_tri, *(None,) * 16)
 
 
 def render_physical_kernel_vjp(
@@ -949,9 +976,12 @@ def render_physical_kernel_vjp(
     tri_nee: bool = False,
     tri_em_cap: int | None = None,
     rough_grad: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """Differentiable fast render of the physical tier: the image (H, W, 3)
-    of ``render_physical_kernel``, with a backward pass.
+    of ``render_physical_kernel`` (H: the ``rows`` rows from ``row_start``
+    of a row block, default the whole image), with a backward pass.
 
     Under autograd the forward is the fused kernel and the backward its
     planes' contraction, so no ray is traced twice, and both see the same
@@ -983,7 +1013,8 @@ def render_physical_kernel_vjp(
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)):
         return _rp.render_physical_kernel(
             scene, camera, height, width, spp, max_bounces, seed,
-            sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee)
+            sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee,
+            row_start=row_start, rows=rows)
     if n_em_cap is None:
         n_em_cap = min(scene.num_spheres, 8)
     geo_cap = int(n_em_cap) if (geom and nee) else 0
@@ -997,7 +1028,7 @@ def render_physical_kernel_vjp(
         tri_geo_cap = min(tri_geo_cap, _check_tri_emitter_cap(scene, tri_geo_cap))
     return _RenderPhysicalFused.apply(
         *leaves, scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-        jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad)
+        jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad, row_start, rows)
 
 
 # -- the two-pass oracle ------------------------------------------------------------
@@ -1032,9 +1063,13 @@ def render_physical_bwd(
     nee: bool = True,
     n_em_cap: int | None = None,
     tri_nee: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> Scene:
     """The cotangent of ``render_physical_kernel``'s image for the image
-    cotangent ``g`` (H, W, 3), as a ``Scene`` of tensors, by the two-pass
+    cotangent ``g`` (H, W, 3; of the row block of ``rows`` rows from
+    ``row_start`` where they are given: the blocks' cotangents sum to the
+    whole image's), as a ``Scene`` of tensors, by the two-pass
     scheme (replay, then sweep, then a reduction over all pixels inside the
     kernel): the parity oracle of the fused kernel and its contraction,
     which ``render_physical_kernel_vjp`` uses.
@@ -1051,17 +1086,17 @@ def render_physical_bwd(
     raises.
     """
     n_em_cap = _bwd_cap(scene, nee, n_em_cap)
-    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                       n_em_cap)
+    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                              sample_offset, n_em_cap, row_start=row_start, rows=rows)
     device = scene.device
-    if tuple(g.shape) != (height, width, 3) or g.device != device:
+    if tuple(g.shape) != (rows, width, 3) or g.device != device:
         raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, expected "
-                         f"{(height, width, 3)} on {device}")
+                         f"{(rows, width, 3)} on {device}")
     if device.type == "cpu":
         return render_physical_bwd_reference(
             scene, camera, g, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, nee=nee, n_em_cap=n_em_cap,
-            tri_nee=tri_nee)
+            tri_nee=tri_nee, row_start=row_start, rows=rows)
     if device.type != "cuda":
         raise ValueError(f"render_physical_bwd runs on CUDA or CPU tensors, not {device}")
     lib = _load_library()
@@ -1076,7 +1111,8 @@ def render_physical_bwd(
     err = lib.render_phys_bwd(
         *_rk._table_args(operands), *args[:-1], _ptr(eco), args[-1], _ptr(par), _ptr(g32),
         _ptr(out), _ptr(geo), int(bool(nee)), int(bool(tri_nee)), n_em_cap,
-        *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device),
+        *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+                       row_start, rows),
     )
     if err != 0:
         raise RuntimeError(f"render_phys_bwd kernel launch failed: CUDA error {err}")
@@ -1103,16 +1139,19 @@ def render_physical_bwd_reference(
     nee: bool = True,
     n_em_cap: int | None = None,
     tri_nee: bool = False,
+    row_start: int = 0,
+    rows: int | None = None,
 ) -> Scene:
-    """Plain PyTorch twin of the two-pass kernel, on the scene's device:
+    """Plain PyTorch twin of the two-pass kernel, on the scene's device,
+    over the row block of ``render_physical_bwd``:
     the replay of ``render_physical_fused_reference``, the kernel's
     per-pixel terms in float32 in its expression order, and the reduction
     over pixels, samples and bounces in float64 (the kernel's own order of
     additions is not fixed, so the twin takes the sum that rounds least)."""
     n_em_cap = _bwd_cap(scene, nee, n_em_cap)
-    _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                       n_em_cap)
-    cx = _replay_setup(scene, camera, height, width, nee, tri_nee)
+    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                              sample_offset, n_em_cap, row_start=row_start, rows=rows)
+    cx = _replay_setup(scene, camera, height, width, nee, tri_nee, row_start, rows)
     device, n, n_mat = cx.device, cx.n, cx.n_mat
     mats = scene.materials
     inv_spp = _f32(1.0 / spp)

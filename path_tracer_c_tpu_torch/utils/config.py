@@ -5,9 +5,9 @@ render config, or with ``cls=FitConfig`` a fit config and with
 ``cls=AnimationConfig`` a camera sweep's, whose ``render`` block is a
 render config. Keys this package does not know, such as the TPU tile
 sizes, are ignored, as the JAX loader ignores them; ``save`` writes every
-field, nested blocks included. The one field for a feature not ported yet,
-a multi-device ``mesh``, is kept so that the CLI can refuse a config that
-sets it, instead of silently rendering something else.
+field, nested blocks included. A ``mesh`` may also name its slots'
+``devices`` (this package's key), one device as often as the mesh uses it,
+all of the CLI's ``--device`` type.
 """
 
 from __future__ import annotations
@@ -22,10 +22,14 @@ __all__ = ["RenderConfig", "MeshConfig", "FitConfig", "AnimationConfig", "load",
 
 @dataclass
 class MeshConfig:
-    """tile x spp device mesh layout; 1 x 1 is a single device."""
+    """tile x spp device mesh layout; 1 x 1 is a single device.
+    ``devices``: the slots' devices in slot order (tile-major), repeats
+    allowed (``parallel.make_mesh``), each of ``--device``'s type; empty,
+    every visible CUDA device, or the CPU under ``--device cpu``."""
 
     tile: int = 1
     spp: int = 1
+    devices: list = field(default_factory=list)
 
 
 @dataclass

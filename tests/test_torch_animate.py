@@ -100,15 +100,20 @@ def test_render_live_shows_each_chunk(tmp_path, capsys):
 def test_config5_on_one_device_and_its_mesh_refused(tmp_path):
     """Config 5 loads unchanged; cut to 16x16, 2 spp, 2 bounces and 2 frames
     with its mesh set to 1x1 it sweeps through its engine (pallas, the
-    kernel); with its 4x2 mesh it is refused by ROADMAP item."""
+    kernel); with its 4x2 mesh on a machine of one card it is refused with
+    the device count, before any scene is built."""
     acfg = load(CONFIG5, AnimationConfig)
     r = acfg.render
     assert (r.width, r.height, r.spp, r.max_bounces, r.scene, r.engine, acfg.frames) == (
         2048, 2048, 256, 4, "demo", "pallas", 48)
     assert (r.mesh.tile, r.mesh.spp, acfg.target) == (4, 2, (0.0, 0.0, 6.0))
-    with pytest.raises(SystemExit, match="ROADMAP.md A11"):
-        app.main(["animate", "--device", "cpu", "--config", str(CONFIG5), "--frames", "1",
-                  "--out-dir", str(tmp_path / "refused")])
+    with pytest.MonkeyPatch.context() as mp:  # one card, seen by the mesh only
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 1)
+        mp.setattr(torch.cuda, "current_device", lambda: 0)
+        with pytest.raises(SystemExit, match=r"mesh 4x2 refused: tile\*spp = 8 != 1 devices"):
+            app.main(["animate", "--config", str(CONFIG5), "--frames", "1",
+                      "--out-dir", str(tmp_path / "refused")])
     assert not (tmp_path / "refused").exists()
     r.width = r.height = 16
     r.spp, r.max_bounces, acfg.frames = 2, 2, 2

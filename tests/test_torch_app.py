@@ -70,18 +70,27 @@ def test_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("settings, item", [
     (None, "geometry fit (physical): 1 steps in "),  # fit --mode geometry
-    ({"mesh": {"tile": 4, "spp": 2}}, "A11"),
+    ({"mesh": {"tile": 4, "spp": 2}, "spp": 2}, "spp 2 "),  # a mesh: eight CPU slots
     ({"checkpoint_every": 2, "spp": 4}, "spp 4/4 "),  # a chunked render
     ({"tri_nee": True}, "fit: 1 steps in "),  # in a fit of the reference tier: ignored
 ])
 def test_unported_settings_name_the_roadmap_item(tmp_path, capsys, settings, item):
-    """The render settings still to be ported are refused by ROADMAP item.
-    The physical tier renders and, since its gradient was ported, fits:
+    """The render settings once refused by ROADMAP item now run. The
+    physical tier renders and, since its gradient was ported, fits:
     `fit --mode geometry` and `tri_nee` in a fit run and print their
     result line. ``checkpoint_every``, refused until chunked renders were
-    ported, renders in chunks and prints a line per chunk."""
+    ported, renders in chunks and prints a line per chunk. A mesh, refused
+    until the parallel layer was ported, renders through it on CPU slots."""
     cfg = tmp_path / "c.json"
     render = {"width": 8, "height": 8, "spp": 1, **(settings or {})}
+    if "mesh" in render:
+        cfg.write_text(json.dumps(render))
+        app.main(["render", "--device", "cpu", "--config", str(cfg),
+                  "--out", str(tmp_path / "x.bmp")])
+        line = capsys.readouterr().out.splitlines()[0]
+        assert line.startswith(item) and "(cuda on mesh 4x2 on cpu)" in line, line
+        assert len((tmp_path / "x.bmp").read_bytes()) == 54 + 8 * 8 * 3
+        return
     if item.startswith("spp "):
         cfg.write_text(json.dumps(render))
         app.main(["render", "--device", "cpu", "--config", str(cfg),
@@ -90,13 +99,6 @@ def test_unported_settings_name_the_roadmap_item(tmp_path, capsys, settings, ite
         assert [l.split()[1] for l in lines if l.startswith("spp ") and "/" in l.split()[1]] == [
             "2/4", "4/4"]
         assert len((tmp_path / "x.bmp").read_bytes()) == 54 + 8 * 8 * 3
-        return
-    if item.startswith("A"):
-        cfg.write_text(json.dumps(render))
-        with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-            app.main(["render", "--device", "cpu", "--config", str(cfg),
-                      "--out", str(tmp_path / "x.bmp")])
-        assert not (tmp_path / "x.bmp").exists()
         return
     cfg.write_text(json.dumps({"render": render, "steps": 1}))
     app.main(["fit", "--device", "cpu", "--config", str(cfg)]
@@ -125,7 +127,11 @@ def test_port_does_not_import_jax():
             "path_tracer_c_tpu_torch.utils.flops, path_tracer_c_tpu_torch.utils.profiling, "
             "path_tracer_c_tpu_torch.utils.sol_decompose, path_tracer_c_tpu_torch.ops.sol_probes, "
             "path_tracer_c_tpu_torch.utils.checkpoint, path_tracer_c_tpu_torch.utils.native, "
-            "path_tracer_c_tpu_torch.utils.termview; "
+            "path_tracer_c_tpu_torch.utils.termview, path_tracer_c_tpu_torch.parallel, "
+            "path_tracer_c_tpu_torch.parallel.mesh, path_tracer_c_tpu_torch.parallel.render, "
+            "path_tracer_c_tpu_torch.parallel.distributed, path_tracer_c_tpu_torch.models.split; "
+            "from path_tracer_c_tpu_torch import parallel; "
+            "from path_tracer_c_tpu_torch.models.split import render_split; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'path_tracer_c_tpu' not in sys.modules, 'the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
@@ -135,3 +141,123 @@ def test_no_jax_in_port_sources():
     for path in (REPO / "path_tracer_c_tpu_torch").rglob("*.py"):
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
+
+
+# -- the mesh and the split engine ------------------------------------------------
+
+
+def mesh_config(tmp_path, **render):
+    cfg = tmp_path / "mesh.json"
+    cfg.write_text(json.dumps({"width": 16, "height": 8, "spp": 4, "max_bounces": 2,
+                               "scene": "demo", "mesh": {"tile": 2, "spp": 2}, **render}))
+    return str(cfg)
+
+
+@pytest.mark.parametrize("engine", ["cuda", "core", "physical", "physical_core"])
+def test_render_with_a_mesh_goes_through_the_parallel_layer(tmp_path, capsys, monkeypatch,
+                                                            engine):
+    """A config's 2x2 mesh on --device cpu: four CPU slots through
+    render_sharded, with the engine's name in render_sharded; the BMP is
+    the sharded image's, and chunks of the render continue at their sample
+    offset."""
+    from path_tracer_c_tpu_torch import parallel
+    from path_tracer_c_tpu_torch.utils.bitmap import bitmap_bytes
+
+    seen = []
+    real = parallel.render_sharded
+    monkeypatch.setattr(parallel, "render_sharded",
+                        lambda *a, **kw: seen.append((kw["engine"], kw.get("sample_offset")))
+                        or real(*a, **kw))
+    out = tmp_path / "m.bmp"
+    app.main(["render", "--device", "cpu", "--config", mesh_config(tmp_path), "--engine", engine,
+              "--checkpoint-every", "2", "--out", str(out)])
+    assert f"({engine} on mesh 2x2 on cpu)" in capsys.readouterr().out
+    name = {"physical": "physical_pallas", "physical_core": "physical"}.get(engine, engine)
+    assert seen == [(name, 0), (name, 2)]
+    scene, cam = P.demo.demo_scene("cpu"), P.Camera.reference("cpu")
+    mesh = parallel.make_mesh(tile=2, spp=2, devices="cpu")
+    a = real(scene, cam, 8, 16, 2, 2, 0, mesh, engine=name)
+    b = real(scene, cam, 8, 16, 2, 2, 0, mesh, engine=name, sample_offset=2)
+    img = ((a.numpy() * 2 + b.numpy() * 2) / 4).astype("float32")
+    assert out.read_bytes() == bitmap_bytes(P.render_image_u8(torch.from_numpy(img)).numpy())
+
+
+def test_fit_with_a_mesh_takes_sharded_steps(tmp_path, capsys):
+    """fit with a 2x2 mesh on --device cpu: every step through
+    make_train_step, logged with the mesh; a checkpoint resumes it."""
+    cfg = tmp_path / "fit.json"
+    cfg.write_text(json.dumps({"render": {"width": 16, "height": 16, "spp": 4,
+                                          "max_bounces": 2, "scene": "diffuse",
+                                          "mesh": {"tile": 2, "spp": 2}},
+                               "steps": 4, "lr": 0.05}))
+    metrics = tmp_path / "m.jsonl"
+    app.main(["fit", "--device", "cpu", "--config", str(cfg), "--metrics", str(metrics)])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("fit on mesh 2x2: 4 steps in "), line
+    recs = [json.loads(l) for l in metrics.read_text().splitlines()]
+    steps = [r for r in recs if r["kind"] == "fit_step"]
+    assert [r["step"] for r in steps] == [0, 1, 2, 3]
+    assert all(r["mesh"] == [2, 2] and r["engine"] == "cuda" for r in steps)
+    ck = tmp_path / "f.npz"
+    app.main(["fit", "--device", "cpu", "--config", str(cfg), "--steps", "2",
+              "--checkpoint-path", str(ck)])
+    app.main(["fit", "--device", "cpu", "--config", str(cfg), "--checkpoint-path", str(ck)])
+    resumed = capsys.readouterr().out.strip().splitlines()[-1]
+    assert resumed.split(", loss ")[1] == line.split(", loss ")[1]
+
+
+def test_fit_geometry_with_a_mesh_is_refused(tmp_path):
+    cfg = tmp_path / "fit.json"
+    cfg.write_text(json.dumps({"render": {"width": 16, "height": 16, "spp": 4,
+                                          "scene": "cornell", "mesh": {"tile": 2, "spp": 1}},
+                               "steps": 1}))
+    with pytest.raises(SystemExit, match="a mesh shards the materials fit only"):
+        app.main(["fit", "--device", "cpu", "--config", str(cfg), "--mode", "geometry"])
+
+
+def test_split_with_a_mesh_is_refused(tmp_path):
+    with pytest.raises(SystemExit, match="engine 'split' is a single-device"):
+        app.main(["render", "--device", "cpu", "--config", mesh_config(tmp_path),
+                  "--engine", "split", "--out", str(tmp_path / "s.bmp")])
+    assert not (tmp_path / "s.bmp").exists()
+
+
+def test_render_engine_split(tmp_path, capsys):
+    from path_tracer_c_tpu_torch.models.split import render_split
+
+    out = tmp_path / "s.bmp"
+    app.main(["render", "--device", "cpu", "--scene", "demo", "--width", "16", "--height", "8",
+              "--spp", "2", "--max-bounces", "3", "--engine", "split", "--out", str(out)])
+    assert "(split on cpu)" in capsys.readouterr().out
+    img = render_split(P.demo.demo_scene("cpu"), P.Camera.reference("cpu"), 8, 16, 2, 3, 0)
+    assert out.read_bytes() == j_bitmap_bytes(P.render_image_u8(img).numpy())
+
+
+def test_mesh_larger_than_the_devices_is_refused_by_count(tmp_path, monkeypatch):
+    """On the default device the mesh is laid on the visible cards; more
+    slots than cards is refused, naming their count, before a scene is
+    built; a mesh naming its own devices may repeat one, but only devices of
+    --device's type: slots of the other type are refused, naming both."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(SystemExit, match=r"mesh 2x2 refused: tile\*spp = 4 != 1 devices"):
+        app.main(["render", "--config", mesh_config(tmp_path), "--out", str(tmp_path / "x.bmp")])
+    assert not (tmp_path / "x.bmp").exists()
+    from path_tracer_c_tpu_torch.utils.config import RenderConfig, MeshConfig
+
+    cfg = RenderConfig(mesh=MeshConfig(tile=2, spp=2, devices=["cpu"] * 4))
+    with pytest.raises(SystemExit, match=r"mesh 2x2 refused: its devices .*cpu.* are not "
+                                         r"of --device cuda's type"):
+        app._mesh(cfg, torch.device("cuda", 0))
+    cfg.mesh.devices = ["cuda:0"] * 4
+    assert app._mesh(cfg, torch.device("cuda", 0)).size == 4
+    with pytest.raises(SystemExit, match=r"its devices .*cuda.* are not of --device cpu's type"):
+        app._mesh(cfg, torch.device("cpu"))
+    config = json.loads(Path(mesh_config(tmp_path)).read_text())
+    config["mesh"]["devices"] = ["cpu"] * 4
+    (tmp_path / "cpu_slots.json").write_text(json.dumps(config))
+    with pytest.raises(SystemExit, match="not of --device cuda's type"):
+        app.main(["render", "--config", str(tmp_path / "cpu_slots.json"),
+                  "--out", str(tmp_path / "x.bmp")])
+    assert not (tmp_path / "x.bmp").exists()

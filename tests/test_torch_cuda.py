@@ -760,3 +760,107 @@ def test_remat_lowers_peak_memory(cuda_device, monkeypatch):
         grads[remat] = d_scene.materials.albedo
     assert peaks[True] < peaks[False]
     assert torch.equal(grads[True], grads[False])
+
+
+# -- row blocks and the parallel layer ------------------------------------------
+
+
+def _join(outs):
+    """Row blocks' outputs joined: images (rows, W, 3) along dim 0, planes
+    (n, rows, W) along dim 1, counts and dicts of counts summed."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(outs, dim=0 if first.shape[-1] == 3 else 1)
+    if isinstance(first, dict):
+        return {k: sum(o[k] for o in outs) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_join([o[i] for o in outs]) for i in range(len(first)))
+    return sum(outs)
+
+
+def _assert_blocks_equal_whole(fn, args, kw, blocks):
+    whole = fn(*args, **kw)
+    joined = _join([fn(*args, row_start=r0, rows=n, **kw) for r0, n in blocks])
+    whole, joined = ((whole, joined) if isinstance(whole, tuple) else ((whole,), (joined,)))
+    for a, b in zip(whole, joined):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b), (fn.__name__, kw)
+
+
+ROW_BLOCK_CASES = [
+    (rk.render_kernel, dict(count_rounds=True)),
+    (rk.render_kernel_round_counts, {}),
+    *((rk.render_kernel_variant, dict(variant=v)) for v in rk.VARIANTS),
+    *((rk.render_kernel_round_counts, dict(variant=v)) for v in rk.VARIANTS),
+    (rg.render_fused, dict(count_rounds=True)),
+    (rg.render_fused_round_counts, {}),
+    (rg.render_fused_variant, dict(variant="sink")),
+    (rg.render_fused_variant, dict(variant="local_records")),
+    (rp.render_physical_kernel, dict(count_events=True)),
+    *((rp.render_physical_kernel_variant, dict(variant=v)) for v in rk.VARIANTS),
+    *((rp.render_physical_kernel_round_counts, dict(variant=v)) for v in (None, *rk.VARIANTS)),
+    (pg.render_physical_fused, dict(n_em_cap=2, count_events=True)),
+    (pg.render_physical_fused, dict(rough_grad=True, tri_nee=True, tri_em_cap=1)),
+    (pg.render_physical_fused_round_counts, {}),
+    *((pg.render_physical_fused_variant, dict(variant=v, n_em_cap=1))
+      for v in ("sink", "shared_records")),
+]
+
+
+@pytest.mark.parametrize("fn, kw", ROW_BLOCK_CASES,
+                         ids=[f"{fn.__name__}-{i}" for i, (fn, _) in enumerate(ROW_BLOCK_CASES)])
+def test_row_blocks_equal_the_whole_launch(cuda_device, fn, kw):
+    """Every render kernel and each of its instantiations over row blocks
+    (7 + 12 rows of a ragged 19x45, and 3 x 16 rows of 48x64) equals the
+    same rows of the whole launch bit for bit: images, planes and counters
+    summed."""
+    scene, cam = pdemo.cornell_spheres_scene(cuda_device), P.Camera.reference(cuda_device)
+    for h, w, blocks in ((19, 45, [(0, 7), (7, 12)]), (48, 64, [(0, 16), (16, 16), (32, 16)])):
+        _assert_blocks_equal_whole(fn, (scene, cam, h, w, 2, 3, 7), kw, blocks)
+
+
+def test_two_pass_kernel_blocks_sum_to_the_whole(cuda_device):
+    scene, cam = pdemo.cornell_spheres_scene(cuda_device), P.Camera.reference(cuda_device)
+    g = torch.randn((19, 45, 3), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    whole = pg.render_physical_bwd(scene, cam, g, 19, 45, 2, 3, 7)
+    parts = [pg.render_physical_bwd(scene, cam, g[r0:r0 + n], 19, 45, 2, 3, 7, row_start=r0,
+                                    rows=n) for r0, n in ((0, 7), (7, 12))]
+    for name in ("albedo", "emission_color", "emission_strength", "transparency"):
+        ref = getattr(whole.materials, name)
+        got = sum(getattr(p.materials, name) for p in parts)
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6 * max(float(ref.abs().max()), 1.0))
+
+
+def test_row_block_bounds_are_checked_on_the_card(cuda_device):
+    scene, cam = pdemo.demo_scene(cuda_device), P.Camera.reference(cuda_device)
+    for row_start, rows in ((-1, 2), (0, 0), (18, 2)):
+        with pytest.raises(ValueError):
+            rk.render_kernel(scene, cam, 19, 45, 1, 1, 0, row_start=row_start, rows=rows)
+
+
+@pytest.mark.parametrize("engine, fn", [("cuda", rk.render_kernel),
+                                        ("physical_pallas", rp.render_physical_kernel)])
+def test_render_sharded_on_cuda0_repeated(cuda_device, engine, fn):
+    """A mesh laid on one card (cuda:0 repeated): tile-only equals the
+    unsharded kernel render bit for bit, a spp split within the JAX suite's
+    rtol 1e-6 (tests/test_parallel.py); one launch a slot."""
+    from path_tracer_c_tpu_torch import parallel
+
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    whole = fn(scene, cam, 64, 96, 8, 4, 3, jitter=False)
+    for tile, spp_ax in ((4, 1), (2, 2)):
+        mesh = parallel.make_mesh(tile=tile, spp=spp_ax, devices=[cuda_device] * (tile * spp_ax))
+        before = fn.launches
+        img = parallel.render_sharded(scene, cam, 64, 96, 8, 4, 3, mesh, engine=engine)
+        assert fn.launches == before + tile * spp_ax
+        if spp_ax == 1:
+            assert torch.equal(img, whole)
+        else:
+            torch.testing.assert_close(img, whole, rtol=1e-6, atol=1e-6)
+
+
+def test_mesh_larger_than_the_cards_is_refused(cuda_device):
+    from path_tracer_c_tpu_torch import parallel
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"!= {n} devices"):
+        parallel.make_mesh(tile=n + 1, spp=1)

@@ -204,22 +204,19 @@ def test_fit_cli_reads_a_target_file_and_steps_override(tmp_path, capsys):
      "geometry fit (physical): 4 steps in "),
     (["--engine", "physical"], None, {}, "fit: 4 steps in "),
     ([], {"engine": "physical_pallas"}, {}, "fit: 4 steps in "),
-    ([], {"mesh": {"tile": 2, "spp": 1}}, {}, "A11"),
+    ([], {"mesh": {"tile": 2, "spp": 1}}, {}, "fit on mesh 2x1: 4 steps in "),
     ([], None, {"checkpoint_path": "fit.ckpt"}, "fit: 4 steps in "),
     ([], None, {"checkpoint_every": 5}, "fit: 4 steps in "),
 ])
 def test_fit_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, render, top, item):
-    """What is still to be ported is refused by ROADMAP item; the physical
-    tier's modes and engines, refused until its gradient was ported, and
-    the fit's checkpoints, refused until they were ported, run and print
-    their result line (a checkpoint path also leaves its file, at step 4)."""
+    """What was once refused by ROADMAP item now runs: the physical tier's
+    modes and engines, refused until its gradient was ported, the fit's
+    checkpoints, refused until they were ported, and a mesh, refused until
+    the parallel layer was ported, run and print their result line (a
+    checkpoint path also leaves its file, at step 4)."""
     if "checkpoint_path" in top:
         top = {**top, "checkpoint_path": str(tmp_path / top["checkpoint_path"])}
     argv = ["fit", "--device", "cpu", "--config", fit_config(tmp_path, render, **top)] + argv
-    if item == "A11":
-        with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-            app.main(argv)
-        return
     app.main(argv)
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith(item), line

@@ -153,11 +153,21 @@ def test_tri_nee_reduces_variance_and_keeps_the_mean():
 
 @pytest.mark.parametrize("name", ["row_start", "rows", "remat", "vma_axes", "collect_stats"])
 def test_unported_arguments_are_refused_by_name(name):
-    """Arguments still to be ported are refused with their ROADMAP item.
+    """The JAX function's arguments, each ported or refused by name.
     ``collect_stats`` is ported: ``trace_paths_physical`` takes it, and
     ``render_physical``, like the JAX function, has no such argument.
-    ``remat`` is ported: the image and the gradient do not change."""
+    ``remat`` is ported: the image and the gradient do not change.
+    ``row_start`` and ``rows`` are ported: a block is the same rows of the
+    whole image. ``vma_axes`` has no PyTorch counterpart and is refused
+    with a message that says so."""
     pscene = carry(jdemo.diffuse_sphere_scene())
+    if name in ("row_start", "rows"):
+        whole = render_physical(pscene, PCAM, 8, 8, 1, 1, 0)
+        block = render_physical(pscene, PCAM, 8, 8, 1, 1, 0, row_start=3, rows=2)
+        assert torch.equal(block, whole[3:5])
+        with pytest.raises(ValueError):
+            render_physical(pscene, PCAM, 8, 8, 1, 1, 0, row_start=7, rows=2)
+        return
     if name == "remat":
         out = {}
         for remat in (False, True):
@@ -179,7 +189,7 @@ def test_unported_arguments_are_refused_by_name(name):
         with pytest.raises(TypeError):
             render_physical(pscene, PCAM, 8, 8, 1, 1, 0, collect_stats=1)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
+    with pytest.raises(TypeError, match="shard_map"):
         render_physical(pscene, PCAM, 8, 8, 1, 1, 0, **{name: 1})
     with pytest.raises(TypeError):
         render_physical(pscene, PCAM, 8, 8, 1, 1, 0, nonsense=1)
