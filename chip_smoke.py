@@ -66,7 +66,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    and valid light samples, and the thread- and warp lane-rounds, must equal
    the twin's.
 11. two-pass kernel against its plain twin and against the fused kernel's
-   contraction, at the tolerance stated at ``BWD_RTOL``; then
+   contraction, at the tolerance stated at ``BWD_RTOL``; two of its launches
+   and its counting instantiation equal bit for bit, and the counts
+   (``count_sites``: rounds, and each add site's lanes, rows, depth and
+   visits) equal to the twin's, with rounds equal to B4's, at 100x160 and
+   at config 4's shape on spheres32 (the cap at the live count and 0); then
    ``render_physical_kernel_vjp`` + ``backward`` against ``torch.autograd``
    through the eager physical tier.
 12. the physical gradient's main path at full width (glossy, 1024x1024, 64
@@ -74,7 +78,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    planes), ``render_physical_kernel_vjp`` with jitter on and the emitter cap
    at the scene's live emitter count plus ``backward``, and
    ``render_physical_bwd`` once; both kernels against their twins at that
-   shape; then the CLI ``fit --mode geometry``, ``fit --mode roughness`` and
+   shape, B5's counts too; then the CLI ``fit --mode geometry``, ``fit --mode roughness`` and
    ``fit``, each with ``--engine physical_pallas``, on a small scene and
    configs the script writes: every step must go through the fused kernel,
    the loss must fall, and the printed error of the geometry and roughness
@@ -99,7 +103,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    rates; B2's and B4's measurement instantiations against the kernels
    (images, and but for the sinks planes, value for value); the
    decompositions of B2's and B4's times (``fused_decompose``), with the
-   twins' warp lane-rounds at the main shape under both schedules.
+   twins' warp lane-rounds at the main shape under both schedules; the
+   decomposition of B5's (``fused_decompose(kind="physical_bwd")``: its
+   reduction against its sink, the geometry, its records in shared memory,
+   its counts held to the twin's), and the shared atomics, matches and
+   shuffles in the SASS of its instantiations (the timed kernel has no
+   shared atomic).
 15. the long runs: the CLI ``render`` at the main shape (B1) and of
    ``configs/config3_glossy_1024.json`` (B3), in one chunk and in chunks of
    ``CHUNK_SPP`` spp with and without a checkpoint file, timed in turns,
@@ -506,27 +515,37 @@ def ulp_distance(a, b):
     return (ia - ib).abs()
 
 
-def sass_global_loads(patterns: dict) -> dict:
-    """Global loads (LDG instructions) in the SASS of each kernel whose
-    mangled name contains ``patterns[key]``, from cuobjdump on the built
-    library."""
+def sass_counts(patterns: dict, opcode: str) -> dict:
+    """Instructions whose opcode matches the regular expression ``opcode``,
+    by opcode, in the SASS of each kernel whose mangled name contains every
+    string of ``patterns[key]``, from cuobjdump on the built library."""
     from path_tracer_c_tpu_torch.ops import build
 
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    loads, current = {}, None
+    found, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            current = next((k for k, pat in patterns.items() if pat in name), None)
+            current = next((k for k, pats in patterns.items() if all(p in name for p in pats)),
+                           None)
             if current is not None:
-                loads[current] = 0
-        elif current is not None and re.search(r"\bLDG\b", line):
-            loads[current] += 1
-    if set(loads) != set(patterns):
-        raise AssertionError(f"SASS: kernels {sorted(set(patterns) - set(loads))} not found")
-    return loads
+                found[current] = {}
+        elif current is not None:
+            m = re.search(rf"\b({opcode})\b", line)
+            if m:
+                found[current][m.group(1)] = found[current].get(m.group(1), 0) + 1
+    if set(found) != set(patterns):
+        raise AssertionError(f"SASS: kernels {sorted(set(patterns) - set(found))} not found")
+    return found
+
+
+def sass_global_loads(patterns: dict) -> dict:
+    """Global loads (LDG instructions) in the SASS of each kernel whose
+    mangled name contains ``patterns[key]``."""
+    found = sass_counts({k: (p,) for k, p in patterns.items()}, r"LDG(?:\.[A-Z0-9.]+)?")
+    return {k: sum(v.values()) for k, v in found.items()}
 
 
 def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
@@ -535,11 +554,11 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
     speed-of-light path (the op rates and the decomposition of B1's time)
     with its launches counted; B3's decomposition; the ALU rate's
     saturation; the probes' times; ``sol_report`` of B1-B5 from phase 13's
-    times; and the decompositions of B2's and B4's times. ``specs``: kernel
-    name -> (flops kind, events, keywords, milliseconds); ``twin_rounds``:
-    ``round_groupings`` of B2's and B4's twins at the main shape, by
-    ``fused_decompose`` kind. Returns the measured bounds of B1-B5, B2's and
-    B4's rounds and decompositions, B1's and B3's schedules, rounds and
+    times; the decompositions of B2's, B4's and B5's times; B5's SASS.
+    ``specs``: kernel name -> (flops kind, events, keywords, milliseconds);
+    ``twin_rounds``: ``round_groupings`` of B2's and B4's twins and B5's
+    twin's counts at the main shape, by ``fused_decompose`` kind. Returns the
+    measured bounds of B1-B5, B2's, B4's and B5's rounds and decompositions, B1's and B3's schedules, rounds and
     decompositions, the new kernels' entries, and B1's launches on this
     path."""
     import torch
@@ -665,15 +684,34 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
                     for a, b in zip(v[1:], out[name][1:]):
                         compare_exact(a, b, what + " planes")
 
-    # Where B2's and B4's times go, at the measured rates.
+    # Where B2's, B4's and B5's times go, at the measured rates.
     fused_parts = {}
-    for kind, name in (("fused", "render_fused"), ("physical_fused", "render_phys_fused")):
+    for kind, name in (("fused", "render_fused"), ("physical_fused", "render_phys_fused"),
+                       ("physical_bwd", "render_phys_bwd")):
         d = fused_decompose(kind, dev, rates=rates, twin_counts=twin_rounds[kind])
         log(f"fused_decompose {kind} [{card}] " + json.dumps(d))
         fused_parts[name] = {
             "warp_lane_rounds": d["warp_lane_rounds"],
-            "warp_lane_rounds_regen": d["warp_lane_rounds_regen"],
             "decomposition": {k: v for k, v in d.items() if k.endswith("_fraction")}}
+        if kind == "physical_bwd":
+            fused_parts[name].update(counts=d["counts"], atomics=d["atomics"],
+                                     sink_ms=d["sink_seconds"] * 1e3,
+                                     shared_records_ms=d["shared_records_seconds"] * 1e3)
+        else:
+            fused_parts[name]["warp_lane_rounds_regen"] = d["warp_lane_rounds_regen"]
+
+    # B5's adds in SASS: the timed kernel adds into its warps' tables with
+    # plain stores, no shared atomics; its sink's one float atomicAdd a pixel
+    # shows the form such an add takes.
+    bwd_sass = sass_counts(
+        {"kernel": ("render_phys_bwd_kernelILb0ELb0E", "LocalStores", "10WarpTables"),
+         "kernel, tri_nee": ("render_phys_bwd_kernelILb0ELb1E", "LocalStores", "10WarpTables"),
+         "sink": ("render_phys_bwd_kernelILb0ELb0E", "10SinkReduce")},
+        r"ATOMS(?:\.[A-Z0-9.]+)?|MATCH\.ANY|SHFL\.IDX")
+    log(f"  SASS of B5's instantiations (shared atomics, matches, shuffles): {bwd_sass}")
+    if any(op.startswith("ATOMS") for k in ("kernel", "kernel, tri_nee") for op in bwd_sass[k]):
+        raise AssertionError("B5's timed kernel issues shared atomics")
+    fused_parts["render_phys_bwd"]["sass"] = bwd_sass
 
     # Times of the new kernels and their twins.
     xs = torch.full((threads,), 1.0, device=dev)
@@ -1231,15 +1269,21 @@ def row_block_checks(pt, dev, glossy, cam) -> None:
             check_row_blocks(f"B4 {v} {where}", pg.render_physical_fused_variant, vargs + (v,),
                              dict(n_em_cap=n_live), parts)
         g = torch.randn((shape[0], shape[1], 3), generator=torch.Generator().manual_seed(3)).to(dev)
-        whole = pg.render_physical_bwd(glossy, cam, g, *shape, seed, n_em_cap=n_live)
-        blocks = [pg.render_physical_bwd(glossy, cam, g[r0:r0 + n], *shape, seed, n_em_cap=n_live,
-                                         row_start=r0, rows=n)
-                  for r0, n in _row_blocks(shape[0], parts)]
+        whole, counts = pg.render_physical_bwd(glossy, cam, g, *shape, seed, n_em_cap=n_live,
+                                               count_sites=True)
+        counted = [pg.render_physical_bwd(glossy, cam, g[r0:r0 + n], *shape, seed,
+                                          n_em_cap=n_live, row_start=r0, rows=n,
+                                          count_sites=True)
+                   for r0, n in _row_blocks(shape[0], parts)]
+        blocks = [d for d, _ in counted]
+        if {k: sum(c[k] for _, c in counted) for k in counts} != counts:
+            raise AssertionError(f"B5 {where}: the blocks' counts do not sum to the whole's")
         leaves = [lf for lf in pg._GRAD_LEAVES if lf[0] != "triangles" and lf[1] != "roughness"]
         summed = pg.replace_leaves(whole, [
             (tb, nm, sum(getattr(getattr(b, tb) if tb else b, nm) for b in blocks))
             for tb, nm in leaves])
-        compare_cotangents(summed, whole, leaves, f"B5 {where}: blocks summed vs whole")
+        compare_cotangents(summed, whole, leaves, f"B5 {where}: blocks summed vs whole (counts "
+                                                  f"summed equal too)")
 
 
 def _free_port() -> int:
@@ -1946,6 +1990,41 @@ def main() -> int:
         if any(bool(t.any()) for t in (d5.triangles.v0, d5.triangles.v1, d5.triangles.v2,
                                        d5.materials.roughness)):
             raise AssertionError(f"{what}: a cotangent outside the two-pass contract is not zero")
+    # Every addition of B5 is in a fixed order: two launches equal bit for
+    # bit; its counting instantiation gives the same cotangents and the twin's
+    # counts, whose rounds are B4's. At 100x160 and at config 4's shape.
+    log("two-pass kernel: two launches and the counting instantiation equal bit for bit, the "
+        "counts equal to the twin's, the rounds to B4's:")
+    g_fit = torch.randn((cfg.height, cfg.width, 3),
+                        generator=torch.Generator().manual_seed(4)).to(dev)
+    n_live_s = rp.live_emitter_count(spheres)
+    fit_shape = (cfg.height, cfg.width, cfg.spp, cfg.max_bounces)
+    for scene, g_, shape, kw, what in (
+            (phys_scenes["glossy_scene"], g_small, (100, 160, 4, 8),
+             dict(n_em_cap=1, sample_offset=3), "glossy_scene 100x160 4spp 8b"),
+            (phys_scenes["glossy_scene"], g_small, (100, 160, 4, 8), dict(n_em_cap=0),
+             "glossy_scene 100x160 4spp 8b"),
+            (phys_scenes["tri_light_scene"], g_small, (100, 160, 4, 8),
+             dict(tri_nee=True, n_em_cap=2, jitter=False), "tri_light_scene 100x160 4spp 8b"),
+            (spheres, g_fit, fit_shape, dict(n_em_cap=n_live_s),
+             "spheres32 {1}x{0} {2}spp {3}b (config 4's shape)".format(*fit_shape)),
+            (spheres, g_fit, fit_shape, dict(n_em_cap=0),
+             "spheres32 {1}x{0} {2}spp {3}b (config 4's shape)".format(*fit_shape))):
+        args = (scene, cam, g_, *shape, 7)
+        d5, counts = pg.render_physical_bwd(*args, count_sites=True, **kw)
+        again = pg.render_physical_bwd(*args, **kw)
+        r5, twin_counts = pg.render_physical_bwd_reference(*args, count_sites=True, **kw)
+        what = f"{what} {kw}"
+        if not all(torch.equal(a, b) for a, b in zip(pg._grad_leaves(d5)[:8],
+                                                     pg._grad_leaves(again)[:8])):
+            raise AssertionError(f"{what}: two launches of the two-pass kernel differ")
+        pb_err = max(pb_err, compare_cotangents(again, r5, pb_leaves, what + " vs twin"))
+        b4 = pg.render_physical_fused_round_counts(
+            scene, cam, *shape, 7, **{k: v for k, v in kw.items() if k != "n_em_cap"})
+        if counts != twin_counts or (counts["fwd_thread_rounds"], counts["fwd_warp_lane_rounds"]) != (
+                b4["thread_rounds"], b4["warp_lane_rounds"]):
+            raise AssertionError(f"{what}: counts {counts}, twin {twin_counts}, B4 {b4}")
+        log(f"    counts {counts}")
     log("physical gradient: render_physical_kernel_vjp + backward vs autograd through the eager tier:")
     g = torch.randn((32, 64, 3), generator=torch.Generator().manual_seed(0)).to(dev)
     tri_scene = phys_scenes["tri_light_scene"]
@@ -2062,6 +2141,17 @@ def main() -> int:
     pb_twin_ms = start.elapsed_time(end)
     pb_err = max(pb_err, compare_cotangents(d5, r5, pb_leaves, where_main + " two-pass vs twin"))
     del d5, r5, d_vjp
+    d5c, pb_counts = pg.render_physical_bwd(glossy, cam, g_main, H, W, SPP, BOUNCES, 1,
+                                            count_sites=True, **geo_kw)
+    _, pb_twin_counts = pg.render_physical_bwd_reference(glossy, cam, g_main, H, W, SPP, BOUNCES,
+                                                         1, count_sites=True, **geo_kw)
+    if pb_counts != pb_twin_counts or pb_counts["fwd_thread_rounds"] != pf_events["rounds"] or (
+            pb_counts["fwd_warp_lane_rounds"] != phys_fused_twin_rounds["warp_lane_rounds"]):
+        raise AssertionError(f"main shape: two-pass counts {pb_counts}, twin {pb_twin_counts}")
+    log(f"    two-pass counts {pb_counts}, equal to the twin's; the rounds B4's")
+    log(f"    two-pass adds by site (every lane's atomics, as the parent design; the warp "
+        f"groups', as the kernel): {json.dumps(pg.bwd_atomics(pb_counts))}")
+    del d5c
 
     # The three CLI fits on the fused physical kernel, on a scene and configs
     # written here.
@@ -2207,7 +2297,8 @@ def main() -> int:
 
     # -- 14. speed of light --
     sol = speed_of_light(dev, card, glossy, cam, specs,
-                         {"fused": fused_twin_rounds, "physical_fused": phys_fused_twin_rounds})
+                         {"fused": fused_twin_rounds, "physical_fused": phys_fused_twin_rounds,
+                          "physical_bwd": pb_twin_counts})
 
     # -- 15. the long runs --
     t0 = time.perf_counter()

@@ -542,8 +542,9 @@ __device__ __forceinline__ void tri_w_adjoint(const float* tp, float sox, float 
 // valid light sample its weight and emitter row. Thread-private arrays of a
 // compile-time size, which the compiler places in local memory: B4 and B5
 // keep them so, max_bounces + 1 <= kMaxRounds, and the wrappers raise above
-// it. Only B4's measurement instantiations keep them elsewhere: in registers
-// (RoundStoresN with a small kN) or in shared memory (render_phys_fused.cu).
+// it. Only measurement instantiations keep them elsewhere: in registers
+// (RoundStoresN with a small kN, B4's) or in shared memory (B4's and B5's;
+// pt_phys_grad.cuh).
 constexpr int kMaxRounds = 32;
 
 template <int kN>

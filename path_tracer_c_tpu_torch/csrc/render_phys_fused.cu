@@ -94,8 +94,7 @@
 // plane adds, the geometry planes' included, into one register; the records
 // in registers; the records in shared memory). No user path runs them.
 
-#include "pt_fused.cuh"
-#include "pt_phys.cuh"
+#include "pt_phys_grad.cuh"
 
 namespace {
 
@@ -108,36 +107,6 @@ struct Planes {
   float* jtri;  // (27 * tri_em_cap, rows, W), or null
   size_t hw;    // plane stride: the pixels of the block
   int n_em_cap, tri_em_cap;
-};
-
-// The per-bounce records of a sample. The kernel keeps RoundStores in local
-// memory (LocalStores<kMaxRounds>); LocalStores<kRegisterRounds> with its
-// loops unrolled keeps them in registers, and SharedStores keeps them in
-// dynamic shared memory sized by max_bounces + 1 at launch, mat narrowed to
-// int16 (measurement instantiations).
-template <int kN>
-struct LocalStores : RoundStoresN<kN> {
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void place(unsigned char*, int) {}
-};
-
-struct SharedStores {
-  static constexpr bool kShared = true;
-  static constexpr int kRoundBytes = 5 * 4 + 2 + 1;
-  SmemField<float> pr, pg, pb, w;
-  SmemField<int> row;
-  SmemField<short> mat;
-  SmemField<unsigned char> ev;
-  // The fields of `rounds` rounds, one after another from `base`.
-  __device__ __forceinline__ void place(unsigned char* base, int rounds) {
-    pr = smem_field<float>(base, rounds);
-    pg = smem_field<float>(base, rounds);
-    pb = smem_field<float>(base, rounds);
-    w = smem_field<float>(base, rounds);
-    row = smem_field<int>(base, rounds);
-    mat = smem_field<short>(base, rounds);
-    ev = smem_field<unsigned char>(base, rounds);
-  }
 };
 
 // The timed kernel, and its measurement instantiations (pt_fused.cuh).

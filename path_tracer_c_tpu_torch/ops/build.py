@@ -75,9 +75,14 @@ _SIGNATURES = {
     "render_phys_fused_variant": ([_I] + _SCENE[:-1] + [_P] * 7 + [_P] * 4 + [_I] * 2 + _RUN,
                                   ctypes.c_int),
     # the scene tables, the 6 emitter tables, raw emission colours, counts,
-    # params, the image's cotangent, the two outputs, nee, tri_nee, n_em_cap
-    # (csrc/render_phys_bwd.cu)
-    "render_phys_bwd": (_SCENE[:-1] + [_P] * 8 + [_P] * 4 + [_I] * 3 + _RUN, ctypes.c_int),
+    # params, the image's cotangent, the two outputs, the partial sums, the
+    # counters (or null), nee, tri_nee, n_em_cap (csrc/render_phys_bwd.cu)
+    "render_phys_bwd": (_SCENE[:-1] + [_P] * 8 + [_P] * 6 + [_I] * 3 + _RUN, ctypes.c_int),
+    "render_phys_bwd_counters": ([], ctypes.c_int),
+    # variant, then render_phys_bwd's arguments without the counters and
+    # tri_nee
+    "render_phys_bwd_variant": ([_I] + _SCENE[:-1] + [_P] * 8 + [_P] * 5 + [_I] * 2 + _RUN,
+                                ctypes.c_int),
     # x, out, n, kind, reps, device index, stream (csrc/calib.cu)
     "calib": ([_P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
     # the scene tables and params as render_fwd takes them, out, height,

@@ -68,7 +68,8 @@ __all__ = [
     "render_physical_fused_round_counts", "render_physical_fused_round_counts_reference",
     "render_physical_fused_variant",
     "contract_physical_jacobian", "render_physical_kernel_vjp",
-    "render_physical_bwd", "render_physical_bwd_reference",
+    "render_physical_bwd", "render_physical_bwd_reference", "render_physical_bwd_variant",
+    "bwd_atomics", "BWD_SITES", "BWD_SITE_VALUES", "BWD_COUNTS", "BWD_VARIANTS",
     "cone_w_chain", "cone_w_adjoint", "tri_w_chain", "tri_w_adjoint",
     "MAX_BOUNCES", "EVENTS", "SOURCE", "REPLACES", "SOURCE_BWD", "REPLACES_BWD",
 ]
@@ -635,13 +636,18 @@ def _lobe_drg(rec):
         ))
 
 
+def _sphere_lanes(rec):
+    """The pixels whose light sample of a round is a valid sphere pick."""
+    return rec.valid & ~rec.light["is_tri"] if "is_tri" in rec.light else rec.valid
+
+
 def _sphere_dw(cx, rec):
     """The cone chain's adjoint at every pixel's light sample of a round,
     and the mask of valid sphere picks."""
     light = rec.light
     sph = cx.tabs[0]
     e = light["e_idx"]
-    lanes = rec.valid & ~light["is_tri"] if "is_tri" in light else rec.valid
+    lanes = _sphere_lanes(rec)
     dw = cone_w_adjoint((sph[e, 0], sph[e, 1], sph[e, 2]), sph[e, 3], rec.so, rec.normal,
                         rec.v1, light["cp"], light["sp"], light["pool_f"])
     return dw, lanes
@@ -1049,6 +1055,87 @@ def _bwd_scene(scene, out, geo, n_em_cap):
         out[n_mat, 0:3], geo[:n_em_cap] if n_em_cap else None, None)
 
 
+# B5's add sites (csrc/render_phys_bwd.cu `Site`) and the values a lane adds
+# at each: a hit's material row (albedo and transparency), its emission where
+# single counting adds it, the sampled emitter's emission, the emitter's
+# geometry (in the forward rounds) and the sky (once a pixel).
+BWD_SITES = ("mat", "mat_le", "emitter", "geo", "sky")
+BWD_SITE_VALUES = {"mat": 4, "mat_le": 4, "emitter": 4, "geo": 4, "sky": 3}
+# What B5's counting instantiation counts (``count_sites``), in the kernel's
+# order: the forward rounds' and the sweep's thread-rounds and warp
+# lane-rounds, then for each site the lanes that add, the distinct rows among
+# a warp's adding lanes, the most of a warp's lanes on one row (the serial
+# depth of per-lane atomics) and the warp visits with an adding lane, each
+# summed over the warps' visits of the site.
+BWD_COUNTS = (("fwd_thread_rounds", "fwd_warp_lane_rounds", "sweep_thread_rounds",
+               "sweep_warp_lane_rounds")
+              + tuple(f"{s}_{c}" for s in BWD_SITES for c in ("lanes", "groups", "depth", "visits")))
+# B5's measurement instantiations (csrc/render_phys_bwd.cu `BwdVariant`),
+# built without tri_nee, none on a user path, each one policy away from the
+# kernel: its adds into one register a thread; its records in shared memory.
+BWD_VARIANTS = {"sink": 0, "shared_records": 1}
+
+
+def bwd_atomics(counts: dict) -> dict:
+    """From B5's counts, the adds of each site under two reductions: every
+    adding lane's float atomics (``lanes``: the parent design, four a hit's
+    row, four its emission) and the warp groups' adds (``groups``: the
+    kernel, whose group leaders add a hit's row and emission as one run of
+    eight)."""
+    out = {s: {"lanes": counts[f"{s}_lanes"] * v, "groups": counts[f"{s}_groups"] * v}
+           for s, v in BWD_SITE_VALUES.items()}
+    out["mat"]["groups"] = 8 * counts["mat_groups"]
+    out["mat_le"]["groups"] = 0
+    return out
+
+
+def _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed, sample_offset,
+                jitter, nee, n_em_cap, tri_nee, row_start, rows, count=False, variant=None):
+    """Launch B5 (or its counting instantiation, or a variant) and its
+    second pass on the scene's CUDA device; returns ``out``, ``geo`` and the
+    counters (or None)."""
+    device = scene.device
+    if device.type != "cuda":
+        raise ValueError(f"render_physical_bwd runs on CUDA or CPU tensors, not {device}")
+    lib = _load_library()
+    operands = _rk._scene_operands(scene)
+    ph = _rp._phys_operands(scene, operands)
+    par = _rk._camera_params(camera, scene, height, width)
+    g32 = g.to(torch.float32).contiguous()
+    eco = scene.materials.emission_color.contiguous()
+    n_mat = scene.num_materials
+    out = torch.empty((n_mat + 1, 8), dtype=torch.float32, device=device)
+    geo = torch.empty((max(n_em_cap, 1), 4), dtype=torch.float32, device=device)
+    n_blocks = -(-width // 32) * -(-rows // 8)
+    partials = torch.empty(((out.numel() + geo.numel()) * n_blocks,), dtype=torch.float32,
+                           device=device)
+    counter = None
+    if count:
+        if lib.render_phys_bwd_counters() != len(BWD_COUNTS):
+            raise RuntimeError("csrc/render_phys_bwd.cu and BWD_COUNTS disagree")
+        counter = torch.zeros(len(BWD_COUNTS), dtype=torch.int64, device=device)
+    args = _rp._emitter_args(ph)
+    head = (*_rk._table_args(operands), *args[:-1], _ptr(eco), args[-1], _ptr(par), _ptr(g32),
+            _ptr(out), _ptr(geo), _ptr(partials))
+    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+                        row_start, rows)
+    if variant is None:
+        err = lib.render_phys_bwd(*head, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
+                                  n_em_cap, *run)
+        name = "render_phys_bwd"
+    else:
+        err = lib.render_phys_bwd_variant(BWD_VARIANTS[variant], *head, int(bool(nee)),
+                                          n_em_cap, *run)
+        name = f"render_phys_bwd variant {variant}"
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if variant is None:
+        render_physical_bwd.launches += 1
+    else:
+        render_physical_bwd_variant.launches += 1
+    return out, geo, counter
+
+
 def render_physical_bwd(
     scene: Scene,
     camera: Camera,
@@ -1065,23 +1152,27 @@ def render_physical_bwd(
     tri_nee: bool = False,
     row_start: int = 0,
     rows: int | None = None,
-) -> Scene:
+    count_sites: bool = False,
+):
     """The cotangent of ``render_physical_kernel``'s image for the image
     cotangent ``g`` (H, W, 3; of the row block of ``rows`` rows from
     ``row_start`` where they are given: the blocks' cotangents sum to the
     whole image's), as a ``Scene`` of tensors, by the two-pass
     scheme (replay, then sweep, then a reduction over all pixels inside the
     kernel): the parity oracle of the fused kernel and its contraction,
-    which ``render_physical_kernel_vjp`` uses.
+    which ``render_physical_kernel_vjp`` uses. With ``count_sites``,
+    ``(Scene, counts)``: a dict of one count per name in ``BWD_COUNTS``.
 
     Albedo, emission colour and strength, transparency and sky as the fused
     path; sphere-emitter centre and radius through the cone weight for the
     first ``n_em_cap`` ordinals (default ``min(num_spheres, 8)``, 0 with
     ``nee`` off). Triangle vertices and roughness are zero here.
 
-    CUDA tensors go to the hand kernel (``csrc/render_phys_bwd.cu``);
-    ``render_physical_bwd.launches`` counts its launches. It reduces with
-    float atomics, so two runs agree to float32 rounding, not bit for bit.
+    CUDA tensors go to the hand kernel (``csrc/render_phys_bwd.cu``; with
+    ``count_sites`` its counting instantiation);
+    ``render_physical_bwd.launches`` counts its launches. It sums in a fixed
+    order, so two runs agree bit for bit; its order is not the twin's, so
+    the two agree to float32 rounding.
     CPU tensors go to ``render_physical_bwd_reference``. Any other device
     raises.
     """
@@ -1096,33 +1187,124 @@ def render_physical_bwd(
         return render_physical_bwd_reference(
             scene, camera, g, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, nee=nee, n_em_cap=n_em_cap,
-            tri_nee=tri_nee, row_start=row_start, rows=rows)
-    if device.type != "cuda":
-        raise ValueError(f"render_physical_bwd runs on CUDA or CPU tensors, not {device}")
-    lib = _load_library()
-    operands = _rk._scene_operands(scene)
-    ph = _rp._phys_operands(scene, operands)
-    par = _rk._camera_params(camera, scene, height, width)
-    g32 = g.to(torch.float32).contiguous()
-    eco = scene.materials.emission_color.contiguous()
-    out = torch.zeros((scene.num_materials + 1, 8), dtype=torch.float32, device=device)
-    geo = torch.zeros((max(n_em_cap, 1), 4), dtype=torch.float32, device=device)
-    args = _rp._emitter_args(ph)
-    err = lib.render_phys_bwd(
-        *_rk._table_args(operands), *args[:-1], _ptr(eco), args[-1], _ptr(par), _ptr(g32),
-        _ptr(out), _ptr(geo), int(bool(nee)), int(bool(tri_nee)), n_em_cap,
-        *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
-                       row_start, rows),
-    )
-    if err != 0:
-        raise RuntimeError(f"render_phys_bwd kernel launch failed: CUDA error {err}")
-    render_physical_bwd.launches += 1
-    return _bwd_scene(scene, out, geo, n_em_cap)
+            tri_nee=tri_nee, row_start=row_start, rows=rows, count_sites=count_sites)
+    out, geo, counter = _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed,
+                                    sample_offset, jitter, nee, n_em_cap, tri_nee, row_start,
+                                    rows, count=count_sites)
+    d = _bwd_scene(scene, out, geo, n_em_cap)
+    return (d, dict(zip(BWD_COUNTS, counter.tolist()))) if count_sites else d
 
 
 render_physical_bwd.launches = 0
 render_physical_bwd.SOURCE = SOURCE_BWD
 render_physical_bwd.REPLACES = REPLACES_BWD
+
+
+def render_physical_bwd_variant(
+    scene: Scene,
+    camera: Camera,
+    g,
+    height: int,
+    width: int,
+    spp: int,
+    max_bounces: int,
+    seed: int,
+    variant: str,
+    sample_offset: int = 0,
+    jitter: bool = True,
+    nee: bool = True,
+    n_em_cap: int | None = None,
+    row_start: int = 0,
+    rows: int | None = None,
+) -> Scene:
+    """The ``Scene`` of a measurement instantiation of B5
+    (``BWD_VARIANTS``; without tri_nee), on CUDA tensors only, for
+    ``utils/sol_decompose.fused_decompose``: the kernel's cotangents but for
+    the ``sink``'s (its tables are not the cotangents). No user path runs
+    it. Counts its launches in ``render_physical_bwd_variant.launches``."""
+    n_em_cap = _bwd_cap(scene, nee, n_em_cap)
+    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                              sample_offset, n_em_cap, row_start=row_start, rows=rows)
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(BWD_VARIANTS)}")
+    if tuple(g.shape) != (rows, width, 3) or g.device != scene.device:
+        raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, expected "
+                         f"{(rows, width, 3)} on {scene.device}")
+    if scene.device.type != "cuda":
+        raise ValueError(f"render_physical_bwd_variant runs on CUDA tensors only, not "
+                         f"{scene.device}")
+    out, geo, _ = _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed,
+                              sample_offset, jitter, nee, n_em_cap, False, row_start, rows,
+                              variant=variant)
+    return _bwd_scene(scene, out, geo, n_em_cap)
+
+
+render_physical_bwd_variant.launches = 0
+
+
+class _BwdCounts:
+    """B5's counts from the twin's replay, as the counting instantiation
+    takes them: a warp is 32 consecutive columns of one row from a multiple
+    of 32; each sample's forward rounds and sweep run the warp's longest
+    lane's rounds; the forward round ``b`` of every lane is one visit of the
+    geometry site, step ``i`` of the sweep (each lane's round ``n - 1 - i``)
+    one visit of the three sweep sites, and the pixel's end one of the
+    sky's."""
+
+    def __init__(self, rows, width, device):
+        per_row = -(-width // 32)
+        cols = torch.arange(width, device=device) // 32
+        self.warp = (torch.arange(rows, device=device)[:, None] * per_row + cols).reshape(-1)
+        self.n_warps = rows * per_row
+        self.lanes = torch.bincount(self.warp, minlength=self.n_warps)
+        self.total = torch.zeros(len(BWD_COUNTS), dtype=torch.int64, device=device)
+
+    def site(self, site, on, key, n_keys):
+        """A visit of ``site`` by every warp: lanes ``on`` add at row ``key``
+        (of ``n_keys``)."""
+        idx = self.warp[on] * n_keys + key[on].long()
+        per = torch.bincount(idx, minlength=self.n_warps * n_keys).reshape(self.n_warps, n_keys)
+        lanes = per.sum(1)
+        i = 4 + 4 * BWD_SITES.index(site)
+        self.total[i:i + 4] += torch.stack(
+            [lanes.sum(), (per > 0).sum(), per.max(1).values.sum(), (lanes > 0).sum()])
+
+    def sample(self, n):
+        """One sample's rounds ``n`` (per pixel) in the forward rounds and
+        the sweep."""
+        widest = torch.zeros(self.n_warps, dtype=torch.int64, device=n.device).scatter_reduce(
+            0, self.warp, n, "amax")
+        warp = (widest * self.lanes).sum()
+        self.total[:4] += torch.stack([n.sum(), warp, n.sum(), warp])
+
+    def counts(self) -> dict:
+        return dict(zip(BWD_COUNTS, self.total.tolist()))
+
+
+def _count_sample(cnt, records, n_mat, n_em_cap):
+    """Add one sample's replay to ``cnt`` (``_BwdCounts``)."""
+    n = sum((rec.hit | rec.miss).long() for rec in records)
+    cnt.sample(n)
+    for rec in records:
+        if rec.light is not None and n_em_cap:
+            kk = rec.light["kk"]
+            cnt.site("geo", _sphere_lanes(rec) & (kk < n_em_cap), kk, n_em_cap)
+    stack = lambda f: torch.stack([f(rec) for rec in records])
+    mat_on = stack(lambda r: r.hit & r.in_table)
+    le_on = stack(lambda r: r.hit & r.in_table & r.addle)
+    mats = stack(lambda r: torch.where(r.hit & r.in_table, r.m, 0))
+    none = torch.zeros_like(mat_on[0])
+    em_on = stack(lambda r: none if r.light is None else
+                  r.valid & (r.light["emat"] >= 0) & (r.light["emat"] < n_mat))
+    emats = stack(lambda r: torch.zeros_like(r.m) if r.light is None else
+                  torch.where(r.valid, r.light["emat"], 0).clamp(0, n_mat - 1))
+    for i in range(len(records)):
+        swept = i < n
+        b = (n - 1 - i).clamp(min=0)[None]
+        at = lambda t: t.gather(0, b)[0]
+        cnt.site("mat", swept & at(mat_on), at(mats), n_mat)
+        cnt.site("mat_le", swept & at(le_on), at(mats), n_mat)
+        cnt.site("emitter", swept & at(em_on), at(emats), n_mat)
 
 
 def render_physical_bwd_reference(
@@ -1141,18 +1323,22 @@ def render_physical_bwd_reference(
     tri_nee: bool = False,
     row_start: int = 0,
     rows: int | None = None,
-) -> Scene:
+    count_sites: bool = False,
+):
     """Plain PyTorch twin of the two-pass kernel, on the scene's device,
     over the row block of ``render_physical_bwd``:
     the replay of ``render_physical_fused_reference``, the kernel's
     per-pixel terms in float32 in its expression order, and the reduction
-    over pixels, samples and bounces in float64 (the kernel's own order of
-    additions is not fixed, so the twin takes the sum that rounds least)."""
+    over pixels, samples and bounces in float64 (the kernel's order of
+    additions, warps' group sums and blocks' partial sums, is another, so the
+    twin takes the sum that rounds least). With ``count_sites``, also the
+    counting instantiation's counts, from the replay (``_BwdCounts``)."""
     n_em_cap = _bwd_cap(scene, nee, n_em_cap)
     rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
                               sample_offset, n_em_cap, row_start=row_start, rows=rows)
     cx = _replay_setup(scene, camera, height, width, nee, tri_nee, row_start, rows)
     device, n, n_mat = cx.device, cx.n, cx.n_mat
+    cnt = _BwdCounts(rows, width, device) if count_sites else None
     mats = scene.materials
     inv_spp = _f32(1.0 / spp)
     gs = tuple((g.to(torch.float32).reshape(n, 3)[:, c] * inv_spp) for c in range(3))
@@ -1166,6 +1352,8 @@ def render_physical_bwd_reference(
 
     for s in range(spp):
         records, _, thr_end, _ = _replay_sample(cx, s, seed, sample_offset, jitter, max_bounces)
+        if cnt is not None:
+            _count_sample(cnt, records, n_mat, n_em_cap)
         sky = [(gc * t).double().sum() for gc, t in zip(gs, thr_end)]  # P_end
 
         if n_em_cap:
@@ -1207,4 +1395,9 @@ def render_physical_bwd_reference(
                             torch.where(rec.miss, k, c))
                 for em, alb, t, k, c in zip(rec.em, rec.alb, held, cx.sky, carry))
         out[n_mat, 0:3] += torch.stack(sky)
-    return _bwd_scene(scene, out.float(), geo.float(), n_em_cap)
+    d = _bwd_scene(scene, out.float(), geo.float(), n_em_cap)
+    if cnt is None:
+        return d
+    cnt.site("sky", torch.ones(n, dtype=torch.bool, device=device),
+             torch.zeros(n, dtype=torch.int64, device=device), 1)
+    return d, cnt.counts()

@@ -65,6 +65,16 @@ built for one block a multiprocessor, so the reading mixes the records'
 traffic with the register budget's); and the kernel against its records in
 the other memory (B2: local, B4: shared) at the main shape.
 
+With ``kind="physical_bwd"`` it decomposes the two-pass oracle B5
+(``csrc/render_phys_bwd.cu``, the live emitters' geometry cotangents, an
+image cotangent made from a seed) on its instantiations
+(``render_physical_grad.BWD_VARIANTS``): (b) is the reduction, the kernel
+against its ``sink``; (c) the sinks with and without the geometry; (d) B7's
+call at the same shape; beside them the records in
+shared memory against the kernel, and the counting instantiation's counts
+of the add sites (``count_sites``) with the adds they make
+(``bwd_atomics``).
+
 Every number is measured on the card; without a CUDA device this raises.
 """
 
@@ -248,7 +258,8 @@ RECORDS_SHAPE = (256, 256, 8, 3)
 
 def fused_decompose(kind: str = "fused", device="cuda", small: bool = False,
                     rates: dict | None = None, twin_counts: dict | None = None) -> dict:
-    """B2's (``kind`` "fused") or B4's ("physical_fused") time at the bench
+    """B2's (``kind`` "fused"), B4's ("physical_fused") or B5's
+    ("physical_bwd") time at the bench
     workload, decomposed (module docstring); one flat dict of numbers. B4 is
     timed with the live emitters' geometry planes (its gradient headline),
     and without them beside it. ``rates``: as ``sol_decompose``'s.
@@ -256,9 +267,12 @@ def fused_decompose(kind: str = "fused", device="cuda", small: bool = False,
     (``on_sample`` of ``render_fused_reference`` or
     ``render_physical_fused_reference``, seed 1), if the caller has them:
     they must agree with the kernel's counts, and add the warp lane-rounds
-    that path regeneration would run."""
+    that path regeneration would run. For B5, ``twin_counts`` is the twin's
+    ``count_sites`` at this shape (seed 1), which must equal the kernel's."""
+    if kind == "physical_bwd":
+        return _bwd_decompose(device, small, rates, twin_counts)
     if kind not in ("fused", "physical_fused"):
-        raise ValueError(f"kind must be 'fused' or 'physical_fused', not {kind!r}")
+        raise ValueError(f"kind must be 'fused', 'physical_fused' or 'physical_bwd', not {kind!r}")
     device = flops._cuda_device(device)
     height = width = 256 if small else 1024
     spp, bounces = (8, 4) if small else (64, 8)
@@ -340,4 +354,69 @@ def fused_decompose(kind: str = "fused", device="cuda", small: bool = False,
         out.update(warp_lane_rounds_regen=regen,
                    regen_divergence_loss_fraction=1.0 - thread_rounds / regen)
     parts["remainder_fraction"] = 1.0 - sum(parts.values())
+    return {**out, **parts}
+
+
+def _bwd_decompose(device, small: bool, rates: dict | None, twin_counts: dict | None) -> dict:
+    """``fused_decompose(kind="physical_bwd")``: B5 at the bench workload."""
+    device = flops._cuda_device(device)
+    height = width = 256 if small else 1024
+    spp, bounces = (8, 4) if small else (64, 8)
+    scene, cam = demo.glossy_scene(device), Camera.reference(device)
+    shape = (scene, cam, height, width, spp, bounces)
+    n_live = rp.live_emitter_count(scene)
+    g = torch.randn((height, width, 3), generator=torch.Generator().manual_seed(2)).to(device)
+    # the Scene's leaves read back, so that a call's work is done when timed
+    leaves = lambda d: pg._grad_leaves(d)[:8]
+    timed = lambda s: leaves(pg.render_physical_bwd(
+        scene, cam, g, height, width, spp, bounces, s, n_em_cap=n_live))
+    variant = lambda s, v, cap=n_live: leaves(pg.render_physical_bwd_variant(
+        scene, cam, g, height, width, spp, bounces, s, v, n_em_cap=cap))
+    _, counts = pg.render_physical_bwd(*shape[:2], g, *shape[2:], 1, n_em_cap=n_live,
+                                       count_sites=True)
+    if twin_counts is not None and twin_counts != counts:
+        raise AssertionError(f"the twin's counts {twin_counts} are not the kernel's {counts}")
+    events = pg.render_physical_fused(*shape, 1, count_events=True, n_em_cap=n_live)[-1]
+    fwd_events = rp.render_physical_kernel(*shape, 1, count_events=True)[1]
+    thread_rounds, warp_rounds = counts["fwd_thread_rounds"], counts["fwd_warp_lane_rounds"]
+
+    t = _median_seconds(timed)
+    sink_s = _median_seconds(lambda s: variant(s, "sink"))
+    sink_no_geo = _median_seconds(lambda s: variant(s, "sink", 0))
+    shared_s = _median_seconds(lambda s: variant(s, "shared_records"))
+    null_s = _median_seconds(lambda s: sol_null(scene, cam, height, width))
+    if rates is None:
+        rates = flops.measure_op_rates(device)
+    report = flops.sol_report("physical_bwd", scene, height, width, spp, bounces, t, events,
+                              fwd_events=fwd_events, n_em_cap=n_live, alu_rate=rates["alu"],
+                              transc_rate={c: rates[c] for c in flops.CLASSES[1:]})
+    sol_s = report["sol_seconds"]
+    parts = {
+        "sol_fraction": report["sol_fraction"],
+        "divergence_fraction": sol_s * (warp_rounds / thread_rounds - 1.0) / t,
+        "reduction_fraction": (t - sink_s) / t,
+        "geometry_adjoint_fraction": (sink_s - sink_no_geo) / t,
+        "fixed_fraction": null_s / t,
+    }
+    parts["remainder_fraction"] = 1.0 - sum(parts.values())
+    out = {
+        "kernel": "B5 render_phys_bwd",
+        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, blocks 32x8, "
+                    f"n_em_cap={n_live}",
+        "device": torch.cuda.get_device_name(device),
+        "seconds": t,
+        "executed_thread_rounds": thread_rounds,
+        "warp_lane_rounds": warp_rounds,
+        "divergence_loss_fraction": 1.0 - thread_rounds / warp_rounds,
+        "measured_rates": rates,
+        "sol_seconds": sol_s,
+        "sink_seconds": sink_s,
+        "no_geometry_sink_seconds": sink_no_geo,
+        "shared_records_seconds": shared_s,
+        "vs_shared_records_fraction": (shared_s - t) / t,
+        "null_call_seconds": null_s,
+        "counts": counts,
+        "atomics": pg.bwd_atomics(counts),
+        "events": events,
+    }
     return {**out, **parts}

@@ -2,7 +2,7 @@
 """Times of the hand kernels on one GPU, with the card's name and power
 limit; for comparing two checkouts in one call.
 
-    python3 scripts/torch_fused_times.py [--tree DIR] [--label NAME] [--forward]
+    python3 scripts/torch_fused_times.py [--tree DIR] [--label NAME] [--forward | --bwd]
 
 ``--tree`` names another checkout (``git archive`` of a parent unpacked
 under ``build/``) whose package is imported and built in place of this
@@ -26,6 +26,14 @@ steps that launch them; each time the median of 3 after a warm-up:
 - a step of config 4's material fit (``fit_materials``) and of the
   geometry fit on B4 (``fit_geometry(engine="physical_pallas")``, cornell
   at the fit shape), 20 steps a call, on the host's clock.
+
+With ``--bwd``, the two-pass oracle B5 (``csrc/render_phys_bwd.cu``)
+instead: alone on operands packed once, as above, at the glossy shape with
+the emitter cap at the live count and at config 4's shape (spheres32, cap
+at its live count); the timed kernel and, where the tree has them, each of
+its measurement instantiations (``render_physical_grad.BWD_VARIANTS``, through
+``render_phys_bwd_variant``); and as a user calls it
+(``render_physical_bwd``).
 
 With ``--forward``, the two forward kernels instead: B1 (``csrc/render_fwd.cu``)
 at the forward headline (glossy, 1024x1024, 64 spp, 8 bounces) and B3
@@ -194,6 +202,74 @@ def b3_launcher(lib, rk, rp, scene, cam, h, w, spp, bounces, variant=None):
     return launch
 
 
+def b5_launcher(lib, rk, rp, pg, scene, cam, h, w, spp, bounces, n_em_cap, variant=None):
+    """B5 (``variant`` None) or one of its instantiations, jitter and
+    next-event estimation on, on operands packed once: a function of the
+    seed. A tree from before the partial sums (no ``BWD_COUNTS``) takes the
+    outputs zero-filled once and adds into them."""
+    import torch
+
+    dev = scene.device
+    operands = rk._scene_operands(scene)
+    ph = rp._phys_operands(scene, operands)
+    par = rk._camera_params(cam, scene, h, w)
+    eco = scene.materials.emission_color.contiguous()
+    g = torch.randn((h, w, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    n_mat = scene.num_materials
+    out = torch.zeros((n_mat + 1, 8), dtype=torch.float32, device=dev)
+    geo = torch.zeros((max(n_em_cap, 1), 4), dtype=torch.float32, device=dev)
+    em = rp._emitter_args(ph)
+    head = (*rk._table_args(operands), *em[:-1], rk._ptr(eco), em[-1], rk._ptr(par),
+            rk._ptr(g), rk._ptr(out), rk._ptr(geo))
+    partials = None
+    if hasattr(pg, "BWD_COUNTS"):
+        n_blocks = -(-w // 32) * -(-h // 8)
+        partials = torch.empty(((out.numel() + geo.numel()) * n_blocks,), dtype=torch.float32,
+                               device=dev)
+        head += (rk._ptr(partials),)
+    if variant is not None:
+        go = lambda *run: lib.render_phys_bwd_variant(pg.BWD_VARIANTS[variant], *head, 1,
+                                                      n_em_cap, *run)
+    elif partials is not None:
+        go = lambda *run: lib.render_phys_bwd(*head, None, 1, 0, n_em_cap, *run)
+    else:
+        go = lambda *run: lib.render_phys_bwd(*head, 1, 0, n_em_cap, *run)
+
+    def launch(seed):
+        err = go(*rk._run_args(h, w, spp, bounces, seed, 0, True, dev))
+        if err != 0:
+            raise RuntimeError(f"render_phys_bwd {variant}: CUDA error {err}")
+
+    launch.keep = (operands, ph, par, eco, g, out, geo, partials)  # the pointers' tensors
+    return launch
+
+
+def bwd_times(lib, pt, rk, rp, pg, dev, cam) -> dict:
+    """B5 alone at the glossy shape and config 4's, with its other
+    instantiations where this tree has them, and as called."""
+    import torch
+
+    glossy = pt.demo.glossy_scene(dev)
+    spheres = pt.demo.random_spheres_scene(dev)
+    n_live, n_live_s = rp.live_emitter_count(glossy), rp.live_emitter_count(spheres)
+    shapes = {"": (glossy, (H, W, SPP, BOUNCES), n_live),
+              " fit shape": (spheres, FIT, n_live_s)}
+    alone = {}
+    for suffix, (scene, shape, cap) in shapes.items():
+        alone["B5" + suffix] = b5_launcher(lib, rk, rp, pg, scene, cam, *shape, cap)
+        for v in getattr(pg, "BWD_VARIANTS", {}):
+            alone[f"B5 {v}{suffix}"] = b5_launcher(lib, rk, rp, pg, scene, cam, *shape, cap, v)
+    result = {"kernel_ms": {k: median_ms(fn, repeat=REPEAT) for k, fn in alone.items()}}
+    del alone
+    g = torch.randn((H, W, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    result["call_ms"] = {"B5": median_ms(lambda s: pg._grad_leaves(pg.render_physical_bwd(
+        glossy, cam, g, H, W, SPP, BOUNCES, s, n_em_cap=n_live))[:8])}
+    result["shapes"] = {"B5": f"glossy {H}x{W} {SPP}spp {BOUNCES}b, jitter on, n_em_cap={n_live}",
+                        "fit shape": "spheres32 {}x{} {}spp {}b, jitter on, n_em_cap={}".format(
+                            *FIT, n_live_s)}
+    return result
+
+
 def forward_times(lib, pt, rk, rp, dev, cam) -> dict:
     """B1 and B3, alone and as called, with their instantiations where this
     tree has them."""
@@ -221,8 +297,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--label", default="this")
-    ap.add_argument("--forward", action="store_true",
-                    help="time B1 and B3 and their instantiations, not B2, B4 and the fits")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--forward", action="store_true",
+                      help="time B1 and B3 and their instantiations, not B2, B4 and the fits")
+    mode.add_argument("--bwd", action="store_true",
+                      help="time B5 and its instantiations, not B2, B4 and the fits")
     args = ap.parse_args()
 
     import torch
@@ -249,11 +328,13 @@ def main() -> int:
     lib = build.load_library()
     result["build_seconds"] = time.perf_counter() - t0
     kernels = (("render_fwd_kernel", "render_phys_kernel") if args.forward
+               else ("render_phys_bwd",) if args.bwd
                else ("render_fused_kernel", "render_phys_fused_kernel"))
     result["ptxas"] = ptxas_lines(build, kernels)
     print(f"{args.label}: built in {result['build_seconds']:.1f} s [{card}]", flush=True)
-    if args.forward:
-        result.update(forward_times(lib, pt, rk, rp, dev, cam))
+    if args.forward or args.bwd:
+        result.update(forward_times(lib, pt, rk, rp, dev, cam) if args.forward
+                      else bwd_times(lib, pt, rk, rp, pg, dev, cam))
         print(json.dumps(result), flush=True)
         return 0
 

@@ -15,9 +15,12 @@ before path regeneration, with their tables in shared memory).
 ``--fused`` prints two more lines: the same for the fused primal + Jacobian
 kernels B2 and B4 (``fused_decompose``: besides, the per-bounce records,
 the planes' read-modify-writes, B4's geometry adjoint), on the rates of
-the first line. From the repository root:
+the first line. ``--bwd`` prints one more: the same for the two-pass oracle
+B5 (``fused_decompose(kind="physical_bwd")``: the reduction, the geometry
+adjoint, the records in shared memory, its other reductions, the counts of
+its add sites). From the repository root:
 
-    python3 scripts/torch_sol_decompose.py [--small] [--per-sample] [--fused]
+    python3 scripts/torch_sol_decompose.py [--small] [--per-sample] [--fused] [--bwd]
 
 Needs a CUDA device and the CUDA toolkit (the kernels are built on first
 use into build/kernels/); exits non-zero without them.
@@ -56,6 +59,9 @@ def main() -> int:
         for kind in ("fused", "physical_fused"):
             d = fused_decompose(kind, "cuda", small=small, rates=rates)
             print(json.dumps({**d, "card": card}), flush=True)
+    if "--bwd" in sys.argv:
+        d = fused_decompose("physical_bwd", "cuda", small=small, rates=rates)
+        print(json.dumps({**d, "card": card}), flush=True)
     return 0
 
 

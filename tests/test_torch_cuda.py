@@ -273,10 +273,10 @@ def test_fused_physical_kernel_matches_forward_kernel_and_twin(cuda_device, name
     ("tri_light", dict(tri_nee=True, n_em_cap=2, jitter=False)),
 ])
 def test_two_pass_kernel_matches_twin_and_fused_contraction(cuda_device, name, kw):
-    """The kernel reduces with float atomics in two levels, the twin in
-    float64: rtol 2e-4 with an absolute floor of 1e-6 of the leaf's scale
-    (the JAX suite's gate between its two schemes), against the twin and
-    against the fused kernel's contraction."""
+    """The kernel sums in its own fixed order (warps' group sums, then the
+    blocks' partial sums), the twin in float64: rtol 2e-4 with an absolute
+    floor of 1e-6 of the leaf's scale (the JAX suite's gate between its two
+    schemes), against the twin and against the fused kernel's contraction."""
     scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
     launches = pg.render_physical_bwd.launches
     g = torch.randn((100, 160, 3), generator=torch.Generator().manual_seed(1)).to(cuda_device)
@@ -295,6 +295,61 @@ def test_two_pass_kernel_matches_twin_and_fused_contraction(cuda_device, name, k
             continue
         torch.testing.assert_close(get(d), get(r), rtol=2e-4, atol=atol)
         torch.testing.assert_close(get(d), get(c), rtol=2e-4, atol=atol)
+
+
+def _two_pass_leaves(d):
+    return [getattr(getattr(d, t) if t else d, n) for t, n in pg._GRAD_LEAVES
+            if t != "triangles" and n != "roughness"]
+
+
+@pytest.mark.parametrize("name, h, w, kw", [
+    ("glossy_scene", 100, 160, dict(n_em_cap=0)),
+    ("glossy_scene", 100, 160, dict(n_em_cap="live", sample_offset=3)),
+    ("random_spheres_scene", 100, 160, dict(n_em_cap="live")),
+    ("random_spheres_scene", 100, 160, dict(n_em_cap=0, jitter=False)),
+    ("tri_light", 100, 160, dict(tri_nee=True, n_em_cap="live")),
+    ("glossy_scene", 19, 45, dict(n_em_cap="live")),  # a partial warp in every row
+])
+def test_two_pass_kernel_bits_and_counts(cuda_device, name, h, w, kw):
+    """B5 against its twin at rtol 2e-4 and an absolute floor of 1e-6 of the
+    leaf's scale; two launches equal bit for bit (every addition's order is
+    fixed); the counting instantiation's counts equal the twin's, and its
+    cotangents the kernel's."""
+    scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
+    kw = dict(kw)
+    if kw["n_em_cap"] == "live":
+        kw["n_em_cap"] = rp.live_emitter_count(scene)
+    g = torch.randn((h, w, 3), generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    args = (scene, cam, g, h, w, 4, 6, 7)
+    launches = pg.render_physical_bwd.launches
+    d = pg.render_physical_bwd(*args, **kw)
+    again = pg.render_physical_bwd(*args, **kw)
+    counted, counts = pg.render_physical_bwd(*args, count_sites=True, **kw)
+    r, twin_counts = pg.render_physical_bwd_reference(*args, count_sites=True, **kw)
+    assert pg.render_physical_bwd.launches == launches + 3
+    assert counts == twin_counts
+    for a, b, c, ref in zip(*map(_two_pass_leaves, (d, again, counted, r))):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        torch.testing.assert_close(a, ref, rtol=2e-4, atol=1e-6 * max(float(ref.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("variant", sorted(pg.BWD_VARIANTS))
+def test_two_pass_measurement_instantiations(cuda_device, variant):
+    """Each of B5's measurement instantiations launches and returns finite
+    cotangents; the records in shared memory give the kernel's bit for bit
+    (the same additions in the same order); none counts as the kernel's
+    launch."""
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    g = torch.randn((37, 45, 3), generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    args = (scene, cam, g, 37, 45, 3, 5, 11)
+    launches = (pg.render_physical_bwd.launches, pg.render_physical_bwd_variant.launches)
+    got = pg.render_physical_bwd_variant(*args, variant, n_em_cap=1)
+    assert (pg.render_physical_bwd.launches,
+            pg.render_physical_bwd_variant.launches) == (launches[0], launches[1] + 1)
+    assert all(bool(torch.isfinite(x).all()) for x in _two_pass_leaves(got))
+    if variant != "sink":
+        want = pg.render_physical_bwd(*args, n_em_cap=1)
+        assert all(torch.equal(a, b) for a, b in zip(_two_pass_leaves(got), _two_pass_leaves(want)))
 
 
 def test_physical_vjp_backward_matches_autograd_through_the_eager_tier(cuda_device):
@@ -828,6 +883,22 @@ def test_two_pass_kernel_blocks_sum_to_the_whole(cuda_device):
         ref = getattr(whole.materials, name)
         got = sum(getattr(p.materials, name) for p in parts)
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6 * max(float(ref.abs().max()), 1.0))
+
+
+def test_two_pass_kernel_blocks_sum_to_the_whole_with_geometry(cuda_device):
+    """The glossy scene with its live emitter's geometry: every leaf of the
+    blocks summed against the whole at the same tolerance, and the blocks'
+    counts summed equal to the whole's."""
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    g = torch.randn((40, 70, 3), generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    kw = dict(n_em_cap=rp.live_emitter_count(scene), count_sites=True)
+    whole, counts = pg.render_physical_bwd(scene, cam, g, 40, 70, 3, 5, 7, **kw)
+    parts = [pg.render_physical_bwd(scene, cam, g[r0:r0 + n], 40, 70, 3, 5, 7, row_start=r0,
+                                    rows=n, **kw) for r0, n in ((0, 13), (13, 27))]
+    assert {k: sum(p[1][k] for p in parts) for k in counts} == counts
+    for ref, *got in zip(*(_two_pass_leaves(d) for d in (whole, *(p[0] for p in parts)))):
+        torch.testing.assert_close(sum(got), ref, rtol=2e-4,
+                                   atol=1e-6 * max(float(ref.abs().max()), 1.0))
 
 
 def test_row_block_bounds_are_checked_on_the_card(cuda_device):
