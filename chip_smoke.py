@@ -61,10 +61,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    geometry, triangle-emitter vertices) its twin's value for value, on
    cornell, glossy, the mixed and black scenes and the triangle-and-sphere-lit
    scene, with next-event estimation off, jitter on and off, a sample offset,
-   ``rough_grad``, caps below, at and above the live emitter counts, a
-   ragged size with no bounce and one at the bounce cap; the counted rounds
-   and valid light samples, and the thread- and warp lane-rounds, must equal
-   the twin's.
+   ``rough_grad``, caps below, at and above the live emitter counts and
+   the slot instantiations' budget (spheres32's four emitter materials, its
+   sphere cap at 1, 2 and 4; triangle caps of 1 and 2), a ragged size with
+   no bounce and one at the bounce cap; the counted rounds, valid light
+   samples and plane adds by family, and the thread- and warp lane-rounds,
+   must equal the twin's.
 11. two-pass kernel against its plain twin and against the fused kernel's
    contraction, at the tolerance stated at ``BWD_RTOL``; two of its launches
    and its counting instantiation equal bit for bit, and the counts
@@ -101,9 +103,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    default size; the probes' times; ``sol_report`` of the five render
    kernels at phase 13's times, and every kernel's bound at the measured
    rates; B2's and B4's measurement instantiations against the kernels
-   (images, and but for the sinks planes, value for value); the
+   (images, and but for the sinks planes, value for value); what ptxas gave
+   every instantiation of B2 and B4 (registers, stack, spills); the
    decompositions of B2's and B4's times (``fused_decompose``), with the
-   twins' warp lane-rounds at the main shape under both schedules; the
+   twins' warp lane-rounds at the main shape under both schedules, and for
+   B4 the price of each of its own policies (warp-uniform loops, three
+   blocks, its pixel-constant planes in slots in shared and in local
+   memory), each the kernel against itself, and its plane adds by family; the
    decomposition of B5's (``fused_decompose(kind="physical_bwd")``: its
    reduction against its sink, the geometry, its records in shared memory,
    its counts held to the twin's), and the shared atomics, matches and
@@ -541,6 +547,32 @@ def sass_counts(patterns: dict, opcode: str) -> dict:
     return found
 
 
+def ptxas_resources(kernel: str) -> dict:
+    """Registers, stack frame and spill bytes that ptxas reported for each
+    instantiation of ``kernel`` (by its template arguments in the mangled
+    name), from the build's ``-Xptxas -v`` lines."""
+    from path_tracer_c_tpu_torch.ops import build
+
+    found, current = {}, None
+    for line in build.resource_usage().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            current = None
+            if kernel in name:
+                m = re.search(kernel + r"I(.*?)EEvP", name)
+                current = m.group(1) if m else name
+                found[current] = {}
+        elif current is not None:
+            for key, pattern in (("registers", r"Used (\d+) registers"),
+                                 ("stack_bytes", r"(\d+) bytes stack frame"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads")):
+                m = re.search(pattern, line)
+                if m:
+                    found[current][key] = int(m.group(1))
+    return found
+
+
 def sass_global_loads(patterns: dict) -> dict:
     """Global loads (LDG instructions) in the SASS of each kernel whose
     mangled name contains ``patterns[key]``."""
@@ -684,6 +716,17 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
                     for a, b in zip(v[1:], out[name][1:]):
                         compare_exact(a, b, what + " planes")
 
+    # What ptxas gave B2's and B4's instantiations: B2's are those of the
+    # parent's (its policies did not change); B4's show what each policy
+    # costs in registers and spills.
+    ptxas = {name: ptxas_resources(kernel) for name, kernel in (
+        ("render_fused", "render_fused_kernel"), ("render_phys_fused", "render_phys_fused_kernel"))}
+    for name, found in ptxas.items():
+        log(f"  ptxas {name} (registers, stack, spill stores and loads by instantiation): "
+            + json.dumps(found))
+        if not found or any("registers" not in v for v in found.values()):
+            raise AssertionError(f"ptxas: no resource lines for {name}")
+
     # Where B2's, B4's and B5's times go, at the measured rates.
     fused_parts = {}
     for kind, name in (("fused", "render_fused"), ("physical_fused", "render_phys_fused"),
@@ -692,7 +735,15 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
         log(f"fused_decompose {kind} [{card}] " + json.dumps(d))
         fused_parts[name] = {
             "warp_lane_rounds": d["warp_lane_rounds"],
-            "decomposition": {k: v for k, v in d.items() if k.endswith("_fraction")}}
+            "decomposition": {k: v for k, v in d.items()
+                              if k.endswith("_fraction") and not k.startswith("vs_")}}
+        if name in ptxas:
+            fused_parts[name]["ptxas"] = ptxas[name]
+        if kind == "physical_fused":
+            fused_parts[name].update(
+                kernel_policy=d["kernel_policy"], plane_adds=d["plane_adds"],
+                **{k: d[k] for k in d if k.startswith("pixel_constant_adds_share")},
+                policy_prices={k: v for k, v in d.items() if k.startswith("vs_")})
         if kind == "physical_bwd":
             fused_parts[name].update(counts=d["counts"], atomics=d["atomics"],
                                      sink_ms=d["sink_seconds"] * 1e3,
@@ -1934,7 +1985,16 @@ def main() -> int:
         ("glossy_scene", dict(n_em_cap=1), (19, 45, 4, 0)),  # ragged, no bounce
         ("tri_light_scene", dict(tri_nee=True, n_em_cap=1, tri_em_cap=2),
          (37, 45, 2, pg.MAX_BOUNCES)),  # ragged, the bounce cap
+        # Caps and emitter counts that straddle the budget of B4's slot
+        # instantiations (chip_plane_split: two sphere ordinals, or one
+        # triangle ordinal, then emitter materials): spheres32 has four
+        # sphere emitters of four materials.
+        ("spheres32", dict(n_em_cap=1)), ("spheres32", dict(n_em_cap=2)),
+        ("spheres32", dict(n_em_cap=4, rough_grad=True)),
+        ("tri_light_scene", dict(tri_nee=True, tri_em_cap=1)),
+        ("tri_light_scene", dict(tri_nee=True, tri_em_cap=2, jitter=False)),
     ]
+    phys_scenes["spheres32"] = spheres
     pf_err = 0.0
     for name, kw, *shape in pf_cases:
         h, w, spp, bounces = shape[0] if shape else (100, 160, 4, 8)

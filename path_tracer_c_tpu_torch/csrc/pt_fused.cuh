@@ -56,19 +56,37 @@ struct PlaneSink {
   __device__ __forceinline__ void flush(float* p) { *p = sum; }
 };
 
+struct LaneLoops;
+
+// Where B4 keeps the planes whose addresses depend on the pixel alone
+// (render_phys_fused.cu ChipPlanes): in device memory, as every other plane;
+// in slots in dynamic shared memory; in slots in a thread-private array
+// (local memory, cached in L1).
+enum PlaneSlots : int {
+  kSlotsDevice = 0,
+  kSlotsShared = 1,
+  kSlotsLocal = 2,
+};
+
 // An instantiation of a fused kernel: its per-bounce records (`Records`,
 // which has a `place(base, rounds)` and, where they live in dynamic shared
 // memory, kShared), its plane adds (PlaneAdds or PlaneSink), kUnroll (0: the
 // loops over the rounds run to the run-time bounce budget; n > 0: they are
 // unrolled to n rounds, so that every record index is a constant and records
-// of n entries stay in registers) and the blocks a multiprocessor that ptxas
-// budgets its registers for.
-template <class Records_, class Adds_, int kUnroll_, int kMinBlocks_>
+// of n entries stay in registers), the blocks a multiprocessor that ptxas
+// budgets its registers for, its loops over the rounds (LaneLoops or
+// WarpLoops) and, B4 only, where the planes whose addresses depend on the
+// pixel alone live until the pixel's end (PlaneSlots).
+template <class Records_, class Adds_, int kUnroll_, int kMinBlocks_,
+          class Loops_ = LaneLoops, int kPlaneSlots_ = kSlotsDevice>
 struct Policy {
   using Records = Records_;
   using Adds = Adds_;
+  using Loops = Loops_;
   static constexpr int kUnroll = kUnroll_;
   static constexpr int kMinBlocks = kMinBlocks_;
+  static constexpr int kPlaneSlots = kPlaneSlots_;
+  static constexpr bool kChipPlanes = kPlaneSlots_ != kSlotsDevice;
 };
 
 // The measurement instantiations of both kernels, which no user path runs,
@@ -76,10 +94,17 @@ struct Policy {
 // the records in registers (kRegisterRounds rounds: max_bounces <= 3, config
 // 4's fit shape; one block a multiprocessor, so that they fit); the records
 // where the kernel does not keep them (B2: local memory; B4: shared memory).
+// B4 only: warp-uniform loops; registers budgeted for three blocks a
+// multiprocessor; its pixel-constant planes in slots in shared memory and in
+// local memory (PlaneSlots).
 enum Variant : int {
   kVarSink = 0,
   kVarRegisters = 1,
   kVarRecordsMoved = 2,
+  kVarWarpLoops = 3,
+  kVarThreeBlocks = 4,
+  kVarSharedSlots = 5,
+  kVarLocalSlots = 6,
 };
 constexpr int kRegisterRounds = 4;
 
@@ -117,6 +142,55 @@ __device__ __forceinline__ void sweep_rounds(int n_rounds, Step&& step) {
       if (b < n_rounds) step(b);
   }
 }
+
+// The two loop policies of a fused kernel, each a forward(max_bounces,
+// lanes, round) and a sweep(n_rounds, lanes, step) as forward_rounds and
+// sweep_rounds take them. `lanes` are the warp's lanes inside the image;
+// every one of them calls both.
+//
+// LaneLoops: forward_rounds and sweep_rounds, each lane leaving a loop at its
+// own last round (B2's loops).
+struct LaneLoops {
+  static constexpr bool kWarp = false;
+  template <int kUnroll, class Round>
+  static __device__ __forceinline__ int forward(int max_bounces, unsigned, Round&& round) {
+    return forward_rounds<kUnroll>(max_bounces, round);
+  }
+  template <int kUnroll, class Step>
+  static __device__ __forceinline__ void sweep(int n_rounds, unsigned, Step&& step) {
+    sweep_rounds<kUnroll>(n_rounds, step);
+  }
+};
+
+// WarpLoops: warp-uniform loops, render_phys_bwd.cu's form. The forward
+// rounds run until no lane of the warp is alive, a lane whose path ended
+// idling; the sweep runs the warp's longest lane's rounds, each lane its own
+// from its last down. No lane leaves a loop alone. The same rounds, in the
+// same order a lane, as LaneLoops, so the same bits.
+struct WarpLoops {
+  static constexpr bool kWarp = true;
+  template <int kUnroll, class Round>
+  static __device__ __forceinline__ int forward(int max_bounces, unsigned lanes, Round&& round) {
+    static_assert(kUnroll == 0, "warp-uniform loops run to the run-time bounce budget");
+    int n = 0;
+    bool alive = true;
+    for (int b = 0; b <= max_bounces; ++b) {
+      if (!__any_sync(lanes, alive)) break;
+      if (alive) {
+        n = b + 1;
+        alive = !round(b);
+      }
+    }
+    return n;
+  }
+  template <int kUnroll, class Step>
+  static __device__ __forceinline__ void sweep(int n_rounds, unsigned lanes, Step&& step) {
+    static_assert(kUnroll == 0, "warp-uniform loops run to the run-time bounce budget");
+    const int widest = __reduce_max_sync(lanes, n_rounds);
+    for (int i = 0; i < widest; ++i)
+      if (i < n_rounds) step(n_rounds - 1 - i);
+  }
+};
 
 // The warp lane-rounds of one sample (the counting instantiations): the warp's
 // in-range `lanes` wait for the longest lane's `n_rounds`, so the warp runs

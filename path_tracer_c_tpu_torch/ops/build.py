@@ -66,13 +66,14 @@ _SIGNATURES = {
     "render_phys_variant": ([_I] + _SCENE[:-1] + [_P] * 7 + [_P, _P, _P, _I, _I] + _RUN,
                             ctypes.c_int),
     # as render_phys up to the params; image, material and sky planes, sphere
-    # planes (or null), triangle planes (or null), round counter (or null),
-    # nee, tri_nee, rough_grad, n_em_cap, tri_em_cap (csrc/render_phys_fused.cu)
+    # planes (or null), triangle planes (or null), counters (or null), nee,
+    # tri_nee, rough_grad, n_em_cap, tri_em_cap (csrc/render_phys_fused.cu)
     "render_phys_fused": (_SCENE[:-1] + [_P] * 7 + [_P] * 6 + [_I] * 5 + _RUN, ctypes.c_int),
     "render_phys_grad_max_bounces": ([], ctypes.c_int),
-    # variant, then render_phys_fused's arguments without the triangle planes,
-    # the counter, tri_nee, rough_grad and tri_em_cap
-    "render_phys_fused_variant": ([_I] + _SCENE[:-1] + [_P] * 7 + [_P] * 4 + [_I] * 2 + _RUN,
+    # variant, then render_phys_fused's arguments without the counters and
+    # rough_grad, then the sphere ordinals, triangle ordinals and emitter
+    # materials in slots
+    "render_phys_fused_variant": ([_I] + _SCENE[:-1] + [_P] * 7 + [_P] * 5 + [_I] * 7 + _RUN,
                                   ctypes.c_int),
     # the scene tables, the 6 emitter tables, raw emission colours, counts,
     # params, the image's cotangent, the two outputs, the partial sums, the

@@ -66,12 +66,14 @@ from ..scene.scene import Scene
 __all__ = [
     "render_physical_fused", "render_physical_fused_reference",
     "render_physical_fused_round_counts", "render_physical_fused_round_counts_reference",
-    "render_physical_fused_variant",
+    "render_physical_fused_variant", "chip_plane_split", "policy",
     "contract_physical_jacobian", "render_physical_kernel_vjp",
     "render_physical_bwd", "render_physical_bwd_reference", "render_physical_bwd_variant",
     "bwd_atomics", "BWD_SITES", "BWD_SITE_VALUES", "BWD_COUNTS", "BWD_VARIANTS",
     "cone_w_chain", "cone_w_adjoint", "tri_w_chain", "tri_w_adjoint",
-    "MAX_BOUNCES", "EVENTS", "SOURCE", "REPLACES", "SOURCE_BWD", "REPLACES_BWD",
+    "MAX_BOUNCES", "EVENTS", "COUNTERS", "KERNEL_POLICY", "VARIANTS", "POLICY_VARIANTS",
+    "CHIP_PLANE_FLOATS",
+    "MAX_CHIP_MATERIALS", "SOURCE", "REPLACES", "SOURCE_BWD", "REPLACES_BWD",
 ]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_phys_fused.cu"
@@ -312,10 +314,18 @@ def _load_library():
     return lib
 
 
-# What ``count_events`` counts: the bounce rounds run, and the light samples
-# among them that counted (each runs a weight chain's adjoint where its
-# ordinal is tracked).
-EVENTS = ("rounds", "valid_samples")
+# What B4's counting instantiation counts, in the order of its counter: the
+# bounce rounds run; the light samples among them that counted (each runs a
+# weight chain's adjoint where its ordinal is tracked); its plane adds by
+# family: the material sweep's (albedo, transparency and, with
+# ``rough_grad``, roughness planes of the hit material), the emission planes'
+# of the hit's own emission and of the sampled emitter's, the sphere and the
+# triangle geometry planes'; and the warp lane-rounds. ``count_events``
+# returns all but the last (``EVENTS``).
+COUNTERS = ("rounds", "valid_samples", "adds_material", "adds_hit_emission",
+            "adds_emitter_emission", "adds_sphere_geometry", "adds_triangle_geometry",
+            "warp_lane_rounds")
+EVENTS = COUNTERS[:-1]
 
 
 def _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_rounds,
@@ -330,6 +340,79 @@ def _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_ro
     elif count_rounds:
         out += (int(counter[0]),)
     return out
+
+
+# B4's policies (csrc/render_phys_fused.cu ``KernelPolicy``, pt_fused.cuh):
+# its loops over the rounds ("lane": a lane leaves at its own last round;
+# "warp": warp-uniform), where its pixel-constant planes live ("device":
+# read-modify-writes of device memory; "shared" or "local": slots in shared
+# or local memory until the pixel's end, ``PlaneSlots``) and the blocks a
+# multiprocessor ptxas budgets its registers for.
+KERNEL_POLICY = {"loops": "lane", "planes": "device", "blocks": 4}
+# The floats a thread keeps in slots where the planes live there, by
+# placement (local: csrc/render_phys_fused.cu kMaxLocalSlots, the most it
+# takes), and the most emitter materials whose emission planes a launch
+# keeps there (kMaxChipMats).
+CHIP_PLANE_FLOATS = {"shared": 32, "local": 48}
+MAX_CHIP_MATERIALS = 16
+
+
+# B4's measurement instantiations (csrc/pt_fused.cuh ``Variant``), each one
+# policy away from the kernel: its plane adds, the geometry planes' included,
+# into one register; its records in registers (max_bounces <= 3); its records
+# in shared memory (these three without tri_nee); then, with or without
+# tri_nee (``POLICY_VARIANTS``), warp-uniform loops, registers budgeted for
+# three blocks a multiprocessor, and its pixel-constant planes in slots in
+# shared memory and in local memory.
+_VARIANT_POLICIES = {
+    "sink": (0, KERNEL_POLICY), "registers": (1, {**KERNEL_POLICY, "blocks": 1}),
+    "shared_records": (2, KERNEL_POLICY),
+    "warp_loops": (3, {**KERNEL_POLICY, "loops": "warp"}),
+    "three_blocks": (4, {**KERNEL_POLICY, "blocks": 3}),
+    "shared_planes": (5, {**KERNEL_POLICY, "planes": "shared"}),
+    "local_planes": (6, {**KERNEL_POLICY, "planes": "local"}),
+}
+VARIANTS = {name: code for name, (code, _) in _VARIANT_POLICIES.items()}
+POLICY_VARIANTS = tuple(name for name, code in VARIANTS.items() if code >= 3)
+
+
+def policy(variant: str | None = None) -> dict:
+    """The loops, planes and blocks of B4 (``variant`` None) or of one of
+    its measurement instantiations."""
+    return dict(KERNEL_POLICY if variant is None else _VARIANT_POLICIES[variant][1])
+
+
+def chip_plane_split(n_em_cap: int, tri_em_cap: int, n_mat: int, floats: int | None = None,
+                     planes: str = "shared") -> tuple[int, int, int]:
+    """``(k, kt, e)``: how many sphere ordinals (12 floats each), triangle
+    ordinals (27 each) and emitter materials (3 each: their emission planes)
+    a thread keeps in slots out of ``floats`` (default
+    ``CHIP_PLANE_FLOATS[planes]``). In shared memory: in that order of
+    claim, each up to its cap (the materials up to ``n_mat`` and
+    ``MAX_CHIP_MATERIALS``); which materials, the kernel finds on the device
+    from the emitter tables (the first distinct ones). In local memory:
+    geometry only, each family whole or not at all (the sphere ordinals if
+    all fit, then the triangle ordinals if all fit in the rest), so that no
+    warp runs both the slots' adds and the device planes' of one family.
+    None in device memory."""
+    if planes == "device":
+        return 0, 0, 0
+    floats = CHIP_PLANE_FLOATS[planes] if floats is None else floats
+    if planes == "local":
+        k = n_em_cap if 12 * n_em_cap <= floats else 0
+        kt = tri_em_cap if 27 * tri_em_cap <= floats - 12 * k else 0
+        return k, kt, 0
+    k = max(0, min(n_em_cap, floats // 12))
+    kt = max(0, min(tri_em_cap, (floats - 12 * k) // 27))
+    e = max(0, min(n_mat, MAX_CHIP_MATERIALS, (floats - 12 * k - 27 * kt) // 3))
+    return k, kt, e
+
+
+def _chip_split(scene, n_em_cap, tri_em_cap, variant, floats=None):
+    """The split a launch of the measurement instantiation ``variant``
+    passes to the kernel."""
+    return chip_plane_split(n_em_cap, tri_em_cap, scene.num_materials, floats,
+                            policy(variant)["planes"])
 
 
 def render_physical_fused(
@@ -396,21 +479,14 @@ render_physical_fused.SOURCE = SOURCE
 render_physical_fused.REPLACES = REPLACES
 
 
-# B4's measurement instantiations (csrc/pt_fused.cuh `Variant`), built
-# without tri_nee and rough_grad, each one policy away from the kernel: its
-# plane adds, the geometry planes' included, into one register; its records
-# in registers (max_bounces <= 3); its records in shared memory.
-VARIANTS = {"sink": 0, "registers": 1, "shared_records": 2}
-
-
 def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
                   nee, n_em_cap, tri_nee, tri_em_cap, rough_grad, count, variant=None,
-                  row_start=0, rows=None):
+                  row_start=0, rows=None, chip_floats=None):
     """Launch B4 on the scene's CUDA device over the block of ``rows`` rows
     (None: all) from ``row_start``: the timed kernel, its counting
-    instantiation (``count``: three counters, thread-rounds, light samples
-    that counted and warp lane-rounds, come back beside the planes), or a
-    measurement variant."""
+    instantiation (``count``: the ``COUNTERS`` come back beside the planes),
+    or a measurement variant; where the planes live in slots, with
+    ``chip_floats`` a thread (default ``CHIP_PLANE_FLOATS``)."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_fused runs on CUDA or CPU tensors, not {device}")
@@ -419,24 +495,26 @@ def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_o
     ph = _rp._phys_operands(scene, operands)
     par = _rk._camera_params(camera, scene, height, width)
     rows = height if rows is None else rows
-    planes = lambda k: torch.zeros((k, rows, width), dtype=torch.float32, device=device)
+    planes = lambda n: torch.zeros((n, rows, width), dtype=torch.float32, device=device)
     img = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
     jac = planes((12 if rough_grad else 9) * scene.num_materials + 3)
     jgeo = planes(12 * n_em_cap) if n_em_cap else None
     jtri = planes(27 * tri_em_cap) if tri_em_cap else None
-    counter = torch.zeros(3, dtype=torch.int64, device=device) if count else None
+    counter = torch.zeros(len(COUNTERS), dtype=torch.int64, device=device) if count else None
     tables = (*_rk._table_args(operands), *_rp._emitter_args(ph), _ptr(par), _ptr(img),
-              _ptr(jac), _ptr(jgeo))
+              _ptr(jac), _ptr(jgeo), _ptr(jtri))
     run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
                         row_start, rows)
     if variant is None:
         err = lib.render_phys_fused(
-            *tables, _ptr(jtri), _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
+            *tables, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
             int(bool(rough_grad)), n_em_cap, tri_em_cap, *run)
         name = "render_phys_fused"
     else:
+        split = _chip_split(scene, n_em_cap, tri_em_cap, variant, chip_floats)
         err = lib.render_phys_fused_variant(VARIANTS[variant], *tables, int(bool(nee)),
-                                            n_em_cap, *run)
+                                            int(bool(tri_nee)), n_em_cap, tri_em_cap, *split,
+                                            *run)
         name = f"render_phys_fused variant {variant}"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -478,8 +556,8 @@ def render_physical_fused_round_counts(
     *_, counter = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
                                 sample_offset, jitter, nee, 0, tri_nee, 0, False, True,
                                 row_start=row_start, rows=rows)
-    thread_rounds, _, warp_rounds = counter.tolist()
-    return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
+    counts = dict(zip(COUNTERS, counter.tolist()))
+    return {"thread_rounds": counts["rounds"], "warp_lane_rounds": counts["warp_lane_rounds"]}
 
 
 def render_physical_fused_round_counts_reference(scene, camera, height, width, spp,
@@ -512,25 +590,35 @@ def render_physical_fused_variant(
     n_em_cap: int = 0,
     row_start: int = 0,
     rows: int | None = None,
+    tri_nee: bool = False,
+    tri_em_cap: int = 0,
+    chip_floats: int | None = None,
 ):
-    """``(image, jac[, jac_geo])`` of a measurement instantiation of B4
-    (of a row block, as ``render_physical_fused`` takes it)
-    (``VARIANTS``; without tri_nee and rough_grad), on CUDA tensors only: as
+    """``(image, jac[, jac_geo][, jac_tri])`` of a measurement instantiation
+    of B4 (of a row block, as ``render_physical_fused`` takes it)
+    (``VARIANTS``; without rough_grad; ``tri_nee`` only for the variants of
+    B4's own policies), on CUDA tensors only: as
     ``render_grad.render_fused_variant``, for
-    ``utils/sol_decompose.fused_decompose``. No user path runs it. Counts
-    its launches in ``render_physical_fused_variant.launches``."""
+    ``utils/sol_decompose.fused_decompose``. Where the variant's planes live
+    in slots, ``chip_floats`` a thread (default ``CHIP_PLANE_FLOATS``). No
+    user path runs it. Counts its launches in
+    ``render_physical_fused_variant.launches``."""
     rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                              sample_offset, n_em_cap, row_start=row_start, rows=rows)
+                              sample_offset, n_em_cap, tri_em_cap, tri_nee,
+                              row_start=row_start, rows=rows)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+    if tri_nee and variant not in POLICY_VARIANTS:
+        raise ValueError(f"variant {variant} is built without tri_nee")
     cap = _rg.REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
     if max_bounces > cap:
         raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap of {cap}")
-    img, jac, jgeo, _, _ = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
-                                         sample_offset, jitter, nee, n_em_cap, False, 0, False,
-                                         False, variant=variant, row_start=row_start,
-                                         rows=rows)
-    return (img, jac, jgeo) if n_em_cap else (img, jac)
+    img, jac, jgeo, jtri, _ = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
+                                            sample_offset, jitter, nee, n_em_cap, tri_nee,
+                                            tri_em_cap, False, False, variant=variant,
+                                            row_start=row_start, rows=rows,
+                                            chip_floats=chip_floats)
+    return (img, jac) + ((jgeo,) if n_em_cap else ()) + ((jtri,) if tri_em_cap else ())
 
 
 render_physical_fused_variant.launches = 0
@@ -669,6 +757,28 @@ def _add_ordinal_planes(planes, ordinal, lanes, cap, closure, dw):
     planes.scatter_add_(0, base[None, :] + torch.arange(per, device=base.device)[:, None], vals)
 
 
+def _count_adds(records, n_mat, mp, n_em_cap, tri_em_cap):
+    """The plane adds of one sample's rounds by family, as B4's counting
+    instantiation counts them (``COUNTERS`` from ``adds_material``): the
+    material sweep's, the emission planes' of the hit's own emission and of
+    the sampled emitter's, the sphere and triangle geometry planes'."""
+    mat = hit_em = emitter_em = sph = tri = 0
+    for rec in records:
+        lanes = rec.hit & rec.in_table
+        mat = mat + (mp - 3) * lanes.sum()
+        hit_em = hit_em + 3 * (lanes & rec.addle).sum()
+        light = rec.light
+        if light is None:
+            continue
+        emat = light["emat"]
+        emitter_em = emitter_em + 3 * (rec.valid & (emat >= 0) & (emat < n_mat)).sum()
+        sph = sph + 12 * (_sphere_lanes(rec) & (light["kk"] < n_em_cap)).sum()
+        if tri_em_cap:
+            tri = tri + 27 * (rec.valid & light["is_tri"] & (light["kt"] < tri_em_cap)).sum()
+    zero = torch.zeros((), dtype=torch.int64, device=records[0].m.device)
+    return [zero + c for c in (mat, hit_em, emitter_em, sph, tri)]
+
+
 # -- the fused kernel's plain twin ----------------------------------------------
 
 
@@ -723,7 +833,8 @@ def render_physical_fused_reference(
             cx, s, seed, sample_offset, jitter, max_bounces)
         if count_rounds or count_events:
             counter = counter + torch.stack(
-                [n_rounds, sum(rec.valid.sum() for rec in records)])
+                [n_rounds, sum(rec.valid.sum() for rec in records),
+                 *_count_adds(records, n_mat, mp, n_em_cap, tri_em_cap)])
         if on_sample is not None:
             on_sample(sum((rec.hit | rec.miss).long() for rec in records).reshape(rows, width))
         acc = tuple(a + r for a, r in zip(acc, rad))

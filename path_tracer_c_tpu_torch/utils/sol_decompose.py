@@ -58,6 +58,19 @@ each price is the kernel against itself:
     blocks) and the wrapper's zero-fill of the planes;
 (e) the remainder.
 
+Beside them, for B4, each of its own policies (its loops, its registers'
+block budget, where its pixel-constant planes live) as the kernel against
+its instantiation one policy away (``vs_<variant>_fraction``), and its
+plane adds by family from its counting instantiation, with the share of
+them whose planes depend on the pixel and the sampled emitter alone
+(``pixel_constant_adds_share``: the geometry families' and the sampled
+emitters' emission adds, which slots holding every tracked ordinal and
+emitter material take off device memory; the hit's own emission on an
+emitter material, also theirs, is not counted apart, so the share is a
+floor), with the geometry planes and without them
+(``pixel_constant_adds_share_no_geometry``: the same paths, since the
+planes change no path).
+
 Beside them, not among the parts: the per-bounce records, as the kernel
 against its ``registers`` instantiation at 256^2, 8 spp, 3 bounces (records
 fit registers only at a small bounce budget, and that instantiation is
@@ -347,6 +360,19 @@ def fused_decompose(kind: str = "fused", device="cuda", small: bool = False,
         parts["geometry_adjoint_fraction"] = (sink_s - sink_no_geo) / t
         out.update(no_geometry_seconds=no_geo, no_geometry_sink_seconds=sink_no_geo,
                    events=events)
+    if kind == "physical_fused":
+        # Each of B4's own policies, the kernel against itself; the plane adds
+        # by family, and the share of them into pixel-constant planes.
+        for v in pg.POLICY_VARIANTS:
+            t_v = _median_seconds(lambda s: variant(s, v))
+            out[f"{v}_seconds"] = t_v
+            out[f"vs_{v}_fraction"] = (t_v - t) / t
+        adds = {k: events[k] for k in pg.EVENTS if k.startswith("adds_")}
+        geometry = adds["adds_sphere_geometry"] + adds["adds_triangle_geometry"]
+        emitter, total = adds["adds_emitter_emission"], sum(adds.values())
+        out.update(kernel_policy=pg.policy(), plane_adds=adds,
+                   pixel_constant_adds_share=(emitter + geometry) / max(total, 1),
+                   pixel_constant_adds_share_no_geometry=emitter / max(total - geometry, 1))
     if twin_counts is not None:
         if {k: twin_counts[k] for k in rounds} != rounds:
             raise AssertionError(f"the twin's rounds {twin_counts} are not the kernel's {rounds}")

@@ -2,7 +2,8 @@
 """Times of the hand kernels on one GPU, with the card's name and power
 limit; for comparing two checkouts in one call.
 
-    python3 scripts/torch_fused_times.py [--tree DIR] [--label NAME] [--forward | --bwd]
+    python3 scripts/torch_fused_times.py [--tree DIR] [--label NAME]
+                                         [--forward | --bwd | --phys-fused]
 
 ``--tree`` names another checkout (``git archive`` of a parent unpacked
 under ``build/``) whose package is imported and built in place of this
@@ -42,6 +43,19 @@ alone on packed operands as above, the timed kernel and, where the tree has
 them, each of its instantiations (``render_kernel.VARIANTS``, through
 ``render_fwd_variant`` and ``render_phys_variant``), and each as a user
 calls it.
+
+With ``--phys-fused``, B4 (``csrc/render_phys_fused.cu``) alone, on operands
+packed once as above, at six shapes: glossy 1024x1024, 64 spp, 8 bounces
+with the emitter cap at the live count and at 0, and with ``rough_grad``;
+the triangle-and-sphere-lit scene with ``tri_nee`` and both caps at their
+live counts at the same size; config 4's shape (spheres32, cap at its live
+count); the geometry fit's (the CLI fits' light scene, 128x128, 32 spp, 3
+bounces, cap 1). The timed kernel and, where the tree has them, the
+instantiations of B4's own policies (``render_physical_grad.POLICY_VARIANTS``;
+not with ``rough_grad``, which they are built without), those whose planes
+live in slots at 16, 32 and 48 floats a thread and at the splits of
+``PROBE_SPLITS``; beside them the shared, local and generic loads and
+stores in the SASS of each instantiation.
 
 Prints one JSON line, and what ptxas said of the kernels timed.
 """
@@ -129,9 +143,13 @@ def b2_launcher(lib, rk, scene, cam, h, w, spp, bounces):
     return launch
 
 
-def b4_launcher(lib, rk, rp, scene, cam, h, w, spp, bounces, n_em_cap):
-    """B4's timed kernel (jitter and next-event estimation on) on operands
-    packed once: a function of the seed."""
+def b4_launcher(lib, rk, rp, pg, scene, cam, h, w, spp, bounces, n_em_cap=0, tri_em_cap=0,
+                tri_nee=False, rough_grad=False, variant=None, floats=None, split=None):
+    """B4's timed kernel (``variant`` None) or one of its instantiations,
+    jitter and next-event estimation on, on operands packed once, where its
+    planes live in slots ``floats`` a thread (default the tree's), or with
+    the ``split`` (sphere ordinals, triangle ordinals, emitter material
+    slots) given: a function of the seed."""
     import torch
 
     dev = scene.device
@@ -140,18 +158,25 @@ def b4_launcher(lib, rk, rp, scene, cam, h, w, spp, bounces, n_em_cap):
     par = rk._camera_params(cam, scene, h, w)
     planes = lambda k: torch.zeros((k, h, w), dtype=torch.float32, device=dev)
     img = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    jac = planes(9 * scene.num_materials + 3)
+    jac = planes((12 if rough_grad else 9) * scene.num_materials + 3)
     jgeo = planes(12 * n_em_cap) if n_em_cap else None
-    tables = (*rk._table_args(operands), *rp._emitter_args(ph), rk._ptr(par), rk._ptr(img),
-              rk._ptr(jac), rk._ptr(jgeo), None, None, 1, 0, 0, n_em_cap, 0)
+    jtri = planes(27 * tri_em_cap) if tri_em_cap else None
+    head = (*rk._table_args(operands), *rp._emitter_args(ph), rk._ptr(par), rk._ptr(img),
+            rk._ptr(jac), rk._ptr(jgeo), rk._ptr(jtri))
+    flags = (int(tri_nee), int(rough_grad), n_em_cap, tri_em_cap)
+    if variant is None:
+        go = lambda *run: lib.render_phys_fused(*head, None, 1, *flags, *run)
+    else:
+        split = split or pg._chip_split(scene, n_em_cap, tri_em_cap, variant, floats)
+        go = lambda *run: lib.render_phys_fused_variant(
+            pg.VARIANTS[variant], *head, 1, int(tri_nee), n_em_cap, tri_em_cap, *split, *run)
 
     def launch(seed):
-        err = lib.render_phys_fused(*tables,
-                                    *rk._run_args(h, w, spp, bounces, seed, 0, True, dev))
+        err = go(*rk._run_args(h, w, spp, bounces, seed, 0, True, dev))
         if err != 0:
-            raise RuntimeError(f"render_phys_fused: CUDA error {err}")
+            raise RuntimeError(f"render_phys_fused {variant}: CUDA error {err}")
 
-    launch.keep = (operands, ph, par, img, jac, jgeo)  # the pointers' tensors, kept alive
+    launch.keep = (operands, ph, par, img, jac, jgeo, jtri)  # the pointers' tensors, kept alive
     return launch
 
 
@@ -270,6 +295,95 @@ def bwd_times(lib, pt, rk, rp, pg, dev, cam) -> dict:
     return result
 
 
+def sass_memory_ops(build, kernel: str) -> dict:
+    """Shared (LDS, STS), generic (LD, ST), local (LDL, STL) and global
+    (LDG, STG) loads and stores, and all instructions, in the SASS of each
+    instantiation of ``kernel``, by mangled name, from cuobjdump on the
+    built library."""
+    import re
+    import subprocess
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    found, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            current = name if kernel in name else None
+            if current is not None:
+                found[current] = {}
+        elif current is not None:
+            if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+                found[current]["instructions"] = found[current].get("instructions", 0) + 1
+            m = re.search(r"\b(LDS|STS|LDL|STL|LDG|STG|LD|ST)(?=[.\s])", line)
+            if m:
+                found[current][m.group(1)] = found[current].get(m.group(1), 0) + 1
+    return found
+
+
+# (sphere ordinals, triangle ordinals, emitter material slots) in slots, by
+# shape: none (the instantiation's own cost); at glossy the emitter's
+# geometry alone, its emission alone, and its emission with 15 slots more
+# than the scene's one emitter material fills (shared memory a block takes
+# from L1, alone); elsewhere the geometry of each family alone and both.
+# Local slots take no emission planes.
+PROBE_SPLITS = {
+    "glossy geometry": ((0, 0, 0), (1, 0, 0), (0, 0, 1), (0, 0, 16)),
+    "glossy": ((0, 0, 0), (0, 0, 1), (0, 0, 16)),
+    "tri_light": ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0)),
+    "spheres32 fit shape": ((0, 0, 0), (1, 0, 0), (2, 0, 0), (4, 0, 0)),
+    "geometry fit shape": ((0, 0, 0), (1, 0, 0)),
+}
+
+
+def phys_fused_times(lib, build, pt, rk, rp, pg, dev, cam) -> dict:
+    """B4 alone at the six shapes of ``--phys-fused``, with the
+    instantiations of its own policies where this tree has them."""
+    from chip_smoke import light_fit_scene, tri_light_scene
+
+    glossy = pt.demo.glossy_scene(dev)
+    spheres = pt.demo.random_spheres_scene(dev)
+    tri = tri_light_scene(pt, dev)
+    light = light_fit_scene(pt, dev)
+    n_live, n_live_s = rp.live_emitter_count(glossy), rp.live_emitter_count(spheres)
+    main_shape = (H, W, SPP, BOUNCES)
+    shapes = {
+        "glossy geometry": (glossy, main_shape, dict(n_em_cap=n_live)),
+        "glossy": (glossy, main_shape, {}),
+        "glossy rough_grad": (glossy, main_shape, dict(rough_grad=True)),
+        "tri_light": (tri, main_shape, dict(tri_nee=True, n_em_cap=rp.live_emitter_count(tri),
+                                            tri_em_cap=rp.live_tri_emitter_count(tri))),
+        "spheres32 fit shape": (spheres, FIT, dict(n_em_cap=n_live_s)),
+        "geometry fit shape": (light, (128, 128, 32, 3), dict(n_em_cap=1)),
+    }
+    variants = getattr(pg, "POLICY_VARIANTS", ())
+    times = {}
+    for label, (scene, shape, kw) in shapes.items():
+        alone = {f"B4 {label}": b4_launcher(lib, rk, rp, pg, scene, cam, *shape, **kw)}
+        for v in variants if not kw.get("rough_grad") else ():
+            slots = pg.policy(v)["planes"] != "device"
+            for floats in (16, 32, 48) if slots else (None,):
+                name = f"B4 {v}{'' if floats is None else f'@{floats}'} {label}"
+                alone[name] = b4_launcher(lib, rk, rp, pg, scene, cam, *shape, variant=v,
+                                          floats=floats, **kw)
+            for split in PROBE_SPLITS.get(label, ()) if slots else ():
+                if (split[0] <= kw.get("n_em_cap", 0) and split[1] <= kw.get("tri_em_cap", 0)
+                        and not (split[2] and pg.policy(v)["planes"] == "local")):
+                    alone[f"B4 {v} split {split} {label}"] = b4_launcher(
+                        lib, rk, rp, pg, scene, cam, *shape, variant=v, split=split, **kw)
+        times.update({k: median_ms(fn, repeat=REPEAT) for k, fn in alone.items()})
+        del alone
+    result = {"kernel_ms": times,
+              "kernel_policy": getattr(pg, "KERNEL_POLICY", {"loops": "lane", "planes": "device",
+                                                             "blocks": 4}),
+              "chip_plane_floats": getattr(pg, "CHIP_PLANE_FLOATS", 0),
+              "shapes": {k: "{} {}x{} {}spp {}b {}".format(s.num_materials, *sh, kw)
+                         for k, (s, sh, kw) in shapes.items()}}
+    result["sass"] = sass_memory_ops(build, "render_phys_fused_kernel")
+    return result
+
+
 def forward_times(lib, pt, rk, rp, dev, cam) -> dict:
     """B1 and B3, alone and as called, with their instantiations where this
     tree has them."""
@@ -302,6 +416,8 @@ def main() -> int:
                       help="time B1 and B3 and their instantiations, not B2, B4 and the fits")
     mode.add_argument("--bwd", action="store_true",
                       help="time B5 and its instantiations, not B2, B4 and the fits")
+    mode.add_argument("--phys-fused", action="store_true",
+                      help="time B4 and the instantiations of its policies at six shapes")
     args = ap.parse_args()
 
     import torch
@@ -332,9 +448,10 @@ def main() -> int:
                else ("render_fused_kernel", "render_phys_fused_kernel"))
     result["ptxas"] = ptxas_lines(build, kernels)
     print(f"{args.label}: built in {result['build_seconds']:.1f} s [{card}]", flush=True)
-    if args.forward or args.bwd:
+    if args.forward or args.bwd or args.phys_fused:
         result.update(forward_times(lib, pt, rk, rp, dev, cam) if args.forward
-                      else bwd_times(lib, pt, rk, rp, pg, dev, cam))
+                      else bwd_times(lib, pt, rk, rp, pg, dev, cam) if args.bwd
+                      else phys_fused_times(lib, build, pt, rk, rp, pg, dev, cam))
         print(json.dumps(result), flush=True)
         return 0
 
@@ -347,9 +464,9 @@ def main() -> int:
     alone = {
         "B2": b2_launcher(lib, rk, glossy, cam, *main_shape),
         "B2 fit shape": b2_launcher(lib, rk, spheres, cam, *FIT),
-        "B4": b4_launcher(lib, rk, rp, glossy, cam, *main_shape, 0),
-        "B4 geometry": b4_launcher(lib, rk, rp, glossy, cam, *main_shape, n_live),
-        "B4 geometry fit shape": b4_launcher(lib, rk, rp, cornell, cam, *FIT, n_live_c),
+        "B4": b4_launcher(lib, rk, rp, pg, glossy, cam, *main_shape, 0),
+        "B4 geometry": b4_launcher(lib, rk, rp, pg, glossy, cam, *main_shape, n_live),
+        "B4 geometry fit shape": b4_launcher(lib, rk, rp, pg, cornell, cam, *FIT, n_live_c),
     }
     result["kernel_ms"] = {k: median_ms(fn, repeat=REPEAT) for k, fn in alone.items()}
     del alone

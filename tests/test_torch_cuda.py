@@ -523,6 +523,78 @@ def test_measurement_variants_match_the_kernels(cuda_device, variant):
             assert all(torch.equal(a, b) for a, b in zip(got[1:], out[1:]))
 
 
+# -- B4's pixel-constant planes in slots, its loops and blocks ----------------
+
+# Caps and emitter counts that straddle the budget of B4's slot
+# instantiations (``pg.chip_plane_split`` of ``CHIP_PLANE_FLOATS``: in shared
+# memory two sphere ordinals, or one triangle ordinal, and the emission planes
+# of the emitter materials the rest holds; in local memory whole geometry
+# families), with rough_grad, a ragged edge, no bounce and the bounce cap.
+# The kernel keeps every plane in device memory: at these cases it is held to
+# its twin, and each policy instantiation to it. spheres32 has four sphere
+# emitters of four materials; tri_light two triangle emitters of one material
+# and a sphere emitter of another.
+B4_CASES = [
+    ("random_spheres_scene", 48, 64, 2, 3, dict(n_em_cap=1)),  # below the sphere budget
+    ("random_spheres_scene", 48, 64, 2, 3, dict(n_em_cap=2)),  # at it; materials above E
+    ("random_spheres_scene", 48, 64, 2, 3, dict(n_em_cap=4, rough_grad=True)),  # above it
+    ("random_spheres_scene", 48, 64, 2, 3, dict(nee=False, n_em_cap=4)),  # no light sample
+    ("tri_light", 48, 64, 2, 4, dict(tri_nee=True, tri_em_cap=1)),  # at the triangle budget
+    ("tri_light", 48, 64, 2, 4, dict(tri_nee=True, tri_em_cap=2)),  # above it
+    ("tri_light", 48, 64, 2, 4, dict(tri_nee=True, n_em_cap=2, tri_em_cap=2)),  # spheres first
+    ("glossy_scene", 19, 45, 4, 8, dict(n_em_cap=1, rough_grad=True)),  # ragged
+    ("glossy_scene", 19, 45, 4, 0, dict(n_em_cap=1)),  # no bounce
+    ("tri_light", 37, 45, 2, pg.MAX_BOUNCES, dict(tri_nee=True, n_em_cap=1, tri_em_cap=1)),
+]
+
+
+def _b4_case_id(case):
+    name, h, w, spp, bounces, kw = case
+    return f"{name}-{h}x{w}-{bounces}b-" + "-".join(f"{k}={v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("name, h, w, spp, bounces, kw", B4_CASES,
+                         ids=[_b4_case_id(c) for c in B4_CASES])
+def test_fused_physical_kernel_at_more_caps_matches_twin(cuda_device, name, h, w, spp, bounces,
+                                                         kw):
+    """B4 against its twin, image and every plane bit for bit, its counted
+    rounds, light samples and plane adds by family equal to the twin's, its
+    image equal to B3's; two launches equal bit for bit."""
+    scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
+    args = (scene, cam, h, w, spp, bounces, 7)
+    out = pg.render_physical_fused(*args, count_events=True, **kw)
+    ref = pg.render_physical_fused_reference(*args, count_events=True, **kw)
+    assert len(out) == len(ref) == 3 + bool(kw.get("n_em_cap")) + bool(kw.get("tri_em_cap"))
+    for a, b in zip(out[:-1], ref[:-1]):
+        assert torch.equal(a, b)
+    assert out[-1] == ref[-1]
+    fwd_kw = {k: v for k, v in kw.items() if k in ("nee", "tri_nee")}
+    assert torch.equal(out[0], rp.render_physical_kernel(*args, **fwd_kw))
+    again = pg.render_physical_fused(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, out[:-1]))
+
+
+@pytest.mark.parametrize("variant", pg.POLICY_VARIANTS)
+@pytest.mark.parametrize("name, h, w, spp, bounces, kw",
+                         [c for c in B4_CASES if not c[-1].get("rough_grad")],
+                         ids=[_b4_case_id(c) for c in B4_CASES if not c[-1].get("rough_grad")])
+def test_fused_physical_policies_match_the_kernel(cuda_device, variant, name, h, w, spp, bounces,
+                                                   kw):
+    """Each instantiation of B4's own policies (the other loops, planes,
+    blocks) computes the kernel's image and planes bit for bit, where its
+    planes live on chip at budgets of 16, 32 and 48 floats a thread; none
+    counts as a launch of the kernel."""
+    scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
+    args = (scene, cam, h, w, spp, bounces, 7)
+    out = pg.render_physical_fused(*args, **kw)
+    launches = pg.render_physical_fused.launches
+    budgets = (16, 32, 48) if pg.policy(variant)["planes"] != "device" else (None,)
+    for floats in budgets:
+        got = pg.render_physical_fused_variant(*args, variant, chip_floats=floats, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, out)), (variant, floats)
+    assert pg.render_physical_fused.launches == launches
+
+
 # -- the forward kernels' schedules and table placements -----------------------
 
 
@@ -858,6 +930,9 @@ ROW_BLOCK_CASES = [
     (pg.render_physical_fused_round_counts, {}),
     *((pg.render_physical_fused_variant, dict(variant=v, n_em_cap=1))
       for v in ("sink", "shared_records")),
+    (pg.render_physical_fused, dict(n_em_cap=4, tri_nee=True, tri_em_cap=1, count_events=True)),
+    *((pg.render_physical_fused_variant, dict(variant=v, n_em_cap=2, tri_nee=True, tri_em_cap=1))
+      for v in pg.POLICY_VARIANTS),
 ]
 
 

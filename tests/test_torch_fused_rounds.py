@@ -125,7 +125,8 @@ def test_variants_are_for_the_card_only():
     unknown variant and the registers instantiation above its records;
     nothing launches. Both kernels have the sink and registers
     instantiations, and each its records in the memory the other keeps
-    them in."""
+    them in; B4 also the instantiations of its own policies, each one
+    policy away from the kernel."""
     scene = P.demo.glossy_scene("cpu")
     launches = (rg.render_fused_variant.launches, pg.render_physical_fused_variant.launches)
     for fn in (rg.render_fused_variant, pg.render_physical_fused_variant):
@@ -138,4 +139,8 @@ def test_variants_are_for_the_card_only():
     assert launches == (rg.render_fused_variant.launches,
                         pg.render_physical_fused_variant.launches)
     assert rg.VARIANTS == {"sink": 0, "registers": 1, "local_records": 2}
-    assert pg.VARIANTS == {"sink": 0, "registers": 1, "shared_records": 2}
+    assert {k: v for k, v in pg.VARIANTS.items() if v < 3} == {
+        "sink": 0, "registers": 1, "shared_records": 2}
+    for name in pg.POLICY_VARIANTS:
+        moved = {k for k, v in pg.policy(name).items() if v != pg.KERNEL_POLICY[k]}
+        assert moved and moved <= {"loops", "planes", "blocks"}, name
