@@ -154,6 +154,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    refusal of config 5's 4x2 mesh (``animate --config``) on this machine's
    cards; ``render
    --engine split`` on the card against the split tier on the CPU.
+17. the measurement scripts' modules at the JAX scripts' TPU shapes: B1 and
+   B3 against their twins, value for value, on the capacity sweep's scenes
+   where the table placement flips (1024 to 2048 spheres and materials)
+   and, above the shared budget, at the sweep's shape on a block of rows;
+   B4 against its twin on the asymmetry's triangle-lit call; the eager
+   physical gradient twice, bit for bit; the capacity sweep
+   (``utils/capacity_sweep``, 512x512, 16 spp, 4 bounces, 5 to 2048 spheres
+   and materials: each kernel's table placement, its ``global_tables``
+   instantiation where the tables fit, its time alone on packed operands);
+   the geometry-gradient asymmetry (``utils/geom_asym``, fused B4 against
+   autograd through the eager tier, at 256x256, 16 spp, 4 bounces and at
+   1024x1024, 64 spp, 8 bounces with peak device memory, the eager side
+   there one call; the fused gradients finite); the scaling harness
+   (``parallel/scaling``, B1 at 1024x1024, 64 spp, 8 bounces) on the visible
+   cards and on cuda:0 repeated 2 and 4 times, every mesh's image equal to
+   the unsharded render bit for bit. Each line is printed as it comes.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--worker`` runs one
@@ -263,14 +279,6 @@ MP_TIMEOUT = 300
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0].strip()
 
 
 def compare(a, b, what: str) -> dict:
@@ -1663,6 +1671,151 @@ def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
     return {"result": result, "launches": launches}
 
 
+def script_runs(pt, dev, card: str) -> dict:
+    """Phase 17: the measurement scripts' modules at the JAX scripts' TPU
+    shapes. B1 and B3 against their twins, value for value, on the sweep's
+    1024-, 1536- and 2048-sphere and -material scenes (where the placement
+    flips) at 64x64, 1 spp, 2 bounces, and on the 2048 scenes (tables above
+    the shared budget) at the sweep's shape on a block of rows; B4 against
+    its twin on the asymmetry's triangle-lit call (``tri_nee``, geometry
+    planes) at 1024x1024, 64 spp, 8 bounces on a block of rows; the eager
+    physical gradient twice, bit for bit; then, with their launches
+    counted, the capacity
+    sweep (``utils/capacity_sweep``, 512x512, 16 spp, 4 bounces, seven
+    points a sweep: each kernel's placement as ``tables_in_shared`` says,
+    the ``global_tables`` instantiation timed only where the tables fit);
+    the geometry-gradient asymmetry (``utils/geom_asym``: 256x256, 16 spp, 4
+    bounces on glossy; the triangle-lit scene and the pair at 1024x1024, 64
+    spp, 8 bounces, the pair's eager side one call; finite fused gradients);
+    the scaling harness
+    (``parallel/scaling``, engine pallas, 1024x1024, 64 spp, 8 bounces) on
+    the visible cards, then on cuda:0 repeated 2 and 4 times, each mesh's
+    image equal to the unsharded B1 image bit for bit. Each line is
+    printed as it comes. Returns each kernel's launches by path and its
+    largest difference from its twin."""
+    import torch
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.ops import render_physical as rp
+    from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+    from path_tracer_c_tpu_torch.parallel import scaling as sc
+    from path_tracer_c_tpu_torch.utils import capacity_sweep as cs
+    from path_tracer_c_tpu_torch.utils import geom_asym as ga
+    from path_tracer_c_tpu_torch.utils.metrics import shape_name
+
+    launches = {name: {} for name in ("render_fwd", "render_phys", "render_phys_fused")}
+    cam = pt.Camera.reference(dev)
+    small = (64, 64, 1, 2)
+    max_err = {"render_fwd": 0.0, "render_phys": 0.0, "render_phys_fused": 0.0}
+    kernels = (("render_fwd", rk.render_kernel, rk.render_kernel_reference, False),
+               ("render_phys", rp.render_physical_kernel, rp.render_physical_kernel_reference,
+                True))
+
+    def held(name, out, twin, what):
+        max_err[name] = max(max_err[name], compare_exact(out, twin, what))
+
+    # Both placements at the points where they flip, at a small shape.
+    for sweep_name in cs.SWEEPS:
+        for n in (1024, 1536, 2048):
+            scene = cs.sweep_scene(sweep_name, n, dev)
+            for name, kernel, twin, physical in kernels:
+                where = "shared" if rk.tables_in_shared(scene, physical) else "global"
+                held(name, kernel(scene, cam, *small, 5), twin(scene, cam, *small, 5),
+                     f"{name} on the {sweep_name} sweep's {n} scene "
+                     f"({rk.table_bytes(scene, physical)} bytes of tables, {where}), "
+                     f"{shape_name(small)}")
+    # The sweep's own shape, tables above the budget: the kernel's whole image
+    # against the twin's block of its rows 240-271.
+    h, w, spp, bounces = cs.SHAPE
+    for sweep_name, n in (("spheres", 2048), ("materials", 2048)):
+        scene = cs.sweep_scene(sweep_name, n, dev)
+        for name, kernel, twin, physical in kernels:
+            if rk.tables_in_shared(scene, physical):
+                raise AssertionError(f"{sweep_name} {n}: {name}'s tables fit the budget")
+            whole = kernel(scene, cam, *cs.SHAPE, 6)
+            held(name, whole[240:272],
+                 twin(scene, cam, *cs.SHAPE, 6, row_start=240, rows=32),
+                 f"{name} on the {sweep_name} sweep's {n} scene, {shape_name(cs.SHAPE)}, "
+                 "rows 240-271 of the whole image")
+    # One fused call of the asymmetry's triangle-lit side at its shape: B4's
+    # image and planes against the twin's block of rows 448-575.
+    tri = ga.tri_lit_scene(dev)
+    tri_kw = dict(n_em_cap=rp.live_emitter_count(tri), tri_nee=True,
+                  tri_em_cap=rp.live_tri_emitter_count(tri))
+    whole = pg.render_physical_fused(tri, cam, *ga.HEADLINE, 31, **tri_kw)
+    block = pg.render_physical_fused_reference(tri, cam, *ga.HEADLINE, 31, row_start=448,
+                                               rows=128, **tri_kw)
+    for i, (a, b) in enumerate(zip(whole, block)):
+        a = a[448:576] if a.shape[-1] == 3 else a[:, 448:576]
+        held("render_phys_fused", a, b,
+             f"render_phys_fused triangle-lit {shape_name(ga.HEADLINE)} {tri_kw}, output {i} "
+             f"{tuple(b.shape)}, rows 448-575")
+    del whole, block
+
+    # The eager physical gradient (geom_asym's eager side) twice: the same bits.
+    glossy = pt.demo.glossy_scene(dev)
+    shape = (256, 256, 4, 4)
+    fn = ga.eager_grad(glossy, cam, shape,
+                       rp.render_physical_kernel(glossy, cam, *shape, 99))
+    first, second = fn(1), fn(1)
+    if not all((a is None) == (b is None) and (a is None or torch.equal(a, b))
+               for a, b in zip(first, second)):
+        raise AssertionError(f"eager physical gradient {shape_name(shape)}: two runs differ")
+    log(f"  eager physical gradient {shape_name(shape)}: two runs equal bit for bit [{card}]")
+    del first, second
+
+    # The capacity sweep.
+    rk.render_kernel.launches = rp.render_physical_kernel.launches = 0
+    for line in cs.sweep(dev, cs.SHAPE):
+        log(json.dumps(line))
+        for key, physical in (("fwd", False), ("physical", True)):
+            scene = cs.sweep_scene(line["sweep"], line["n"], dev)
+            shared = rk.tables_in_shared(scene, physical)
+            if ((line[f"{key}_tables"] == "shared") != shared
+                    or (line[f"{key}_global_tables_seconds"] is None) == shared
+                    or line[f"{key}_alone_seconds"] is None):
+                raise AssertionError(f"capacity sweep {line['sweep']} {line['n']}: {key} "
+                                     "placement or instantiation time wrong")
+    torch.cuda.synchronize()
+    n_calls = len(cs.SWEEPS) * len(cs.POINTS) * 4  # a warm-up call and three timed
+    for name, n in (("render_fwd", rk.render_kernel.launches),
+                    ("render_phys", rp.render_physical_kernel.launches)):
+        if n != n_calls:
+            raise AssertionError(f"capacity sweep: {name} launched {n} times, not {n_calls}")
+        launches[name]["capacity sweep"] = n
+
+    # The geometry gradient, fused against eager.
+    rp.render_physical_kernel.launches = pg.render_physical_fused.launches = 0
+    asym = ga.geom_asym(dev, pair_eager_reps=1,
+                        log=lambda msg: log(f"  geom_asym: {msg} [{card}]"))
+    torch.cuda.synchronize()
+    log(json.dumps(asym))
+    if not asym["fused_grads_finite"]:
+        raise AssertionError("geom_asym: a fused gradient leaf is not finite")
+    if not all(v > 0 for k, v in asym.items() if k.endswith("_seconds") and v is not None):
+        raise AssertionError("geom_asym: a time is not positive")
+    launches["render_phys"]["geom_asym targets"] = rp.render_physical_kernel.launches
+    launches["render_phys_fused"]["geom_asym fused sides"] = pg.render_physical_fused.launches
+    if pg.render_physical_fused.launches != 3 * 5:  # warm-up, three timed, one checked
+        raise AssertionError(f"geom_asym: B4 launched {pg.render_physical_fused.launches} "
+                             "times, not 15")
+
+    # The scaling harness on B1.
+    whole = rk.render_kernel(pt.demo.glossy_scene(dev), cam, *sc.SHAPE, sc.WARM_SEED)
+    visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    for label, devices in (("visible", visible), ("cuda:0 x2", [dev] * 2),
+                           ("cuda:0 x4", [dev] * 4)):
+        rk.render_kernel.launches = 0
+        for line, image in sc.scaling(devices, sc.SHAPE, "pallas"):
+            log(json.dumps(line))
+            if not torch.equal(image, whole):
+                raise AssertionError(f"scaling {label} {line['mesh']}: differs from the "
+                                     "unsharded B1 image")
+        torch.cuda.synchronize()
+        launches["render_fwd"][f"scaling {label}"] = rk.render_kernel.launches
+    log(f"scaling: every mesh's image equals the unsharded B1 image bit for bit [{card}]")
+    return {"launches": launches, "max_abs_err": max_err}
+
+
 def main() -> int:
     import torch
 
@@ -1683,13 +1836,14 @@ def main() -> int:
     from path_tracer_c_tpu_torch.utils.config import FitConfig, RenderConfig, load
     from path_tracer_c_tpu_torch.utils import flops
     from path_tracer_c_tpu_torch.utils.metrics import rays_per_render
+    from path_tracer_c_tpu_torch.utils.profiling import card_line
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     # -- 1. device --
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = card_line(dev)
     kind = torch.cuda.get_device_name(0)
     log("card (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader):")
     log(card)
@@ -2370,6 +2524,11 @@ def main() -> int:
     shard = sharded_runs(pt, root, dev, card, cli_main, glossy, cam)
     log(f"sharded runs: phase 16 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 17. the measurement scripts' modules --
+    t0 = time.perf_counter()
+    scripts = script_runs(pt, dev, card)
+    log(f"script runs: phase 17 took {time.perf_counter() - t0:.1f} s")
+
     # launches: the main paths' runs; every time, bound and round count: the
     # glossy shape named in "timed_at".
     common = {"route": "cuda", "library_ms": None, "timed_at": where}
@@ -2418,9 +2577,12 @@ def main() -> int:
         entry["launches_by_path"].update(extra)
         entry["launches"] += sum(extra.values())
     for entry in kernels:
-        extra = shard["launches"].get(entry["name"], {})
-        entry["launches_by_path"].update(extra)
-        entry["launches"] += sum(extra.values())
+        for extra in (shard["launches"].get(entry["name"], {}),
+                      scripts["launches"].get(entry["name"], {})):
+            entry["launches_by_path"].update(extra)
+            entry["launches"] += sum(extra.values())
+        if entry["name"] in scripts["max_abs_err"]:
+            entry["max_abs_err"] = max(entry["max_abs_err"], scripts["max_abs_err"][entry["name"]])
     log(json.dumps({"sharded_runs": shard["result"]}))
     log(json.dumps({"long_runs": longr["result"]}))
     log(json.dumps({"kernels": kernels + sol["entries"]}))

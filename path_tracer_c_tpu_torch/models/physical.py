@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import rng as _rng
 from ..ops.camera import Camera, check_rows, pixel_indices, primary_rays
-from ..ops.intersect import ray_sphere_t, trace
+from ..ops.intersect import ray_sphere_t, rows, trace
 from ..ops.rng import _f32, sqrt_rn
 from ..ops.sampling import reflect, refract
 from ..scene.scene import Scene
@@ -179,13 +179,15 @@ def trace_paths_physical(
         alive = alive & hit.mask
         live = alive[:, None]
 
+        # Table rows are fetched by ``rows``, whose backward sums the
+        # many repeats of a few rows in parallel and in a fixed order.
         m = hit.material.long()
-        albedo = mats.albedo[m]
-        est = mats.emission_strength[m]
-        emission = mats.emission_color[m] * est[:, None]
-        rough = mats.roughness[m]
-        transp = mats.transparency[m]
-        ior = mats.refractive_index[m]
+        albedo = rows(mats.albedo, m)
+        est = rows(mats.emission_strength, m)
+        emission = rows(mats.emission_color, m) * est[:, None]
+        rough = rows(mats.roughness, m)
+        transp = rows(mats.transparency, m)
+        ior = rows(mats.refractive_index, m)
 
         # Le, skipped where a diffuse-sampled ray arrives at an emitter the
         # previous vertex could have light-sampled.
@@ -260,10 +262,11 @@ def trace_paths_physical(
                 torch.clamp_min(pool - 1, 0),
             )
             e_idx = _pick(em_cum, k, scene.num_spheres)
-            c_e = sph.center[e_idx]
-            r_e = sph.radius[e_idx]
+            c_e = rows(sph.center, e_idx)
+            r_e = rows(sph.radius, e_idx)
             m_e = sph.material[e_idx].long()
-            le_e = mats.emission_color[m_e] * mats.emission_strength[m_e][:, None]
+            le_e = (rows(mats.emission_color, m_e)
+                    * rows(mats.emission_strength, m_e)[:, None])
 
             dc = c_e - shadow_o
             d2 = torch.sum(dc * dc, dim=-1)
@@ -299,17 +302,18 @@ def trace_paths_physical(
                 b1 = su * (1.0 - v2)
                 b2 = su * v2
                 b0 = 1.0 - su
-                q = (b0[:, None] * tri.v0[t_idx] + b1[:, None] * tri.v1[t_idx]
-                     + b2[:, None] * tri.v2[t_idx])
+                q = (b0[:, None] * rows(tri.v0, t_idx) + b1[:, None] * rows(tri.v1, t_idx)
+                     + b2[:, None] * rows(tri.v2, t_idx))
                 dq = q - shadow_o
                 d2t = torch.sum(dq * dq, dim=-1)
                 d2t_safe = torch.clamp_min(d2t, _f32(1e-12))
                 dist_t = sqrt_rn(d2t_safe)
                 omega_t = dq / dist_t[:, None]
-                cos_l = torch.abs(torch.sum(tri_nrm[t_idx] * omega_t, dim=-1))
-                w_tri_geom = tri_area[t_idx] * cos_l / d2t_safe
+                cos_l = torch.abs(torch.sum(rows(tri_nrm, t_idx) * omega_t, dim=-1))
+                w_tri_geom = rows(tri_area, t_idx) * cos_l / d2t_safe
                 m_t = tri.material[t_idx].long()
-                le_t = mats.emission_color[m_t] * mats.emission_strength[m_t][:, None]
+                le_t = (rows(mats.emission_color, m_t)
+                        * rows(mats.emission_strength, m_t)[:, None])
                 itc = is_tri[:, None]
                 omega = torch.where(itc, omega_t, omega)
                 cos_surf = torch.where(is_tri, torch.sum(nrm * omega_t, dim=-1), cos_surf)

@@ -24,10 +24,58 @@ import torch
 from ..scene.scene import Scene
 from .rng import _f32, sqrt_rn
 
-__all__ = ["Hit", "ray_sphere_t", "ray_triangle_t", "trace"]
+__all__ = ["Hit", "ray_sphere_t", "ray_triangle_t", "trace", "rows"]
 
 INF = float("inf")
 _TRI_EPS = _f32(1e-6)
+# The most elements of one-hot products a row sum holds at once on the card.
+_ROW_SUM_CHUNK = 1 << 26
+
+
+def _row_sums(idx, g, n: int):
+    """(n, ...) the sums of ``g``'s entries over the positions where ``idx``
+    names each row, by one-hot products summed over the rays: a fixed
+    order, no atomics. Done for blocks of rows that keep each product under
+    ``_ROW_SUM_CHUNK`` elements."""
+    flat = g.reshape(g.shape[0], -1)
+    per_row = max(1, flat.numel())
+    step = max(1, _ROW_SUM_CHUNK // per_row)
+    out = []
+    for r0 in range(0, n, step):
+        ids = torch.arange(r0, min(n, r0 + step), device=idx.device)
+        hot = (idx[:, None] == ids[None, :]).to(g.dtype)
+        out.append(torch.sum(hot[:, :, None] * flat[:, None, :], dim=0))
+    return torch.cat(out).reshape(n, *g.shape[1:])
+
+
+class _Rows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        if g.device.type == "cpu":
+            grad = torch.zeros((ctx.n, *g.shape[1:]), dtype=g.dtype, device=g.device)
+            return grad.index_add_(0, idx, g), None
+        return _row_sums(idx, g, ctx.n), None
+
+
+def rows(table, idx):
+    """``table[idx]`` for a (N,) integer ``idx``: the rows of a scene table
+    that a batch of rays fetches, with a backward that gives the same bits
+    on every run, so that a fit resumes bit for bit. Indexing's backward
+    (``index_put_`` with accumulate) adds with atomics across threads on
+    the CPU, and on the card sorts the indices and serialises the many
+    repeats of a few rows; ``index_select``'s (``index_add_``) adds in
+    index order on the CPU but with atomics on the card. So the backward is
+    ``index_add_`` on the CPU and one-hot sums (``_row_sums``) on the
+    card."""
+    return _Rows.apply(table, idx)
 
 
 @dataclass(frozen=True)
@@ -122,8 +170,8 @@ def trace(o, d, scene: Scene) -> Hit:
     sidx = torch.clamp(idx, 0, S - 1)
     tidx = torch.clamp(idx - S, 0, scene.num_triangles - 1)
 
-    n_sphere = _safe_normalize(point - sp.center[sidx])
-    v0, v1, v2 = tr.v0[tidx], tr.v1[tidx], tr.v2[tidx]
+    n_sphere = _safe_normalize(point - rows(sp.center, sidx))
+    v0, v1, v2 = rows(tr.v0, tidx), rows(tr.v1, tidx), rows(tr.v2, tidx)
     n_tri = _safe_normalize(_cross(v0 - v1, v0 - v2))
     n_tri = torch.where((_dot(n_tri, d) < 0.0)[:, None], n_tri, -n_tri)
 

@@ -26,7 +26,7 @@ from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
 
 __all__ = ["render_kernel", "render_kernel_reference", "render_kernel_round_counts",
-           "render_kernel_round_counts_reference", "render_kernel_variant",
+           "render_kernel_round_counts_reference", "render_kernel_variant", "packed_launcher",
            "reference_pixel_rounds", "warp_lane_rounds", "round_groupings", "table_bytes",
            "tables_in_shared", "policy", "VARIANTS", "KERNEL_POLICY", "SHARED_TABLE_BUDGET",
            "SOURCE", "REPLACES"]
@@ -354,6 +354,41 @@ def render_kernel_variant(
 
 
 render_kernel_variant.launches = 0
+
+
+def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: int,
+                    max_bounces: int, variant: str | None = None, jitter: bool = False):
+    """B1, or its instantiation ``variant``, on operands packed once, on
+    CUDA tensors only: ``launch(seed)`` runs it into one image, which it
+    returns (the same tensor each call), without the packing that
+    ``render_kernel`` does on every call. What the measurement scripts time
+    as the kernel alone; no user path runs it, and its launches count
+    nowhere."""
+    _cuda_only(scene, "packed_launcher")
+    if variant is not None:
+        _check_variant(scene, variant)
+    from .build import load_library
+
+    lib = load_library()
+    device = scene.device
+    operands = _scene_operands(scene)
+    par = _camera_params(camera, scene, height, width)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    head = (*_table_args(operands), _ptr(par), _ptr(out), None)
+    if variant is None:
+        entry, name = lib.render_fwd, "render_fwd"
+    else:
+        entry, name = lib.render_fwd_variant, f"render_fwd {variant}"
+        head = (VARIANTS[variant], *head)
+
+    def launch(seed):
+        err = entry(*head, *_run_args(height, width, spp, max_bounces, seed, 0, jitter, device))
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        return out
+
+    launch.keep = (operands, par)  # the pointers' tensors, kept alive
+    return launch
 
 
 def render_kernel_round_counts(

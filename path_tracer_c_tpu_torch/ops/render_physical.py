@@ -39,7 +39,7 @@ from ..scene.scene import Scene
 
 __all__ = [
     "render_physical_kernel", "render_physical_kernel_reference",
-    "render_physical_kernel_variant", "render_physical_kernel_round_counts",
+    "render_physical_kernel_variant", "packed_launcher", "render_physical_kernel_round_counts",
     "render_physical_kernel_round_counts_reference", "live_emitter_mask", "live_emitter_count",
     "live_tri_emitter_mask", "live_tri_emitter_count",
     "SOURCE", "REPLACES", "EVENTS", "WARP_EVENTS",
@@ -288,6 +288,45 @@ def render_physical_kernel_variant(
 
 
 render_physical_kernel_variant.launches = 0
+
+
+def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: int,
+                    max_bounces: int, variant: str | None = None, jitter: bool = True,
+                    nee: bool = True, tri_nee: bool = False):
+    """B3, or its instantiation ``variant``, on operands packed once, on
+    CUDA tensors only: ``launch(seed)`` runs it into one image, which it
+    returns (the same tensor each call), without the packing that
+    ``render_physical_kernel`` does on every call. What the measurement
+    scripts time as the kernel alone; no user path runs it, and its
+    launches count nowhere."""
+    _rk._cuda_only(scene, "packed_launcher")
+    if variant is not None:
+        _rk._check_variant(scene, variant, physical=True)
+    from .build import load_library
+
+    lib = load_library()
+    device = scene.device
+    operands = _rk._scene_operands(scene)
+    ph = _phys_operands(scene, operands)
+    par = _rk._camera_params(camera, scene, height, width)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    head = (*_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out), None,
+            int(bool(nee)), int(bool(tri_nee)))
+    if variant is None:
+        entry, name = lib.render_phys, "render_phys"
+    else:
+        entry, name = lib.render_phys_variant, f"render_phys {variant}"
+        head = (_rk.VARIANTS[variant], *head)
+
+    def launch(seed):
+        err = entry(*head, *_rk._run_args(height, width, spp, max_bounces, seed, 0, jitter,
+                                          device))
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        return out
+
+    launch.keep = (operands, ph, par)  # the pointers' tensors, kept alive
+    return launch
 
 
 def render_physical_kernel_round_counts(

@@ -12,7 +12,7 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
-__all__ = ["rays_per_render", "Timer", "MetricsLogger", "throughput"]
+__all__ = ["rays_per_render", "shape_name", "Timer", "MetricsLogger", "throughput"]
 
 
 def rays_per_render(height: int, width: int, spp: int, max_bounces: int) -> int:
@@ -20,6 +20,13 @@ def rays_per_render(height: int, width: int, spp: int, max_bounces: int) -> int:
     pixel-sample. The CUDA kernel stops a path once its throughput is
     zero, so it executes at most this many."""
     return height * width * spp * (max_bounces + 1)
+
+
+def shape_name(shape) -> str:
+    """``HxW/Sspp/Bb`` of a ``(height, width, spp, max_bounces)`` shape, as
+    the measurement scripts name it on each line."""
+    h, w, spp, bounces = shape
+    return f"{h}x{w}/{spp}spp/{bounces}b"
 
 
 def throughput(height, width, spp, max_bounces, seconds: float) -> float:

@@ -63,6 +63,7 @@ Prints one JSON line, and what ptxas said of the kernels timed.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import statistics
 import sys
@@ -74,6 +75,16 @@ H = W = 1024
 SPP, BOUNCES = 64, 8
 FIT = (256, 256, 8, 3)  # config 4's fit shape
 REPEAT = 20
+
+
+def card_line() -> str:
+    """This checkout's ``utils/profiling.card_line`` for the card, loaded
+    by its path: ``--tree`` may name a checkout without it."""
+    spec = importlib.util.spec_from_file_location(
+        "_this_profiling", REPO / "path_tracer_c_tpu_torch" / "utils" / "profiling.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.card_line("cuda")
 
 
 def median_ms(fn, repeat=1, seeds=(1, 2, 3), warm=100) -> float:
@@ -182,8 +193,12 @@ def b4_launcher(lib, rk, rp, pg, scene, cam, h, w, spp, bounces, n_em_cap=0, tri
 
 def b1_launcher(lib, rk, scene, cam, h, w, spp, bounces, variant=None):
     """B1 (``variant`` None) or one of its instantiations on operands packed
-    once: a function of the seed."""
+    once: a function of the seed. The tree's ``packed_launcher`` where it
+    has one."""
     import torch
+
+    if hasattr(rk, "packed_launcher"):
+        return rk.packed_launcher(scene, cam, h, w, spp, bounces, variant)
 
     dev = scene.device
     operands = rk._scene_operands(scene)
@@ -205,8 +220,11 @@ def b1_launcher(lib, rk, scene, cam, h, w, spp, bounces, variant=None):
 def b3_launcher(lib, rk, rp, scene, cam, h, w, spp, bounces, variant=None):
     """B3 (``variant`` None) or one of its instantiations, jitter and
     next-event estimation on, on operands packed once: a function of the
-    seed."""
+    seed. The tree's ``packed_launcher`` where it has one."""
     import torch
+
+    if hasattr(rp, "packed_launcher"):
+        return rp.packed_launcher(scene, cam, h, w, spp, bounces, variant)
 
     dev = scene.device
     operands = rk._scene_operands(scene)
@@ -427,7 +445,6 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.tree).resolve()))
     sys.path.insert(1, str(REPO))
     import path_tracer_c_tpu_torch as pt
-    from chip_smoke import card_line
     from path_tracer_c_tpu_torch.grad import diff
     from path_tracer_c_tpu_torch.ops import build
     from path_tracer_c_tpu_torch.ops import render_grad as rg

@@ -115,12 +115,12 @@ def main() -> int:
         raise SystemExit("torch_port_measure: no CUDA device")
     sys.path.insert(0, str(REPO))
     import path_tracer_c_tpu_torch as pt
-    from chip_smoke import card_line
     from path_tracer_c_tpu_torch.grad import diff
     from path_tracer_c_tpu_torch.ops import render_kernel as rk
     from path_tracer_c_tpu_torch.utils.config import FitConfig, load
+    from path_tracer_c_tpu_torch.utils.profiling import card_line
 
-    card = card_line()
+    card = card_line("cuda")
     dev = torch.device("cuda", 0)
     cam = pt.Camera.reference(dev)
     glossy = pt.demo.glossy_scene(dev)

@@ -27,7 +27,6 @@ use into build/kernels/); exits non-zero without them.
 """
 
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -39,12 +38,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_sol_decompose: no CUDA device")
+    from path_tracer_c_tpu_torch.utils.profiling import card_line
     from path_tracer_c_tpu_torch.utils.sol_decompose import fused_decompose, sol_decompose
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line("cuda")
     small = "--small" in sys.argv
     out = sol_decompose("cuda", small=small)
     print(json.dumps({**out, "card": card}), flush=True)

@@ -2,6 +2,7 @@
 device and engine rules, and the package's independence from JAX."""
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -129,7 +130,9 @@ def test_port_does_not_import_jax():
             "path_tracer_c_tpu_torch.utils.checkpoint, path_tracer_c_tpu_torch.utils.native, "
             "path_tracer_c_tpu_torch.utils.termview, path_tracer_c_tpu_torch.parallel, "
             "path_tracer_c_tpu_torch.parallel.mesh, path_tracer_c_tpu_torch.parallel.render, "
-            "path_tracer_c_tpu_torch.parallel.distributed, path_tracer_c_tpu_torch.models.split; "
+            "path_tracer_c_tpu_torch.parallel.distributed, path_tracer_c_tpu_torch.models.split, "
+            "path_tracer_c_tpu_torch.utils.capacity_sweep, path_tracer_c_tpu_torch.utils.geom_asym, "
+            "path_tracer_c_tpu_torch.parallel.scaling; "
             "from path_tracer_c_tpu_torch import parallel; "
             "from path_tracer_c_tpu_torch.models.split import render_split; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
@@ -141,6 +144,18 @@ def test_no_jax_in_port_sources():
     for path in (REPO / "path_tracer_c_tpu_torch").rglob("*.py"):
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
+
+
+def test_no_jax_in_port_scripts():
+    """The port's scripts import neither JAX nor the JAX package."""
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert {"torch_capacity_sweep.py", "torch_geom_asym_bench.py",
+            "torch_scaling_bench.py"} <= {p.name for p in scripts}
+    jax_package = re.compile(r"^\s*(import|from)\s+path_tracer_c_tpu\b", re.M)
+    for path in scripts:
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert not jax_package.search(text), path
 
 
 # -- the mesh and the split engine ------------------------------------------------

@@ -864,6 +864,87 @@ def test_resumed_fit_equals_uninterrupted_on_the_card(cuda_device, tmp_path, kin
             assert torch.equal(a, b)
 
 
+def _eager_fit_case(kind, device):
+    """``fit --mode roughness`` or ``--mode geometry`` on its default engine,
+    autograd through the eager physical tier, on cornell at 32x32, 4 spp,
+    3 bounces."""
+    from path_tracer_c_tpu_torch.grad import diff
+
+    cam = P.Camera.reference(device)
+    scene = pdemo.cornell_spheres_scene(device)
+    target = rp.render_physical_kernel(scene, cam, 32, 32, 4, 3, 1, jitter=False)
+    if kind == "roughness":
+        init = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials, roughness=torch.full_like(scene.materials.roughness, 0.5)))
+        return lambda steps, path: diff.fit_materials(
+            init, target, cam, 32, 32, 4, 3, steps=steps, engine="physical", rough_grad=True,
+            checkpoint_path=path, checkpoint_every=2)
+    li = int(rp.live_emitter_mask(scene).argmax())
+    center = scene.spheres.center.clone()
+    center[li] += torch.tensor([0.2, -0.1, 0.1], device=device)
+    init = dataclasses.replace(scene, spheres=dataclasses.replace(scene.spheres, center=center))
+    return lambda steps, path: diff.fit_geometry(
+        init, target, cam, 32, 32, 4, 3, sphere_indices=(li,), steps=steps, engine="physical",
+        checkpoint_path=path, checkpoint_every=2)
+
+
+@pytest.mark.parametrize("kind", ["roughness", "geometry"])
+def test_resumed_eager_fit_equals_uninterrupted_on_the_card(cuda_device, tmp_path, kind):
+    """The eager physical tier's fits: two uninterrupted runs of 4 steps,
+    and 2 steps then a resume to 4, give the same parameters and losses bit
+    for bit."""
+    fit = _eager_fit_case(kind, cuda_device)
+    ref, ref_losses = fit(4, None)
+    again, again_losses = fit(4, None)
+    fit(2, tmp_path / "f.npz")
+    got, losses = fit(4, tmp_path / "f.npz")
+    assert losses == ref_losses == again_losses
+    for table in ("materials", "spheres"):
+        for a, b, c in zip(dataclasses.astuple(getattr(got, table)),
+                           dataclasses.astuple(getattr(ref, table)),
+                           dataclasses.astuple(getattr(again, table))):
+            assert torch.equal(a, b) and torch.equal(c, b)
+
+
+def test_eager_physical_gradient_repeats_on_the_card(cuda_device):
+    """The eager physical tier's gradient with respect to every float leaf
+    of the triangle-lit glossy scene (``utils/geom_asym.eager_grad``, each
+    sample recomputed in backward) at 128x128, 4 spp, 4 bounces: the same
+    bits on two runs."""
+    from path_tracer_c_tpu_torch.utils import geom_asym as ga
+
+    scene, cam = ga.tri_lit_scene(cuda_device), P.Camera.reference(cuda_device)
+    shape = (128, 128, 4, 4)
+    fn = ga.eager_grad(scene, cam, shape, rp.render_physical_kernel(scene, cam, *shape, 77))
+    first, second = fn(1), fn(1)
+    assert any(a is not None and bool(a.any()) for a in first)
+    for a, b in zip(first, second):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+
+
+@pytest.mark.parametrize("shape", [(7,), (7, 3), (2048, 3)])
+def test_row_fetch_backward_repeats_on_the_card(cuda_device, shape):
+    """``ops/intersect.rows`` on CUDA tensors at 2^20 rays: ``table[idx]``,
+    and a backward (one-hot sums; 2048 rows take several blocks) that gives
+    the same bits on two runs, within float32 rounding of the float64 sums:
+    1e-6 of each row's sum of |cotangent|."""
+    from path_tracer_c_tpu_torch.ops import intersect
+
+    n = 1 << 20
+    gen = torch.Generator().manual_seed(5)
+    table = torch.randn(shape, generator=gen).to(cuda_device).requires_grad_()
+    idx = torch.randint(0, shape[0], (n,), generator=gen)
+    g = torch.randn((n, *shape[1:]), generator=gen)
+    idx_d, g_d = idx.to(cuda_device), g.to(cuda_device)
+    assert torch.equal(intersect.rows(table, idx_d), table.detach()[idx_d])
+    a, b = (torch.autograd.grad(intersect.rows(table, idx_d), table, g_d)[0].cpu()
+            for _ in range(2))
+    assert torch.equal(a, b)
+    exact = torch.zeros(shape, dtype=torch.float64).index_add_(0, idx, g.double())
+    scale = torch.zeros(shape, dtype=torch.float64).index_add_(0, idx, g.double().abs())
+    assert bool(((a.double() - exact).abs() <= 1e-6 * scale).all())
+
+
 def test_remat_lowers_peak_memory(cuda_device, monkeypatch):
     """``loss_and_grad(engine="core")`` (every float leaf differentiated,
     each sample recomputed in backward) holds less memory at its peak than

@@ -278,3 +278,66 @@ def test_eager_gradient_matches_jax_grad(rough_grad):
     assert np.abs(by_name["center"][0]).max() > 1e-4  # the lamp, through the cone chain
     assert np.abs(by_name["radius"][0]) > 1e-4
     assert bool(np.any(by_name["roughness"])) == rough_grad
+
+
+# -- table rows: the fetch and its backward -------------------------------------
+
+
+@pytest.mark.parametrize("shape, block", [((7,), 2), ((7, 3), 3), ((300, 3), 7)])
+def test_row_fetch_is_indexing_with_a_backward_in_fixed_order(shape, block, monkeypatch):
+    """``ops/intersect.rows`` gives ``table[idx]``. Its backward on the CPU
+    is the serial ``index_add_``: the same bits on every run. The card's
+    (``_row_sums``: one-hot sums, here in blocks of ``block`` rows, run on
+    CPU tensors) also gives the same bits on every run, within float32
+    rounding of the float64 sums: 1e-6 of each row's sum of |cotangent|."""
+    from path_tracer_c_tpu_torch.ops import intersect
+
+    n = 200_000
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).requires_grad_()
+    idx = torch.from_numpy(rng.integers(0, shape[0], n))
+    g = torch.from_numpy(rng.standard_normal((n, *shape[1:])).astype(np.float32))
+    assert torch.equal(intersect.rows(table, idx), table.detach()[idx])
+    serial = torch.zeros(shape).index_add_(0, idx, g)
+    for _ in range(2):
+        assert torch.equal(torch.autograd.grad(intersect.rows(table, idx), table, g)[0], serial)
+    monkeypatch.setattr(intersect, "_ROW_SUM_CHUNK", n * g[0].numel() * block)
+    sums = [intersect._row_sums(idx, g, shape[0]) for _ in range(2)]
+    assert torch.equal(sums[0], sums[1])
+    exact = torch.zeros(shape, dtype=torch.float64).index_add_(0, idx, g.double())
+    scale = torch.zeros(shape, dtype=torch.float64).index_add_(0, idx, g.double().abs())
+    assert bool(((sums[0].double() - exact).abs() <= 1e-6 * scale).all())
+
+
+def test_eager_gradient_repeats_and_equals_indexings(monkeypatch):
+    """The eager tier's gradient with respect to every leaf of the mixed
+    emitter pool (``tri_nee``, a sphere and two triangle lamps): the same
+    bits on two runs, and within float32 rounding (rtol 1e-5, an absolute
+    floor of 1e-5 of the leaf's largest entry) of the gradient through plain
+    indexing, the fetch before ``rows``."""
+    from path_tracer_c_tpu_torch.grad import diff
+    from path_tracer_c_tpu_torch.models import physical as pm
+    from path_tracer_c_tpu_torch.ops import intersect
+
+    pscene = carry(tri_light_mixed_scene())
+    g = torch.from_numpy(cotangent(12, 16, 3))
+
+    def grads():
+        names = diff._float_leaves(pscene)
+        leaves = [t.detach().requires_grad_() for _, _, t in names]
+        live = replace_leaves(pscene, [(tb, nm, t) for (tb, nm, _), t in zip(names, leaves)])
+        img = render_physical(live, PCAM, 12, 16, 2, 3, 9, tri_nee=True)
+        return torch.autograd.grad(img, leaves, g, allow_unused=True)
+
+    first, second = grads(), grads()
+    assert any(a is not None and bool(a.any()) for a in first)
+    for a, b in zip(first, second):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+    indexing = lambda table, idx: table[idx]
+    monkeypatch.setattr(intersect, "rows", indexing)
+    monkeypatch.setattr(pm, "rows", indexing)
+    for a, b in zip(first, grads()):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5 * max(float(b.abs().max()), 1e-6))
