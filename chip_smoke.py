@@ -140,7 +140,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. row blocks and the parallel layer: B1-B4 and each of their
    instantiations (timed, counting, measurement) over four blocks of 256
    rows at the main shape and 7 + 12 rows of a ragged 19x45 against the
-   whole launch, bit for bit (images, planes, counters summed), B5's blocks
+   whole launch, bit for bit (images, planes, counters summed; B1's warp
+   lane-rounds of blocks that do not start on a multiple of its footprint's
+   height against its twin's, block by block), B5's blocks
    summed against the whole at ``BWD_RTOL``; then, on meshes of cuda:0
    repeated: config 5's frame (2048^2, 256 spp, 4 bounces, B1) through
    ``render_sharded`` on 8x1 (bit for bit) and 4x2 (``SHARD_RTOL``), each
@@ -170,6 +172,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``parallel/scaling``, B1 at 1024x1024, 64 spp, 8 bounces) on the visible
    cards and on cuda:0 repeated 2 and 4 times, every mesh's image equal to
    the unsharded render bit for bit. Each line is printed as it comes.
+18. the launch shapes (``ops/render_kernel.TILES``): the sweep library
+   (every render kernel at each point but its default, ``ops/build.py``)
+   built, with its build time; at a small glossy shape (and there also the
+   triangle-lit scene with ``tri_nee``), at a ragged 19x45 and on a block of
+   rows, every point of B1-B4 equal to the default point bit for bit
+   (images, every plane, ``rough_grad``'s, thread-rounds and counted
+   events), each point's warp lane-rounds equal to the twin's grouping
+   under its footprint, B5 at each point within ``BWD_RTOL`` of its twin and
+   two launches the same bits; B2 at ``MAX_BOUNCES`` asked for its
+   512-thread point, which ``fit_tile`` must shrink to a point that
+   launches and equals the default (the point itself must fail to launch);
+   then the sweep at the headline (``utils/tile_sweep.sweep``: glossy
+   1024x1024, 8 bounces, B1 and B3 at 64 spp, B2, B4 and B5 at 16 spp, each
+   as called and alone on operands packed once at each of its points, the
+   alone launch's output equal to the call's, with its registers and
+   spills). Any
+   failure, a point that does not build or launch included, fails the run.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--worker`` runs one
@@ -532,24 +551,15 @@ def ulp_distance(a, b):
 def sass_counts(patterns: dict, opcode: str) -> dict:
     """Instructions whose opcode matches the regular expression ``opcode``,
     by opcode, in the SASS of each kernel whose mangled name contains every
-    string of ``patterns[key]``, from cuobjdump on the built library."""
+    string of ``patterns[key]``, from cuobjdump on the built library
+    (``ops/build.sass_opcodes``)."""
     from path_tracer_c_tpu_torch.ops import build
 
-    tool = Path(build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    found, current = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            current = next((k for k, pats in patterns.items() if all(p in name for p in pats)),
-                           None)
-            if current is not None:
-                found[current] = {}
-        elif current is not None:
-            m = re.search(rf"\b({opcode})\b", line)
-            if m:
-                found[current][m.group(1)] = found[current].get(m.group(1), 0) + 1
+    found = {}
+    for name, counts in build.sass_opcodes(opcode).items():
+        key = next((k for k, pats in patterns.items() if all(p in name for p in pats)), None)
+        if key is not None:
+            found[key] = {op: n for op, n in counts.items() if op != "instructions"}
     if set(found) != set(patterns):
         raise AssertionError(f"SASS: kernels {sorted(set(patterns) - set(found))} not found")
     return found
@@ -558,26 +568,14 @@ def sass_counts(patterns: dict, opcode: str) -> dict:
 def ptxas_resources(kernel: str) -> dict:
     """Registers, stack frame and spill bytes that ptxas reported for each
     instantiation of ``kernel`` (by its template arguments in the mangled
-    name), from the build's ``-Xptxas -v`` lines."""
+    name), from the build's ``-Xptxas -v`` lines (``ops/build.ptxas_entries``)."""
     from path_tracer_c_tpu_torch.ops import build
 
-    found, current = {}, None
-    for line in build.resource_usage().splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1] if "'" in line else line
-            current = None
-            if kernel in name:
-                m = re.search(kernel + r"I(.*?)EEvP", name)
-                current = m.group(1) if m else name
-                found[current] = {}
-        elif current is not None:
-            for key, pattern in (("registers", r"Used (\d+) registers"),
-                                 ("stack_bytes", r"(\d+) bytes stack frame"),
-                                 ("spill_stores", r"(\d+) bytes spill stores"),
-                                 ("spill_loads", r"(\d+) bytes spill loads")):
-                m = re.search(pattern, line)
-                if m:
-                    found[current][key] = int(m.group(1))
+    found = {}
+    for name, resources in build.ptxas_entries(build.resource_usage()).items():
+        if kernel in name:
+            m = re.search(kernel + r"I(.*?)EEvP", name)
+            found[m.group(1) if m else name] = resources
     return found
 
 
@@ -1278,11 +1276,34 @@ def check_row_blocks(what: str, fn, args, kw, parts) -> float:
     return worst
 
 
+def check_block_rounds(what: str, fn, twin, args, kw, parts) -> None:
+    """B1's counting over row blocks that do not start on a multiple of its
+    warp footprint's height: a block's launch lays its own warps from its
+    first row, so its warp lane-rounds are not those of the whole's rows.
+    Each block's counts against the twin's grouping of that block (``twin``,
+    the counting twin), and the blocks' thread-rounds summed against the
+    whole's."""
+    whole = fn(*args, **kw)["thread_rounds"]
+    total = 0
+    for r0, n in _row_blocks(args[2], parts):
+        got = fn(*args, row_start=r0, rows=n, **kw)
+        ref = twin(*args, row_start=r0, rows=n)
+        if got != {k: ref[k] for k in got}:
+            raise AssertionError(f"{what}: rows {r0}-{r0 + n - 1}: rounds {got}, twin {ref}")
+        total += got["thread_rounds"]
+    if total != whole:
+        raise AssertionError(f"{what}: the blocks' thread-rounds {total}, the whole's {whole}")
+    log(f"  {what}: {len(_row_blocks(args[2], parts))} blocks equal the twin's, thread-rounds "
+        f"the whole's")
+
+
 def row_block_checks(pt, dev, glossy, cam) -> None:
     """Phase 16a: B1-B4 and every instantiation (timed kernel, counting,
     measurement) over row blocks against the whole launch, at the main shape
     and at a ragged 19x45; B5's cotangents summed over the blocks against
-    the whole's."""
+    the whole's. B1's warp lane-rounds sum to the whole's where the blocks
+    start on multiples of its footprint's height (4 rows at 8x16/4x8), and
+    are held to the twin's block by block elsewhere (``check_block_rounds``)."""
     import torch
     from path_tracer_c_tpu_torch.ops import render_grad as rg
     from path_tracer_c_tpu_torch.ops import render_kernel as rk
@@ -1297,9 +1318,17 @@ def row_block_checks(pt, dev, glossy, cam) -> None:
         args = (glossy, cam, *shape, seed)
         where = "{}x{} {}spp {}b".format(*shape)
         check_row_blocks(f"B1 {where}", rk.render_kernel, args, dict(count_rounds=True), parts)
+        warp_rows = rk.tile_point(None, "fwd").wh
+        aligned = all(r0 % warp_rows == 0 for r0, _ in _row_blocks(shape[0], parts))
         for v in (None, *rk.VARIANTS):
-            check_row_blocks(f"B1 counting {v or 'kernel'} {where}", rk.render_kernel_round_counts,
-                             args, dict(variant=v), parts)
+            if aligned:
+                check_row_blocks(f"B1 counting {v or 'kernel'} {where}",
+                                 rk.render_kernel_round_counts, args, dict(variant=v), parts)
+            else:
+                check_block_rounds(f"B1 counting {v or 'kernel'} {where}",
+                                   rk.render_kernel_round_counts,
+                                   rk.render_kernel_round_counts_reference, args, dict(variant=v),
+                                   parts)
             if v:
                 check_row_blocks(f"B1 {v} {where}", rk.render_kernel_variant, args[:7] + (v,),
                                  {}, parts)
@@ -1814,6 +1843,38 @@ def script_runs(pt, dev, card: str) -> dict:
         launches["render_fwd"][f"scaling {label}"] = rk.render_kernel.launches
     log(f"scaling: every mesh's image equals the unsharded B1 image bit for bit [{card}]")
     return {"launches": launches, "max_abs_err": max_err}
+
+
+def tile_runs(dev, card: str) -> dict:
+    """Phase 18: the sweep library built, every point checked against the
+    default point and the twins (``utils/tile_sweep.check_tiles``), then
+    the sweep at the headline. Returns the build, check and sweep times, the
+    checks' summary and each kernel's times by point."""
+    from path_tracer_c_tpu_torch.ops import build
+    from path_tracer_c_tpu_torch.ops import render_kernel as rk
+    from path_tracer_c_tpu_torch.utils import tile_sweep as ts
+
+    t0 = time.perf_counter()
+    build.load_sweep_library(rk._sweep_units())
+    build_s = time.perf_counter() - t0
+    log(f"tiles: sweep library of {len(rk._sweep_units())} units built in {build_s:.1f} s "
+        f"({build.sweep_library_path(rk._sweep_units()).name})")
+    t0 = time.perf_counter()
+    summary = ts.check_tiles(dev, log=log)
+    check_s = time.perf_counter() - t0
+    log(f"tiles: checks took {check_s:.1f} s; B5's largest |delta| / leaf scale against the "
+        f"twin {summary['bwd_worst']:.3g}")
+    t0 = time.perf_counter()
+    records = ts.sweep(tuple(ts.KIND_NAMES), dev, log=lambda line: log(f"tile sweep: {line} "
+                                                                         f"[{card}]"))
+    sweep_s = time.perf_counter() - t0
+    by_kernel = {}
+    for r in records:
+        by_kernel.setdefault(r["kind"], {})[r["point"]] = {
+            k: r[k] for k in ("ms", "alone_ms", "grays_per_s", "registers", "spill_stores",
+                              "spill_loads")}
+    return {"build_seconds": build_s, "check_seconds": check_s, "sweep_seconds": sweep_s,
+            "checks": summary, "sweep": by_kernel}
 
 
 def main() -> int:
@@ -2529,6 +2590,13 @@ def main() -> int:
     scripts = script_runs(pt, dev, card)
     log(f"script runs: phase 17 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 18. the launch shapes --
+    t0 = time.perf_counter()
+    tiles = tile_runs(dev, card)
+    log(f"tile runs: phase 18 took {time.perf_counter() - t0:.1f} s (build "
+        f"{tiles['build_seconds']:.1f} s, checks {tiles['check_seconds']:.1f} s, sweep "
+        f"{tiles['sweep_seconds']:.1f} s)")
+
     # launches: the main paths' runs; every time, bound and round count: the
     # glossy shape named in "timed_at".
     common = {"route": "cuda", "library_ms": None, "timed_at": where}
@@ -2583,6 +2651,14 @@ def main() -> int:
             entry["launches"] += sum(extra.values())
         if entry["name"] in scripts["max_abs_err"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], scripts["max_abs_err"][entry["name"]])
+    # Each render kernel's launch shape, and its times at every point.
+    for entry, tile_kind in zip(kernels, ("fwd", "fused", "phys", "phys_fused", "phys_bwd")):
+        entry["tile"] = rk.tile_point(None, tile_kind).name
+        entry["tile_sweep_ms"] = {p: v["ms"] for p, v in tiles["sweep"][tile_kind].items()}
+        entry["tile_sweep_alone_ms"] = {p: v["alone_ms"]
+                                        for p, v in tiles["sweep"][tile_kind].items()}
+    log(json.dumps({"tile_runs": {k: tiles[k] for k in ("build_seconds", "check_seconds",
+                                                        "sweep_seconds", "checks")}}))
     log(json.dumps({"sharded_runs": shard["result"]}))
     log(json.dumps({"long_runs": longr["result"]}))
     log(json.dumps({"kernels": kernels + sol["entries"]}))

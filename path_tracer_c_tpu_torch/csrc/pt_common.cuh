@@ -443,19 +443,30 @@ __device__ __forceinline__ int shade(const Hit& h, const Material& mt, Path& q) 
   return event;
 }
 
-// Sum `value` over the block and add it to *counter: a warp reduction,
-// then one atomicAdd a block. Every thread of the block must call it.
-// Only the counting instantiations of the kernels call it.
+// The thread's lane in its warp, as the hardware numbers it: whatever the
+// launch shape (pt_sched.cuh Tile), the lane that __ballot_sync, __shfl_sync
+// and __match_any_sync mean.
+__device__ __forceinline__ int lane_id() {
+  unsigned lane;
+  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+  return static_cast<int>(lane);
+}
+
+// Sum `value` over the block (launched at tile Tl, pt_sched.cuh) and add it
+// to *counter: a warp reduction, then one atomicAdd a block. Every thread of
+// the block must call it. Only the counting instantiations of the kernels
+// call it.
+template <class Tl>
 __device__ __forceinline__ void block_add(int value, unsigned long long* counter) {
+  static_assert(Tl::kWarps <= 32, "a block of at most 1024 threads");
   __shared__ int warp_sums[32];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_warps = (blockDim.x * blockDim.y + 31) / 32;
+  const int tid = Tl::tid();
   const int sum = __reduce_add_sync(0xffffffffu, value);
   if ((tid & 31) == 0) warp_sums[tid >> 5] = sum;
   __syncthreads();
   if (tid == 0) {
     unsigned long long total = 0;
-    for (int i = 0; i < n_warps; ++i) total += static_cast<unsigned long long>(warp_sums[i]);
+    for (int i = 0; i < Tl::kWarps; ++i) total += static_cast<unsigned long long>(warp_sums[i]);
     atomicAdd(counter, total);
   }
   __syncthreads();  // warp_sums is free again: a kernel may add several counts

@@ -13,29 +13,27 @@
 
 #pragma once
 
-#include "pt_common.cuh"
+#include "pt_sched.cuh"
 
 namespace ptc {
 
-// The threads of a fused kernel's block (32 x 8).
-constexpr int kBlockThreads = 256;
-
-// One field of a thread's per-bounce records in dynamic shared memory: round
-// b at p[b * kBlockThreads], the block's threads side by side, so that a
-// warp's 32 accesses to one round fall in distinct banks.
-template <class T>
+// One field of a thread's per-bounce records in dynamic shared memory, in a
+// block launched at tile Tl (pt_sched.cuh): round b at p[b * Tl::kThreads],
+// the block's threads side by side, so that a warp's 32 accesses to one
+// round fall in distinct banks.
+template <class T, class Tl>
 struct SmemField {
+  static constexpr int kStride = Tl::kThreads;
   T* p;
-  __device__ __forceinline__ T& operator[](int b) const { return p[b * kBlockThreads]; }
+  __device__ __forceinline__ T& operator[](int b) const { return p[b * kStride]; }
 };
 
 // The thread's slot in a field of `rounds` rounds that starts at `base`;
 // returns the field and moves `base` past it.
-template <class T>
-__device__ __forceinline__ SmemField<T> smem_field(unsigned char*& base, int rounds) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  SmemField<T> f{reinterpret_cast<T*>(base) + tid};
-  base += sizeof(T) * static_cast<size_t>(rounds) * kBlockThreads;
+template <class T, class Tl>
+__device__ __forceinline__ SmemField<T, Tl> smem_field(unsigned char*& base, int rounds) {
+  SmemField<T, Tl> f{reinterpret_cast<T*>(base) + Tl::tid()};
+  base += sizeof(T) * static_cast<size_t>(rounds) * Tl::kThreads;
   return f;
 }
 
@@ -73,18 +71,20 @@ enum PlaneSlots : int {
 // memory, kShared), its plane adds (PlaneAdds or PlaneSink), kUnroll (0: the
 // loops over the rounds run to the run-time bounce budget; n > 0: they are
 // unrolled to n rounds, so that every record index is a constant and records
-// of n entries stay in registers), the blocks a multiprocessor that ptxas
-// budgets its registers for, its loops over the rounds (LaneLoops or
-// WarpLoops) and, B4 only, where the planes whose addresses depend on the
-// pixel alone live until the pixel's end (PlaneSlots).
+// of n entries stay in registers), the blocks of DefaultTile a multiprocessor
+// that ptxas budgets its registers for (kMinBlocks: as many threads in blocks
+// of its own tile), its loops over the rounds (LaneLoops or WarpLoops), B4
+// only, where the planes whose addresses depend on the pixel alone live until
+// the pixel's end (PlaneSlots), and its launch shape (Tile, pt_sched.cuh).
 template <class Records_, class Adds_, int kUnroll_, int kMinBlocks_,
-          class Loops_ = LaneLoops, int kPlaneSlots_ = kSlotsDevice>
+          class Loops_ = LaneLoops, int kPlaneSlots_ = kSlotsDevice, class Shape_ = DefaultTile>
 struct Policy {
   using Records = Records_;
   using Adds = Adds_;
   using Loops = Loops_;
+  using Shape = Shape_;
   static constexpr int kUnroll = kUnroll_;
-  static constexpr int kMinBlocks = kMinBlocks_;
+  static constexpr int kMinBlocks = min_blocks<Shape_, kMinBlocks_>();
   static constexpr int kPlaneSlots = kPlaneSlots_;
   static constexpr bool kChipPlanes = kPlaneSlots_ != kSlotsDevice;
 };
@@ -199,15 +199,20 @@ struct WarpLoops {
 __device__ __forceinline__ void count_warp_rounds(unsigned lanes, int n_rounds,
                                                   int& warp_rounds) {
   const int widest = __reduce_max_sync(lanes, n_rounds);
-  const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
-  if (lane == __ffs(lanes) - 1) warp_rounds += widest * __popc(lanes);
+  if (lane_id() == __ffs(lanes) - 1) warp_rounds += widest * __popc(lanes);
 }
 
+// The most shared memory a block may opt into on an H100 (227 KB).
+constexpr size_t kSmemOptin = 232448;
+
 // The dynamic shared memory the records of max_bounces + 1 rounds of
-// `round_bytes` each take in a block, made the limit of `kernel`.
-template <class Kernel>
+// `round_bytes` each take in a block of tile Tl, made the limit of `kernel`;
+// cudaErrorInvalidValue, and no call of the runtime, above kSmemOptin
+// (ops/render_kernel.fit_tile keeps a launch below it).
+template <class Tl, class Kernel>
 cudaError_t records_smem(Kernel kernel, int max_bounces, int round_bytes, size_t& bytes) {
-  bytes = static_cast<size_t>(max_bounces + 1) * kBlockThreads * round_bytes;
+  bytes = static_cast<size_t>(max_bounces + 1) * Tl::kThreads * round_bytes;
+  if (bytes > kSmemOptin) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }

@@ -23,22 +23,24 @@ struct LocalStores : RoundStoresN<kN> {
   __device__ __forceinline__ void place(unsigned char*, int) {}
 };
 
+// In a block of tile Tl (pt_sched.cuh).
+template <class Tl>
 struct SharedStores {
   static constexpr bool kShared = true;
   static constexpr int kRoundBytes = 5 * 4 + 2 + 1;
-  SmemField<float> pr, pg, pb, w;
-  SmemField<int> row;
-  SmemField<short> mat;
-  SmemField<unsigned char> ev;
+  SmemField<float, Tl> pr, pg, pb, w;
+  SmemField<int, Tl> row;
+  SmemField<short, Tl> mat;
+  SmemField<unsigned char, Tl> ev;
   // The fields of `rounds` rounds, one after another from `base`.
   __device__ __forceinline__ void place(unsigned char* base, int rounds) {
-    pr = smem_field<float>(base, rounds);
-    pg = smem_field<float>(base, rounds);
-    pb = smem_field<float>(base, rounds);
-    w = smem_field<float>(base, rounds);
-    row = smem_field<int>(base, rounds);
-    mat = smem_field<short>(base, rounds);
-    ev = smem_field<unsigned char>(base, rounds);
+    pr = smem_field<float, Tl>(base, rounds);
+    pg = smem_field<float, Tl>(base, rounds);
+    pb = smem_field<float, Tl>(base, rounds);
+    w = smem_field<float, Tl>(base, rounds);
+    row = smem_field<int, Tl>(base, rounds);
+    mat = smem_field<short, Tl>(base, rounds);
+    ev = smem_field<unsigned char, Tl>(base, rounds);
   }
 };
 

@@ -31,6 +31,20 @@
 // which shared memory broadcasts; a material fetch by hit index is a gather.
 // The tables take table_words() words; above kSharedTableBudget bytes the
 // wrappers take GlobalTables.
+//
+// Launch shape. Tile<TH, TW, WH, WW>: a block renders TH x TW pixels, one
+// thread a pixel, and is launched as a 1-D block of TH * TW threads over a
+// 2-D grid of blocks across the rows x width image; its warps are WH x WW
+// footprints (WH * WW = 32) laid over the block row-major, lane l of a warp
+// at (l / WW, l % WW) in its footprint. Every render kernel, and the probes
+// that copy B1's launch, take their thread's pixel, block index and warp
+// from the Tile of their policy and from nowhere else, so one body serves
+// every shape. The ragged edge stays masked (`in_range`). The images do not
+// depend on the tile: the streams and the camera key on the global pixel.
+// TileAt<k> is point k of the shapes the sweep library instantiates
+// (ops/render_kernel.py TILES, in this order). The timed library holds each
+// kernel at its default point: B1, and the probes that copy its launch, at
+// FwdTile; the others at point 0, DefaultTile.
 
 #pragma once
 
@@ -53,10 +67,72 @@ struct SharedTables {
   static constexpr bool kShared = true;
 };
 
-template <class Sched_, class Tab_>
+// A launch shape (see above).
+template <int TH, int TW, int WH, int WW>
+struct Tile {
+  static_assert(WH * WW == 32, "a warp's footprint holds its 32 lanes");
+  static_assert(TH % WH == 0 && TW % WW == 0, "the footprints tile the block");
+  static constexpr int kTH = TH, kTW = TW, kWH = WH, kWW = WW;
+  static constexpr int kThreads = TH * TW;
+  static constexpr int kWarps = kThreads / 32;
+  static dim3 block() { return dim3(kThreads); }
+  // The blocks over `rows` rows of `width` pixels.
+  static dim3 grid(int rows, int width) {
+    return dim3((width + TW - 1) / TW, (rows + TH - 1) / TH);
+  }
+  // The thread's index in its block, and its block's warp.
+  static __device__ __forceinline__ int tid() { return threadIdx.x; }
+  static __device__ __forceinline__ int warp() { return tid() >> 5; }
+  // The thread's pixel: its row in the launch's block of rows, its column.
+  static __device__ __forceinline__ void pixel(int& row, int& col) {
+    constexpr int kAcross = TW / WW;  // footprints across a block
+    const int t = tid(), lane = t & 31, w = t >> 5;
+    row = blockIdx.y * TH + (w / kAcross) * WH + lane / WW;
+    col = blockIdx.x * TW + (w % kAcross) * WW + lane % WW;
+  }
+};
+
+using DefaultTile = Tile<8, 32, 1, 32>;
+
+template <int kPoint>
+struct TilePoint;
+template <> struct TilePoint<0> { using type = DefaultTile; };
+template <> struct TilePoint<1> { using type = Tile<4, 32, 1, 32>; };
+template <> struct TilePoint<2> { using type = Tile<16, 32, 1, 32>; };
+template <> struct TilePoint<3> { using type = Tile<16, 16, 2, 16>; };
+template <> struct TilePoint<4> { using type = Tile<16, 16, 4, 8>; };
+template <> struct TilePoint<5> { using type = Tile<8, 32, 4, 8>; };
+template <> struct TilePoint<6> { using type = Tile<8, 16, 4, 8>; };
+template <int kPoint>
+using TileAt = typename TilePoint<kPoint>::type;
+
+// B1's default point (ops/render_kernel.py DEFAULT_TILE): 8 x 16 pixels,
+// warps of 4 x 8. It beat DefaultTile at each shape B1 was compared at on
+// an H100, alone and as called (PERF.md, the tile sweep).
+using FwdTile = TileAt<6>;
+
+// The name of a C entry of the sweep library, built with -DPT_TILE_POINT=k:
+// PT_TILED(render_fwd) is render_fwd_tiled_k.
+#define PT_TILED_NAME(name, point) name##_tiled_##point
+#define PT_TILED_AT(name, point) PT_TILED_NAME(name, point)
+#define PT_TILED(name) PT_TILED_AT(name, PT_TILE_POINT)
+
+// The blocks of tile Tl a multiprocessor that ptxas budgets registers for:
+// those holding the threads of kBlocks blocks of DefaultTile, so that a
+// thread's registers do not move with the tile (four blocks of 256: 64
+// registers; three: 80).
+template <class Tl, int kBlocks>
+constexpr int min_blocks() {
+  static_assert(kBlocks * DefaultTile::kThreads % Tl::kThreads == 0,
+                "the tile divides the multiprocessor's threads");
+  return kBlocks * DefaultTile::kThreads / Tl::kThreads;
+}
+
+template <class Sched_, class Tab_, class Shape_ = DefaultTile>
 struct FwdPolicy {
   using Sched = Sched_;
   using Tab = Tab_;
+  using Shape = Shape_;  // the launch shape (Tile)
 };
 
 // The forward kernels' measurement instantiations by number (the wrappers'
@@ -68,20 +144,26 @@ enum FwdVariant : int {
   kVarGlobalTables = 1,
 };
 template <class Pol>
-using PerSampleOf = FwdPolicy<PerSample, typename Pol::Tab>;
+using PerSampleOf = FwdPolicy<PerSample, typename Pol::Tab, typename Pol::Shape>;
 template <class Pol>
-using GlobalTablesOf = FwdPolicy<typename Pol::Sched, GlobalTables>;
+using GlobalTablesOf = FwdPolicy<typename Pol::Sched, GlobalTables, typename Pol::Shape>;
+// The policy Pol at launch shape Tl (the sweep library's instantiations).
+template <class Pol, class Tl>
+using TiledOf = FwdPolicy<typename Pol::Sched, typename Pol::Tab, Tl>;
 
-// Both kernels and all their instantiations are built for four blocks of 256
-// threads a multiprocessor, __launch_bounds__(256, 4): at most 64 registers
-// a thread. Left to choose (a bound of 256 threads and one block) ptxas
-// takes 78-95 registers for them and they ran up to 27% slower (PERF.md).
+// Both kernels and all their instantiations are built for 1024 threads a
+// multiprocessor, four blocks of 256 (__launch_bounds__(256, 4)) or as many
+// threads at another tile (min_blocks): at most 64 registers a thread. Left
+// to choose (a bound of 256 threads and one block) ptxas takes 78-95
+// registers for them and they ran up to 27% slower (PERF.md).
 constexpr int kFwdMinBlocks = 4;
 
 // The most bytes of tables a block stages: at 64 registers a thread four
 // blocks of 256 threads fill a multiprocessor's registers, and four such
 // blocks' tables fit its 228 KB of shared memory beside the carve-out for L1.
 // It is also the most dynamic shared memory a launch takes without opting in.
+// At a tile of 128 threads (B1's FwdTile) eight blocks stage the tables, so
+// above 28.5 KB of tables fewer than eight are resident.
 constexpr int kSharedTableBudget = 48 * 1024;
 
 // Words of one staged table of `n` words: rounded up to 16 bytes, so that
@@ -102,14 +184,16 @@ __host__ __device__ constexpr int table_words(int n_sph, int n_tri, int n_mat, b
 }
 
 // Copy `n` words from `src` to shared memory at `dst` with every thread of
-// the block, 16 bytes a load where `src` is 16-byte aligned; returns the copy
-// and moves `dst` past it. No thread may read the copy before the block's
-// next __syncthreads().
-template <class T>
+// the block (launched at tile Tl), 16 bytes a load where `src` is 16-byte
+// aligned; returns the copy and moves `dst` past it. No thread may read the
+// copy before the block's next __syncthreads().
+template <class Tl, class T>
 __device__ __forceinline__ const T* stage(const T* src, int n, uint32_t*& dst) {
   static_assert(sizeof(T) == 4, "tables hold 32-bit words");
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = Tl::tid();
+  // Tl::kThreads, read at run time: as a constant, nvcc unrolled the copy
+  // loops (B1 240 more loads and stores) and B3 ran 0.8-1.7% slower (PERF.md).
+  const int nthreads = blockDim.x;
   T* const out = reinterpret_cast<T*>(dst);
   int done = 0;
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
@@ -126,12 +210,13 @@ __device__ __forceinline__ const T* stage(const T* src, int n, uint32_t*& dst) {
 }
 
 // Point `sc` at copies of its tables in shared memory from `dst` on (stage).
+template <class Tl>
 __device__ __forceinline__ void stage_tables(Tables& sc, uint32_t*& dst) {
-  sc.sph = stage(sc.sph, sc.n_sph * kSphStride, dst);
-  sc.sph_m = stage(sc.sph_m, sc.n_sph, dst);
-  sc.tri = stage(sc.tri, sc.n_tri * kTriStride, dst);
-  sc.tri_m = stage(sc.tri_m, sc.n_tri, dst);
-  sc.mat = stage(sc.mat, sc.n_mat * kMatStride, dst);
+  sc.sph = stage<Tl>(sc.sph, sc.n_sph * kSphStride, dst);
+  sc.sph_m = stage<Tl>(sc.sph_m, sc.n_sph, dst);
+  sc.tri = stage<Tl>(sc.tri, sc.n_tri * kTriStride, dst);
+  sc.tri_m = stage<Tl>(sc.tri_m, sc.n_tri, dst);
+  sc.mat = stage<Tl>(sc.mat, sc.n_mat * kMatStride, dst);
 }
 
 // What a round did, as bits: the sample's path ended (a miss or zero
@@ -146,8 +231,6 @@ struct RoundCounts {
   int thread = 0;
   int warp = 0, warp_light = 0, warp_shadow = 0;
 };
-
-__device__ __forceinline__ int lane_id() { return (threadIdx.y * blockDim.x + threadIdx.x) & 31; }
 
 // One round of the warp, counted on the first lane of `lanes` (the warp's
 // in-image lanes): `bits` is this lane's round (0 where it ran none). Every
@@ -222,13 +305,6 @@ __device__ __forceinline__ void run_samples(bool in_range, unsigned lanes, int s
       if (kCount) count_warp_round(lanes, bits, c);
     }
   }
-}
-
-// Launch shape of both forward kernels: 32 x 8 threads, one a pixel; a warp
-// is 32 consecutive columns of one row.
-inline dim3 fwd_block() { return dim3(32, 8); }
-inline dim3 fwd_grid(int height, int width) {
-  return dim3((width + 31) / 32, (height + 7) / 8);
 }
 
 }  // namespace ptc

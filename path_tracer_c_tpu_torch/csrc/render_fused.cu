@@ -65,7 +65,8 @@
 //
 // The kernel is built for four blocks of 256 threads a multiprocessor
 // (__launch_bounds__(256, 4)): 64 registers a thread, as ptxas chose unasked,
-// with fewer spills (PERF.md).
+// with fewer spills (PERF.md); at another tile for as many threads
+// (pt_sched.cuh min_blocks).
 //
 // render_pixel takes its records, its plane adds and its loops as a policy
 // (pt_fused.cuh): render_fused_variant launches the measurement
@@ -102,25 +103,31 @@ struct LocalRecords {
   __device__ __forceinline__ void place(unsigned char*, int) {}
 };
 
+// In a block of tile Tl (pt_sched.cuh): (max_bounces + 1) * Tl::kThreads *
+// kRoundBytes bytes.
+template <class Tl>
 struct SharedRecords {
   static constexpr bool kShared = true;
   static constexpr int kRoundBytes = 3 * 4 + 2 + 1;
-  SmemField<float> pr, pg, pb;
-  SmemField<short> mat;
-  SmemField<unsigned char> ev;
+  SmemField<float, Tl> pr, pg, pb;
+  SmemField<short, Tl> mat;
+  SmemField<unsigned char, Tl> ev;
   // The fields of `rounds` rounds, one after another from `base`.
   __device__ __forceinline__ void place(unsigned char* base, int rounds) {
-    pr = smem_field<float>(base, rounds);
-    pg = smem_field<float>(base, rounds);
-    pb = smem_field<float>(base, rounds);
-    mat = smem_field<short>(base, rounds);
-    ev = smem_field<unsigned char>(base, rounds);
+    pr = smem_field<float, Tl>(base, rounds);
+    pg = smem_field<float, Tl>(base, rounds);
+    pb = smem_field<float, Tl>(base, rounds);
+    mat = smem_field<short, Tl>(base, rounds);
+    ev = smem_field<unsigned char, Tl>(base, rounds);
   }
 };
 
-// The timed kernel, and its measurement instantiations (pt_fused.cuh).
-using KernelPolicy = Policy<SharedRecords, PlaneAdds, 0, 4>;
-using SinkPolicy = Policy<SharedRecords, PlaneSink, 0, 4>;
+// The timed kernel at launch shape Tl (the sweep library's instantiations),
+// the timed kernel, and its measurement instantiations (pt_fused.cuh).
+template <class Tl>
+using KernelPolicyAt = Policy<SharedRecords<Tl>, PlaneAdds, 0, 4, LaneLoops, kSlotsDevice, Tl>;
+using KernelPolicy = KernelPolicyAt<DefaultTile>;
+using SinkPolicy = Policy<SharedRecords<DefaultTile>, PlaneSink, 0, 4>;
 using RegistersPolicy = Policy<LocalRecords<kRegisterRounds>, PlaneAdds, kRegisterRounds, 1>;
 using MovedPolicy = Policy<LocalRecords<kMaxRounds>, PlaneAdds, 0, 4>;
 
@@ -246,7 +253,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Params& p,
 }
 
 template <bool kCount, class Pol>
-__global__ void __launch_bounds__(256, Pol::kMinBlocks)
+__global__ void __launch_bounds__(Pol::Shape::kThreads, Pol::kMinBlocks)
 render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                     int n_sph, const float* __restrict__ tri,
                     const int* __restrict__ tri_m, int n_tri,
@@ -256,8 +263,9 @@ render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m
                     int height, int width, int row_start, int rows, int spp,
                     int max_bounces, uint32_t seed, int sample_offset, int jitter,
                     float inv_spp) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  using Tl = typename Pol::Shape;
+  int row, col;  // row: in the block of rows
+  Tl::pixel(row, col);
   const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
@@ -274,8 +282,8 @@ render_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m
                                        reinterpret_cast<unsigned char*>(smem));
   }
   if (kCount) {
-    block_add(rounds, counter);
-    block_add(warp_rounds, counter + 1);
+    block_add<Tl>(rounds, counter);
+    block_add<Tl>(warp_rounds, counter + 1);
   }
 }
 
@@ -294,16 +302,15 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (rows + block.y - 1) / block.y);
+  using Tl = typename Pol::Shape;
   size_t smem = 0;
   if constexpr (Pol::Records::kShared) {
-    err = records_smem(render_fused_kernel<kCount, Pol>, max_bounces,
-                       Pol::Records::kRoundBytes, smem);
+    err = records_smem<Tl>(render_fused_kernel<kCount, Pol>, max_bounces,
+                           Pol::Records::kRoundBytes, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  render_fused_kernel<kCount, Pol><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  render_fused_kernel<kCount, Pol><<<Tl::grid(rows, width), Tl::block(), smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, counter,
       height, width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
   return static_cast<int>(cudaGetLastError());
@@ -311,6 +318,7 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
 
 }  // namespace
 
+#ifndef PT_TILE_POINT
 // The most bounces render_fused takes; the wrapper asks and raises above it.
 extern "C" int render_fused_max_bounces() { return kMaxRounds - 1; }
 
@@ -355,3 +363,23 @@ extern "C" int render_fused_variant(int variant, const float* sph, const int* sp
             width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
             stream);
 }
+
+#else
+// The sweep library's entry at point PT_TILE_POINT (pt_sched.cuh TileAt):
+// render_fused's arguments at that launch shape. Also cudaErrorInvalidValue
+// where the block's records exceed what a block may take (records_smem;
+// ops/render_kernel.fit_tile keeps them within it).
+extern "C" int PT_TILED(render_fused)(const float* sph, const int* sph_m, int n_sph,
+                                      const float* tri, const int* tri_m, int n_tri,
+                                      const float* mat, int n_mat, const float* par,
+                                      float* img, float* jac, unsigned long long* counter,
+                                      int height, int width, int row_start, int rows, int spp,
+                                      int max_bounces, unsigned int seed, int sample_offset,
+                                      int jitter, int device, void* stream) {
+  using Pol = KernelPolicyAt<TileAt<PT_TILE_POINT>>;
+  auto go = counter ? launch<true, Pol> : launch<false, Pol>;
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, img, jac, counter, height,
+            width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
+            stream);
+}
+#endif

@@ -15,8 +15,10 @@
 // tables, which stay in L1/L2, and 12 bytes of radiance per pixel.
 //
 // What the design does about that:
-//  * one thread per pixel, 2-D blocks of 32 x 8, every per-ray quantity in
-//    registers; no divisibility rule, the ragged edge is masked;
+//  * one thread per pixel, every per-ray quantity in registers; blocks of
+//    8 x 16 pixels whose warps are 4 x 8 (FwdTile), the launch shape a
+//    policy (pt_sched.cuh Tile) that the sweep library instantiates at its
+//    other points; no divisibility rule, the ragged edge is masked;
 //  * termination is zero throughput, as in the TPU kernel. A thread stops
 //    a sample's rounds once its throughput is exactly zero: every round it
 //    skips would add only exact zeros. This per-thread exit takes the
@@ -45,8 +47,8 @@ namespace {
 
 using namespace ptc;
 
-// The timed kernel's combination of policies.
-using KernelPolicy = FwdPolicy<Regen, SharedTables>;
+// The timed kernel's combination of policies, at B1's default point.
+using KernelPolicy = FwdPolicy<Regen, SharedTables, FwdTile>;
 
 // One pixel's radiance into `out` (lanes in the image only), its rounds into
 // `counts` (kCount). Every lane of the warp calls it. `row` is the pixel's row
@@ -104,8 +106,12 @@ __device__ __forceinline__ void render_pixel(const Tables& sc, const Params& p,
   }
 }
 
+// Registers: as many threads a multiprocessor at every tile (min_blocks).
+template <class Pol>
+constexpr int kFwdBlocks = min_blocks<typename Pol::Shape, kFwdMinBlocks>();
+
 template <bool kCount, class Pol>
-__global__ void __launch_bounds__(256, kFwdMinBlocks)
+__global__ void __launch_bounds__(Pol::Shape::kThreads, kFwdBlocks<Pol>)
 render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                   int n_sph, const float* __restrict__ tri,
                   const int* __restrict__ tri_m, int n_tri,
@@ -114,9 +120,10 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                   unsigned long long* counter, int height, int width, int row_start,
                   int rows, int spp, int max_bounces, uint32_t seed, int sample_offset,
                   int jitter, float inv_spp) {
+  using Tl = typename Pol::Shape;
   extern __shared__ uint4 smem[];
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  int row, col;  // row: in the block of rows
+  Tl::pixel(row, col);
   const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
@@ -124,7 +131,7 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
   Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
   if constexpr (Pol::Tab::kShared) {
     uint32_t* dst = reinterpret_cast<uint32_t*>(smem);
-    stage_tables(sc, dst);
+    stage_tables<Tl>(sc, dst);
     __syncthreads();
   }
   const Params p = *reinterpret_cast<const Params*>(par);
@@ -133,8 +140,8 @@ render_fwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                             max_bounces, seed, sample_offset, jitter, inv_spp, lanes,
                             counts);
   if (kCount) {
-    block_add(counts.thread, counter);
-    block_add(counts.warp, counter + 1);
+    block_add<Tl>(counts.thread, counter);
+    block_add<Tl>(counts.warp, counter + 1);
   }
 }
 
@@ -153,7 +160,8 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   // float32(1.0 / spp), rounded from double as the JAX package does.
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  render_fwd_kernel<kCount, Pol><<<fwd_grid(rows, width), fwd_block(), smem,
+  using Tl = typename Pol::Shape;
+  render_fwd_kernel<kCount, Pol><<<Tl::grid(rows, width), Tl::block(), smem,
                                    static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height, width,
       row_start, rows, spp, max_bounces, seed, sample_offset, jitter, inv_spp);
@@ -173,6 +181,7 @@ Launch pick(bool count, int n_sph, int n_tri, int n_mat) {
 
 }  // namespace
 
+#ifndef PT_TILE_POINT
 // Bytes of the tables a block stages in shared memory (pt_sched.cuh
 // table_words; `physical`: with the emitter tables), and the most it
 // stages; the wrappers ask, to agree with ops/render_kernel.py.
@@ -229,3 +238,22 @@ extern "C" int render_fwd_variant(int variant, const float* sph, const int* sph_
             width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
             stream);
 }
+
+#else
+// The sweep library's entry at point PT_TILE_POINT (pt_sched.cuh TileAt):
+// render_fwd's arguments and fallback at that launch shape.
+extern "C" int PT_TILED(render_fwd)(const float* sph, const int* sph_m, int n_sph,
+                                    const float* tri, const int* tri_m, int n_tri,
+                                    const float* mat, int n_mat, const float* par, float* out,
+                                    unsigned long long* counter, int height, int width,
+                                    int row_start, int rows, int spp, int max_bounces,
+                                    unsigned int seed, int sample_offset, int jitter,
+                                    int device, void* stream) {
+  using Pol = TiledOf<KernelPolicy, TileAt<PT_TILE_POINT>>;
+  Launch go = pick<Pol>(counter != nullptr, n_sph, n_tri, n_mat);
+  if (!go) go = pick<GlobalTablesOf<Pol>>(counter != nullptr, n_sph, n_tri, n_mat);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, counter, height,
+            width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device,
+            stream);
+}
+#endif

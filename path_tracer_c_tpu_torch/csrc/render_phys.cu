@@ -18,7 +18,8 @@
 // tables stay in L1/L2 and a pixel writes 12 bytes.
 //
 // What the design does about that:
-//  * one thread per pixel, 32 x 8 blocks, every per-ray quantity in
+//  * one thread per pixel, blocks of 8 x 32 pixels (the launch shape a
+//    policy, pt_sched.cuh Tile), every per-ray quantity in
 //    registers, the ragged edge masked; closest hit, the PCG stream and
 //    sincos_2pi are the reference tier's (pt_common.cuh);
 //  * a thread runs the light sample only where it can count: at a diffuse
@@ -69,14 +70,15 @@ constexpr int kNumCounters = 7;
 
 // Point `em` at copies of its tables in shared memory from `dst` on
 // (pt_sched.cuh stage); row counts as the wrapper packs them.
+template <class Tl>
 __device__ __forceinline__ void stage_emitters(Emitters& em, const Tables& sc,
                                                uint32_t*& dst) {
-  em.em_list = stage(em.em_list, sc.n_sph, dst);
-  em.le_sph = stage(em.le_sph, 3 * sc.n_sph, dst);
-  em.tri_list = stage(em.tri_list, sc.n_tri, dst);
-  em.le_tri = stage(em.le_tri, 3 * sc.n_tri, dst);
-  em.tri_area = stage(em.tri_area, sc.n_tri, dst);
-  em.mat_est = stage(em.mat_est, sc.n_mat, dst);
+  em.em_list = stage<Tl>(em.em_list, sc.n_sph, dst);
+  em.le_sph = stage<Tl>(em.le_sph, 3 * sc.n_sph, dst);
+  em.tri_list = stage<Tl>(em.tri_list, sc.n_tri, dst);
+  em.le_tri = stage<Tl>(em.le_tri, 3 * sc.n_tri, dst);
+  em.tri_area = stage<Tl>(em.tri_area, sc.n_tri, dst);
+  em.mat_est = stage<Tl>(em.mat_est, sc.n_mat, dst);
 }
 
 // One pixel's radiance into `out` (lanes in the image only); with kCount its
@@ -144,8 +146,12 @@ __device__ __forceinline__ void render_pixel(const Tables& sc, const Emitters& e
   }
 }
 
+// Registers: as many threads a multiprocessor at every tile (min_blocks).
+template <class Pol>
+constexpr int kFwdBlocks = min_blocks<typename Pol::Shape, kFwdMinBlocks>();
+
 template <bool kCount, bool kTriNee, class Pol>
-__global__ void __launch_bounds__(256, kFwdMinBlocks)
+__global__ void __launch_bounds__(Pol::Shape::kThreads, kFwdBlocks<Pol>)
 render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                    int n_sph, const float* __restrict__ tri,
                    const int* __restrict__ tri_m, int n_tri,
@@ -158,9 +164,10 @@ render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                    int height, int width, int row_start, int rows, int spp,
                    int max_bounces, uint32_t seed, int sample_offset, int jitter,
                    float inv_spp) {
+  using Tl = typename Pol::Shape;
   extern __shared__ uint4 smem[];
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  int row, col;  // row: in the block of rows
+  Tl::pixel(row, col);
   const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
@@ -169,8 +176,8 @@ render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
   Emitters em = {em_list, le_sph, tri_list, le_tri, tri_area, mat_est, counts[0], counts[1]};
   if constexpr (Pol::Tab::kShared) {
     uint32_t* dst = reinterpret_cast<uint32_t*>(smem);
-    stage_tables(sc, dst);
-    stage_emitters(em, sc, dst);
+    stage_tables<Tl>(sc, dst);
+    stage_emitters<Tl>(em, sc, dst);
     __syncthreads();
   }
   const Params p = *reinterpret_cast<const Params*>(par);
@@ -180,12 +187,12 @@ render_phys_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                                      width, spp, max_bounces, seed, sample_offset, jitter,
                                      nee != 0, inv_spp, lanes, ev, rc);
   if (kCount) {
-    block_add(rc.thread, counter);
+    block_add<Tl>(rc.thread, counter);
 #pragma unroll
-    for (int i = kEvDiffuse; i < kNumEvents; ++i) block_add(ev[i], counter + i);
-    block_add(rc.warp, counter + kNumEvents);
-    block_add(rc.warp_light, counter + kNumEvents + 1);
-    block_add(rc.warp_shadow, counter + kNumEvents + 2);
+    for (int i = kEvDiffuse; i < kNumEvents; ++i) block_add<Tl>(ev[i], counter + i);
+    block_add<Tl>(rc.warp, counter + kNumEvents);
+    block_add<Tl>(rc.warp_light, counter + kNumEvents + 1);
+    block_add<Tl>(rc.warp_shadow, counter + kNumEvents + 2);
   }
 }
 
@@ -207,7 +214,8 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   // float32(1.0 / spp), rounded from double as the JAX package does.
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  render_phys_kernel<kCount, kTriNee, Pol><<<fwd_grid(rows, width), fwd_block(), smem,
+  using Tl = typename Pol::Shape;
+  render_phys_kernel<kCount, kTriNee, Pol><<<Tl::grid(rows, width), Tl::block(), smem,
                                              static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list, le_tri,
       tri_area, mat_est, counts, par, out, counter, nee, height, width, row_start, rows, spp,
@@ -233,6 +241,7 @@ Launch pick(bool count, bool tri_nee, int n_sph, int n_tri, int n_mat) {
 
 }  // namespace
 
+#ifndef PT_TILE_POINT
 // C entry, bound with ctypes. The scene tables and `par` are those of
 // render_fwd; the emitter tables and `counts` = (n_em, n_em_t), two int32
 // on the device, are packed by ops/render_physical.py. `out` is (rows,
@@ -294,3 +303,26 @@ extern "C" int render_phys_variant(int variant, const float* sph, const int* sph
             le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width,
             row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device, stream);
 }
+
+#else
+// The sweep library's entry at point PT_TILE_POINT (pt_sched.cuh TileAt):
+// render_phys's arguments and fallback at that launch shape.
+extern "C" int PT_TILED(render_phys)(const float* sph, const int* sph_m, int n_sph,
+                                     const float* tri, const int* tri_m, int n_tri,
+                                     const float* mat, int n_mat, const int* em_list,
+                                     const float* le_sph, const int* tri_list,
+                                     const float* le_tri, const float* tri_area,
+                                     const float* mat_est, const int* counts, const float* par,
+                                     float* out, unsigned long long* counter, int nee,
+                                     int tri_nee, int height, int width, int row_start,
+                                     int rows, int spp, int max_bounces, unsigned int seed,
+                                     int sample_offset, int jitter, int device, void* stream) {
+  using Pol = TiledOf<KernelPolicy, TileAt<PT_TILE_POINT>>;
+  const bool count = counter != nullptr, tn = tri_nee != 0;
+  Launch go = pick<Pol>(count, tn, n_sph, n_tri, n_mat);
+  if (!go) go = pick<GlobalTablesOf<Pol>>(count, tn, n_sph, n_tri, n_mat);
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+            le_tri, tri_area, mat_est, counts, par, out, counter, nee, height, width,
+            row_start, rows, spp, max_bounces, seed, sample_offset, jitter, device, stream);
+}
+#endif

@@ -44,8 +44,9 @@
 // the kernel there (PERF.md).
 //
 // What the design does about that:
-//  * one thread per pixel, 32 x 8 blocks, forward rounds and stores shared
-//    with the fused kernel (pt_phys.cuh, pt_phys_grad.cuh);
+//  * one thread per pixel, blocks of 8 x 32 pixels (the launch shape a
+//    policy, pt_sched.cuh Tile), forward rounds and stores shared with the
+//    fused kernel (pt_phys.cuh, pt_phys_grad.cuh);
 //  * both loops over a sample's rounds are warp-uniform: the forward rounds
 //    end when no lane of the warp is alive, the sweep runs the warp's longest
 //    lane's rounds, a lane taking its own rounds from its last down. Every
@@ -56,14 +57,15 @@
 //    group_sum), and the group's lowest lane adds the sums into its warp's
 //    own table in shared memory with plain adds (WarpTables): no atomics. A
 //    hit's material row and its emission are one add of 8 values;
-//  * a block's eight tables are summed in a fixed order into its column of a
+//  * a block's tables (one a warp) are summed in a fixed order into its column of a
 //    partial-sums buffer, and a second kernel sums the blocks in a fixed
 //    order (render_phys_bwd_sum_kernel). The wrapper allocates the buffer;
 //    the second pass writes `out` and `geo`. Every addition's order is fixed,
 //    so two launches agree bit for bit;
 //  * built for three blocks a multiprocessor (__launch_bounds__(256, 3): 80
 //    registers and 160 bytes of spill), which ran 1-3% faster than four
-//    blocks at 64 registers (PERF.md);
+//    blocks at 64 registers (PERF.md); at another tile for as many threads
+//    (768; pt_sched.cuh min_blocks), so no tile of 512 threads;
 //  * the NaN guard of the TPU kernel's sweep (stores of rounds that never
 //    ran) has no counterpart: a thread sweeps only the rounds it ran.
 //
@@ -84,8 +86,6 @@ namespace {
 
 using namespace ptc;
 
-constexpr int kBlockWarps = kBlockThreads / 32;
-
 // The add sites, as the counting instantiation counts them (the kernel adds
 // a hit's row and its emission, kSiteMat and kSiteMatLe, in one add).
 enum Site : int { kSiteMat = 0, kSiteMatLe, kSiteEmitter, kSiteGeo, kSiteSky, kNumSites };
@@ -99,8 +99,6 @@ enum Counter : int {
   kCntSite0,  // then, a site after another: lanes, groups, depth, visits
   kNumCounters = kCntSite0 + 4 * kNumSites,
 };
-
-__device__ __forceinline__ int lane_id() { return threadIdx.x; }  // blockDim.x == 32
 
 // Sum v over the lanes of `mask` (each must call it) that share `peers`: the
 // group's lowest lane ends with the group's sums, added in a fixed pairwise
@@ -125,19 +123,20 @@ __device__ __forceinline__ void group_sum(unsigned mask, unsigned peers, float (
   }
 }
 
-// The kernel's reduction. add() is called by every lane of `lanes` (the
-// warp's lanes inside the image) at every site; `on`: this lane adds; `idx`:
+// The kernel's reduction in a block of tile Tl. add() is called by every
+// lane of `lanes` (the warp's lanes inside the image) at every site; `on`: this lane adds; `idx`:
 // the table entry of its first value (a site adds at a fixed column of a
 // row, so lanes on one row share idx); v: the N values, for idx, idx + 1, ...
 // The lanes that share idx sum first (group_sum) and the lowest adds the
 // sums into the warp's own table: a table's leaders write distinct rows at a
 // site, and __syncwarp orders one site's writes before the next's, so plain
 // adds suffice.
+template <class Tl>
 struct WarpTables {
-  static constexpr int kCopies = kBlockWarps;  // tables a block
-  float* tab;                                  // this warp's
+  static constexpr int kCopies = Tl::kWarps;  // tables a block
+  float* tab;                                 // this warp's
   __device__ __forceinline__ WarpTables(float* tabs, int n_acc)
-      : tab(tabs + threadIdx.y * n_acc) {}
+      : tab(tabs + Tl::warp() * n_acc) {}
   template <int N>
   __device__ __forceinline__ void add(unsigned lanes, bool on, int idx, float (&v)[N]) {
     const unsigned mask = __ballot_sync(lanes, on);
@@ -172,19 +171,25 @@ struct SinkReduce {
   __device__ __forceinline__ void flush() { atomicAdd(tab, sum); }
 };
 
-// An instantiation of the two-pass kernel: its records (pt_phys_grad.cuh)
-// and its reduction.
-template <class Records_, class Reduce_>
+// The blocks of DefaultTile a multiprocessor ptxas budgets registers for, in
+// every instantiation.
+constexpr int kBwdMinBlocks = 3;
+
+// An instantiation of the two-pass kernel: its records (pt_phys_grad.cuh),
+// its reduction and its launch shape (pt_sched.cuh Tile).
+template <class Records_, class Reduce_, class Shape_ = DefaultTile>
 struct BwdPolicy {
   using Records = Records_;
   using Red = Reduce_;
+  using Shape = Shape_;
+  static constexpr int kMinBlocks = min_blocks<Shape_, kBwdMinBlocks>();
 };
 
-// The blocks a multiprocessor ptxas budgets registers for, in every
-// instantiation.
-constexpr int kBwdMinBlocks = 3;
-
-using KernelPolicy = BwdPolicy<LocalStores<kMaxRounds>, WarpTables>;
+// The timed kernel at launch shape Tl (the sweep library's instantiations),
+// and the timed kernel.
+template <class Tl>
+using KernelPolicyAt = BwdPolicy<LocalStores<kMaxRounds>, WarpTables<Tl>, Tl>;
+using KernelPolicy = KernelPolicyAt<DefaultTile>;
 
 // The measurement instantiations (ops/render_physical_grad.py BWD_VARIANTS),
 // each one policy away from the kernel: the adds into one register; the
@@ -394,7 +399,7 @@ __device__ __forceinline__ void backward_pixel(
 }
 
 template <bool kCount, bool kTriNee, class Pol>
-__global__ void __launch_bounds__(256, kBwdMinBlocks)
+__global__ void __launch_bounds__(Pol::Shape::kThreads, Pol::kMinBlocks)
 render_phys_bwd_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                        int n_sph, const float* __restrict__ tri,
                        const int* __restrict__ tri_m, int n_tri,
@@ -411,16 +416,17 @@ render_phys_bwd_kernel(const float* __restrict__ sph, const int* __restrict__ sp
                        uint32_t seed, int sample_offset, int jitter, float inv_spp,
                        int records_offset) {
   using Red = typename Pol::Red;
+  using Tl = typename Pol::Shape;
   extern __shared__ float4 smem4[];
   float* tabs = reinterpret_cast<float*>(smem4);
   __shared__ unsigned long long cnt[kCount ? kNumCounters : 1];
   const int n_acc = 8 * (n_mat + 1) + 4 * max(n_em_cap, 1);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < Red::kCopies * n_acc; i += kBlockThreads) tabs[i] = 0.0f;
+  const int tid = Tl::tid();
+  for (int i = tid; i < Red::kCopies * n_acc; i += Tl::kThreads) tabs[i] = 0.0f;
   if (kCount && tid < kNumCounters) cnt[tid] = 0;
   __syncthreads();
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  int row, col;  // row: in the block of rows
+  Tl::pixel(row, col);
   const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
@@ -441,7 +447,7 @@ render_phys_bwd_kernel(const float* __restrict__ sph, const int* __restrict__ sp
   // partial sums (entry-major: entry e of block j at e * n_blocks + j).
   const int n_blocks = gridDim.x * gridDim.y;
   const int block = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int e = tid; e < n_acc; e += kBlockThreads) {
+  for (int e = tid; e < n_acc; e += Tl::kThreads) {
     float v = tabs[e];
     for (int c = 1; c < Red::kCopies; ++c) v += tabs[c * n_acc + e];
     partials[static_cast<size_t>(e) * n_blocks + block] = v;
@@ -449,22 +455,25 @@ render_phys_bwd_kernel(const float* __restrict__ sph, const int* __restrict__ sp
   if (kCount && tid < kNumCounters) atomicAdd(counter + tid, cnt[tid]);
 }
 
+// The threads of a block of the second pass.
+constexpr int kSumThreads = 256;
+
 // The second pass: entry blockIdx.x of the tables, the sum over the blocks'
 // partial sums in a fixed order (a thread's strided run ascending, then a
 // tree over the threads), written to its place in `out` or, past n_out, to
-// `geo_out`.
-__global__ void __launch_bounds__(256)
+// `geo_out`. Its blocks are 1-D and no pixel's.
+__global__ void __launch_bounds__(kSumThreads)
 render_phys_bwd_sum_kernel(const float* __restrict__ partials, int n_blocks, int n_out,
                            float* __restrict__ out, float* __restrict__ geo_out) {
-  __shared__ float s[kBlockThreads];
+  __shared__ float s[kSumThreads];
   const int e = blockIdx.x;
   const int tid = threadIdx.x;
   const float* row = partials + static_cast<size_t>(e) * n_blocks;
   float v = 0.0f;
-  for (int j = tid; j < n_blocks; j += kBlockThreads) v += row[j];
+  for (int j = tid; j < n_blocks; j += kSumThreads) v += row[j];
   s[tid] = v;
   __syncthreads();
-  for (int half = kBlockThreads / 2; half > 0; half /= 2) {
+  for (int half = kSumThreads / 2; half > 0; half /= 2) {
     if (tid < half) s[tid] += s[tid + half];
     __syncthreads();
   }
@@ -485,7 +494,7 @@ void smem_layout(int n_mat, int n_em_cap, int max_bounces, size_t& records_offse
                  size_t& bytes) {
   const size_t n_acc = 8 * static_cast<size_t>(n_mat + 1) + 4 * static_cast<size_t>(n_em_cap > 0 ? n_em_cap : 1);
   records_offset = (sizeof(float) * Pol::Red::kCopies * n_acc + 15) / 16 * 16;
-  bytes = records_offset + static_cast<size_t>(max_bounces + 1) * kBlockThreads *
+  bytes = records_offset + static_cast<size_t>(max_bounces + 1) * Pol::Shape::kThreads *
                                Pol::Records::kRoundBytes;
 }
 
@@ -510,9 +519,8 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (rows + block.y - 1) / block.y);
+  using Tl = typename Pol::Shape;
+  const dim3 grid = Tl::grid(rows, width);
   const auto kernel = render_phys_bwd_kernel<kCount, kTriNee, Pol>;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -520,7 +528,7 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const auto st = static_cast<cudaStream_t>(stream);
-  kernel<<<grid, block, smem, st>>>(
+  kernel<<<grid, Tl::block(), smem, st>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list, le_tri,
       tri_area, mat_est, mat_eco, counts, par, g, partials, counter, nee, n_em_cap, height,
       width, row_start, rows, spp, max_bounces, seed, sample_offset, jitter, inv_spp,
@@ -529,7 +537,7 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_out = 8 * (n_mat + 1);
   const int n_acc = n_out + 4 * (n_em_cap > 0 ? n_em_cap : 1);
-  render_phys_bwd_sum_kernel<<<n_acc, kBlockThreads, 0, st>>>(
+  render_phys_bwd_sum_kernel<<<n_acc, kSumThreads, 0, st>>>(
       partials, static_cast<int>(grid.x * grid.y), n_out, out, geo_out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -538,6 +546,7 @@ using LaunchFn = decltype(&launch<false, false, KernelPolicy>);
 
 }  // namespace
 
+#ifndef PT_TILE_POINT
 // C entry, bound with ctypes. Tables, emitter tables, `counts` and `par` as
 // for render_phys; `mat_eco` is (n_mat, 3) float32, the raw emission colours;
 // `g` is (rows, width, 3) float32, the cotangent of the block of `rows` rows
@@ -545,7 +554,7 @@ using LaunchFn = decltype(&launch<false, false, KernelPolicy>);
 // replays; `out` is (n_mat + 1, 8) float32 and `geo_out` (max(n_em_cap, 1),
 // 4) float32, both written whole; `partials` is scratch of (8 * (n_mat + 1)
 // + 4 * max(n_em_cap, 1)) * n_blocks float32, n_blocks = ceil(width / 32) *
-// ceil(rows / 8). `counter` is null, or kNumCounters zeroed int64 that
+// ceil(rows / 8) (the blocks of the launch's tile). `counter` is null, or kNumCounters zeroed int64 that
 // receive the counts (the counting instantiation). Launches the kernel and
 // the second pass on `stream` of device `device` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue if max_bounces is above the
@@ -596,7 +605,10 @@ extern "C" int render_phys_bwd_variant(int variant, const float* sph, const int*
     case kBwdSink:
       go = launch<false, false, BwdPolicy<LocalStores<kMaxRounds>, SinkReduce>>;
       break;
-    case kBwdSharedRecords: go = launch<false, false, BwdPolicy<SharedStores, WarpTables>>; break;
+    case kBwdSharedRecords:
+      go = launch<false, false,
+                  BwdPolicy<SharedStores<DefaultTile>, WarpTables<DefaultTile>>>;
+      break;
   }
   if (!go) return static_cast<int>(cudaErrorInvalidValue);
   return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
@@ -604,3 +616,24 @@ extern "C" int render_phys_bwd_variant(int variant, const float* sph, const int*
             nee, n_em_cap, height, width, row_start, rows, spp, max_bounces, seed,
             sample_offset, jitter, device, stream);
 }
+
+#else
+// The sweep library's entry at point PT_TILE_POINT (pt_sched.cuh TileAt; no
+// point of 512 threads, see above): render_phys_bwd's arguments at that
+// launch shape, without the counter; `partials` for its blocks.
+extern "C" int PT_TILED(render_phys_bwd)(
+    const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
+    int n_tri, const float* mat, int n_mat, const int* em_list, const float* le_sph,
+    const int* tri_list, const float* le_tri, const float* tri_area, const float* mat_est,
+    const float* mat_eco, const int* counts, const float* par, const float* g, float* out,
+    float* geo_out, float* partials, int nee, int tri_nee, int n_em_cap, int height, int width,
+    int row_start, int rows, int spp, int max_bounces, unsigned int seed, int sample_offset,
+    int jitter, int device, void* stream) {
+  using Pol = KernelPolicyAt<TileAt<PT_TILE_POINT>>;
+  const LaunchFn go = tri_nee ? launch<false, true, Pol> : launch<false, false, Pol>;
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+            le_tri, tri_area, mat_est, mat_eco, counts, par, g, out, geo_out, partials, nullptr,
+            nee, n_em_cap, height, width, row_start, rows, spp, max_bounces, seed,
+            sample_offset, jitter, device, stream);
+}
+#endif

@@ -54,7 +54,8 @@
 // H * W * 4 bytes).
 //
 // What the design does about that, after render_fused.cu:
-//  * one thread per pixel, 32 x 8 blocks, the ragged edge masked; planes in
+//  * one thread per pixel, blocks of 8 x 32 pixels (the launch shape a
+//    policy, pt_sched.cuh Tile), the ragged edge masked; planes in
 //    device memory, plane-major, zero-filled by the wrapper; no atomics; the
 //    sky planes in registers;
 //  * per bounce a thread stores the throughput before it, the material, one
@@ -77,7 +78,8 @@
 //  * tri_nee, rough_grad and counting are template parameters; next-event
 //    estimation and the two caps are run-time values;
 //  * the kernel is built for four blocks of 256 threads a multiprocessor
-//    (__launch_bounds__(256, 4): 64 registers a thread). Left to itself ptxas
+//    (__launch_bounds__(256, 4): 64 registers a thread; at another tile for
+//    as many threads, pt_sched.cuh min_blocks). Left to itself ptxas
 //    takes 105 to 120 registers and no spills, which fits two blocks; at 64
 //    it spills 164 bytes and the kernel is 19% faster without geometry
 //    planes and 13% faster with them (PERF.md): what holds the kernel is
@@ -135,6 +137,7 @@ constexpr int kMaxLocalSlots = 48;
 
 // A thread's slots in a thread-private array (kSlotsLocal).
 struct LocalField {
+  static constexpr int kStride = 1;
   float* p;
   __device__ __forceinline__ float& operator[](int f) const { return p[f]; }
 };
@@ -169,7 +172,7 @@ template <class Field>
 struct ChipPlanes : ChipSplit {
   Field slot;
   // The distance from one slot to the next.
-  static constexpr size_t kStride = std::is_same_v<Field, LocalField> ? 1 : kBlockThreads;
+  static constexpr size_t kStride = Field::kStride;
 };
 
 // The first `e` distinct emitter materials in [0, n_mat), in the order of the
@@ -181,7 +184,7 @@ template <bool kTriNee>
 __device__ __forceinline__ int find_emitter_materials(const Tables& sc, const int* em_list,
                                                       const int* tri_list, const int* counts,
                                                       int e, int* out) {
-  const int lane = threadIdx.x;  // blockDim.x == 32
+  const int lane = lane_id();
   const int n_s = counts[0];
   const int total = n_s + (kTriNee ? counts[1] : 0);
   int n = 0;
@@ -237,14 +240,17 @@ __device__ __forceinline__ void add_emission_slots(Adds& adds, const CP& cp, int
 
 // The timed kernel, and its measurement instantiations (pt_fused.cuh), each
 // one policy away from it.
-using KernelPolicy = Policy<LocalStores<kMaxRounds>, PlaneAdds, 0, 4, LaneLoops, kSlotsDevice>;
+template <class Tl>
+using KernelPolicyAt =
+    Policy<LocalStores<kMaxRounds>, PlaneAdds, 0, 4, LaneLoops, kSlotsDevice, Tl>;
+using KernelPolicy = KernelPolicyAt<DefaultTile>;
 template <class Adds, class Loops = KernelPolicy::Loops, int kMinBlocks = KernelPolicy::kMinBlocks,
           int kSlots = KernelPolicy::kPlaneSlots>
 using Like = Policy<LocalStores<kMaxRounds>, Adds, 0, kMinBlocks, Loops, kSlots>;
 using SinkPolicy = Like<PlaneSink>;
 using RegistersPolicy = Policy<LocalStores<kRegisterRounds>, PlaneAdds, kRegisterRounds, 1,
                                LaneLoops, KernelPolicy::kPlaneSlots>;
-using MovedPolicy = Policy<SharedStores, PlaneAdds, 0, KernelPolicy::kMinBlocks,
+using MovedPolicy = Policy<SharedStores<DefaultTile>, PlaneAdds, 0, KernelPolicy::kMinBlocks,
                            KernelPolicy::Loops, KernelPolicy::kPlaneSlots>;
 using WarpLoopsPolicy = Like<PlaneAdds, WarpLoops>;
 using ThreeBlocksPolicy = Like<PlaneAdds, KernelPolicy::Loops, 3>;
@@ -286,7 +292,8 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
   constexpr bool kLocalSlots = Pol::kPlaneSlots == kSlotsLocal;
   constexpr bool kEmissionSlots = Pol::kPlaneSlots == kSlotsShared;
   float local_slots[kLocalSlots ? kMaxLocalSlots : 1];
-  ChipPlanes<std::conditional_t<kLocalSlots, LocalField, SmemField<float>>> cp;
+  using Tl = typename Pol::Shape;
+  ChipPlanes<std::conditional_t<kLocalSlots, LocalField, SmemField<float, Tl>>> cp;
   static_cast<ChipSplit&>(cp) = split;
   cp.slot = {nullptr};
   if constexpr (kLocalSlots) {
@@ -294,8 +301,8 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
   } else if constexpr (Pol::kChipPlanes) {
     unsigned char* slots = smem;
     if constexpr (Pol::Records::kShared)
-      slots += static_cast<size_t>(Pol::Records::kRoundBytes) * (max_bounces + 1) * kBlockThreads;
-    cp.slot = smem_field<float>(slots, 0);
+      slots += static_cast<size_t>(Pol::Records::kRoundBytes) * (max_bounces + 1) * Tl::kThreads;
+    cp.slot = smem_field<float, Tl>(slots, 0);
   }
   if constexpr (Pol::kChipPlanes)
     for (int f = 0; f < cp.used(); ++f) cp.slot[f] = 0.0f;
@@ -473,7 +480,7 @@ __device__ __forceinline__ int render_pixel(const Tables& sc, const Emitters& em
 }
 
 template <bool kCount, bool kTriNee, bool kRough, class Pol>
-__global__ void __launch_bounds__(256, Pol::kMinBlocks)
+__global__ void __launch_bounds__(Pol::Shape::kThreads, Pol::kMinBlocks)
 render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m,
                          int n_sph, const float* __restrict__ tri,
                          const int* __restrict__ tri_m, int n_tri,
@@ -495,8 +502,9 @@ render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ 
   // an instantiation with its planes in device memory then does not depend
   // on it, down to where its loops fall in the instruction cache (a shift of
   // two instructions there cost 0.2-0.7%; PERF.md).
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the block of rows
+  using Tl = typename Pol::Shape;
+  int row, col;  // row: in the block of rows
+  Tl::pixel(row, col);
   const bool in_range = col < width && row < rows;
   // The warp's lanes inside the image, taken by all 32 lanes before the
   // range test.
@@ -511,11 +519,11 @@ render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ 
     __shared__ int chip_n_emat;
     cp = {chip_k, chip_kt, 0, chip_emat};
     if (Pol::kPlaneSlots == kSlotsShared && chip_e > 0) {
-      if (threadIdx.y == 0) {
+      if (Tl::warp() == 0) {
         const Tables sc = {sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat};
         const int n = find_emitter_materials<kTriNee>(sc, em_list, tri_list, counts, chip_e,
                                                       chip_emat);
-        if (threadIdx.x == 0) chip_n_emat = n;
+        if (Tl::tid() == 0) chip_n_emat = n;
       }
       __syncthreads();
       cp.n_emat = chip_n_emat;
@@ -538,14 +546,14 @@ render_phys_fused_kernel(const float* __restrict__ sph, const int* __restrict__ 
   }
   if (kCount) {
     // The wrapper's order: render_physical_grad.COUNTERS.
-    block_add(rounds, counter);
-    block_add(n_valid, counter + 1);
-    block_add(cnt.mat, counter + 2);
-    block_add(cnt.hit_em, counter + 3);
-    block_add(cnt.emitter_em, counter + 4);
-    block_add(cnt.sph, counter + 5);
-    block_add(cnt.tri, counter + 6);
-    block_add(warp_rounds, counter + 7);
+    block_add<Tl>(rounds, counter);
+    block_add<Tl>(n_valid, counter + 1);
+    block_add<Tl>(cnt.mat, counter + 2);
+    block_add<Tl>(cnt.hit_em, counter + 3);
+    block_add<Tl>(cnt.emitter_em, counter + 4);
+    block_add<Tl>(cnt.sph, counter + 5);
+    block_add<Tl>(cnt.tri, counter + 6);
+    block_add<Tl>(warp_rounds, counter + 7);
   }
 }
 
@@ -575,21 +583,19 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float inv_spp = static_cast<float>(1.0 / static_cast<double>(spp));
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (rows + block.y - 1) / block.y);
+  using Tl = typename Pol::Shape;
   const auto kernel = render_phys_fused_kernel<kCount, kTriNee, kRough, Pol>;
   const size_t records = Pol::Records::kShared
-      ? static_cast<size_t>(max_bounces + 1) * kBlockThreads * Pol::Records::kRoundBytes : 0;
+      ? static_cast<size_t>(max_bounces + 1) * Tl::kThreads * Pol::Records::kRoundBytes : 0;
   const size_t smem = records + (Pol::kPlaneSlots == kSlotsShared
-                                     ? sizeof(float) * kBlockThreads * static_cast<size_t>(slots)
+                                     ? sizeof(float) * Tl::kThreads * static_cast<size_t>(slots)
                                      : 0);
   if (smem > 0) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<Tl::grid(rows, width), Tl::block(), smem, static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
       le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, jtri, counter, nee,
       n_em_cap, tri_em_cap, height, width, row_start, rows, spp, max_bounces, seed,
@@ -599,14 +605,15 @@ int launch(const float* sph, const int* sph_m, int n_sph, const float* tri, cons
 
 using LaunchFn = decltype(&launch<false, false, false, KernelPolicy>);
 
-template <bool kCount, bool kTriNee>
+template <bool kCount, bool kTriNee, class Pol = KernelPolicy>
 LaunchFn pick_rough(int rough_grad) {
-  return rough_grad ? launch<kCount, kTriNee, true, KernelPolicy>
-                    : launch<kCount, kTriNee, false, KernelPolicy>;
+  return rough_grad ? launch<kCount, kTriNee, true, Pol>
+                    : launch<kCount, kTriNee, false, Pol>;
 }
 
 }  // namespace
 
+#ifndef PT_TILE_POINT
 // The most bounces the physical gradient kernels take (render_phys_fused and
 // render_phys_bwd); the wrappers ask and raise above it.
 extern "C" int render_phys_grad_max_bounces() { return kMaxRounds - 1; }
@@ -691,3 +698,27 @@ extern "C" int render_phys_fused_variant(int variant, const float* sph, const in
             n_em_cap, tri_em_cap, chip_k, chip_kt, chip_e, height, width, row_start, rows, spp,
             max_bounces, seed, sample_offset, jitter, device, stream);
 }
+
+#else
+// The sweep library's entry at point PT_TILE_POINT (pt_sched.cuh TileAt):
+// render_phys_fused's arguments at that launch shape.
+extern "C" int PT_TILED(render_phys_fused)(
+    const float* sph, const int* sph_m, int n_sph, const float* tri, const int* tri_m,
+    int n_tri, const float* mat, int n_mat, const int* em_list, const float* le_sph,
+    const int* tri_list, const float* le_tri, const float* tri_area, const float* mat_est,
+    const int* counts, const float* par, float* img, float* jac, float* jgeo, float* jtri,
+    unsigned long long* counter, int nee, int tri_nee, int rough_grad, int n_em_cap,
+    int tri_em_cap, int height, int width, int row_start, int rows, int spp, int max_bounces,
+    unsigned int seed, int sample_offset, int jitter, int device, void* stream) {
+  using Pol = KernelPolicyAt<TileAt<PT_TILE_POINT>>;
+  const LaunchFn go =
+      counter ? (tri_nee ? pick_rough<true, true, Pol>(rough_grad)
+                         : pick_rough<true, false, Pol>(rough_grad))
+              : (tri_nee ? pick_rough<false, true, Pol>(rough_grad)
+                         : pick_rough<false, false, Pol>(rough_grad));
+  return go(sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, em_list, le_sph, tri_list,
+            le_tri, tri_area, mat_est, counts, par, img, jac, jgeo, jtri, counter, nee,
+            n_em_cap, tri_em_cap, 0, 0, 0, height, width, row_start, rows, spp, max_bounces,
+            seed, sample_offset, jitter, device, stream);
+}
+#endif

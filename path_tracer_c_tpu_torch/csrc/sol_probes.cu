@@ -5,8 +5,8 @@
 // Replace the two Pallas TPU kernels of scripts/sol_decompose.py:
 //  * `_null_kernel` (B7): the forward kernel's grid and operand list, and
 //    nothing else: out[pixel] = (sph[0], 0, 0). Here: B1's exact launch
-//    (render_fwd.cu: 32 x 8 blocks, one thread a pixel, the ragged edge
-//    masked), its nine scene and camera pointers, its output layout
+//    (render_fwd.cu: its default tile, pt_sched.cuh FwdTile, one thread
+//    a pixel, the ragged edge masked), its nine scene and camera pointers, its output layout
 //    (H, W, 3). Its time over the blocks prices a block's start and end,
 //    the operand plumbing and the image's one store.
 //  * `kern` of `_mk_micro` (B8): per pixel, x = float(seed) * 1e-6, then
@@ -18,7 +18,7 @@
 //    before the loop. The difference of the two times prices a table load.
 //
 // What bounds them on an H100: B7 the 12 bytes a pixel it stores (12.6 MB at
-// 1024^2, 3.8 us at 3.35 TB/s) and, in practice, the start of 4096 blocks;
+// 1024^2, 3.8 us at 3.35 TB/s) and, in practice, the start of 8192 blocks;
 // B8 its 9600 float32 operations a pixel (0.150 ms at 1024^2 at the data
 // sheet's 67 TFLOP/s), and in the reload variant the loads.
 //
@@ -33,17 +33,20 @@
 // kernel keeps its 5 loads inside the loop, the hoisted one has its 40
 // before it (chip_smoke.py checks).
 
-#include <cuda_runtime.h>
+#include "pt_sched.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+// B1's launch shape, which both probes copy.
+using ProbeTile = ptc::FwdTile;
+
+__global__ void __launch_bounds__(ProbeTile::kThreads)
 sol_null_kernel(const float* __restrict__ sph, const int* __restrict__ sph_m, int n_sph,
                 const float* __restrict__ tri, const int* __restrict__ tri_m, int n_tri,
                 const float* __restrict__ mat, int n_mat, const float* __restrict__ par,
                 float* __restrict__ out, int height, int width) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  int row, col;
+  ProbeTile::pixel(row, col);
   if (col < width && row < height) {
     float* o = out + 3 * (static_cast<size_t>(row) * width + col);
     o[0] = sph[0];
@@ -61,11 +64,11 @@ __device__ __forceinline__ float micro_step(float x, float a, float b, float c, 
 // kNobj == 0: the reload variant (runtime object count, loads in the loop);
 // kNobj > 0: the hoisted variant with that many objects.
 template <int kNobj>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(ProbeTile::kThreads)
 sol_micro_kernel(const float* __restrict__ tab, const int* __restrict__ seed,
                  float* __restrict__ out, int height, int width, int nobj, int reps) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  int row, col;
+  ProbeTile::pixel(row, col);
   if (col >= width || row >= height) return;
   float x = __fmul_rn(__int2float_rn(seed[0]), 1e-6f);
   if constexpr (kNobj == 0) {
@@ -94,10 +97,6 @@ sol_micro_kernel(const float* __restrict__ tab, const int* __restrict__ seed,
 
 constexpr int kHoistedObjects = 8;
 
-dim3 forward_grid(int height, int width) {
-  return dim3((width + 31) / 32, (height + 7) / 8);
-}
-
 }  // namespace
 
 // C entries, bound with ctypes; both launch on `stream` of device `device`
@@ -111,7 +110,7 @@ extern "C" int sol_null(const float* sph, const int* sph_m, int n_sph, const flo
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sol_null_kernel<<<forward_grid(height, width), dim3(32, 8), 0,
+  sol_null_kernel<<<ProbeTile::grid(height, width), ProbeTile::block(), 0,
                     static_cast<cudaStream_t>(stream)>>>(
       sph, sph_m, n_sph, tri, tri_m, n_tri, mat, n_mat, par, out, height, width);
   return static_cast<int>(cudaGetLastError());
@@ -125,7 +124,7 @@ extern "C" int sol_micro(const float* tab, const int* seed, float* out, int heig
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (hoisted && nobj != kHoistedObjects) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = forward_grid(height, width), block(32, 8);
+  const dim3 grid = ProbeTile::grid(height, width), block = ProbeTile::block();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hoisted) {
     sol_micro_kernel<kHoistedObjects><<<grid, block, 0, s>>>(tab, seed, out, height, width,

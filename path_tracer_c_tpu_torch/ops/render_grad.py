@@ -45,7 +45,7 @@ __all__ = [
     "render_fused", "render_fused_reference", "render_fused_round_counts",
     "render_fused_round_counts_reference", "render_fused_variant", "contract_jacobian",
     "render_kernel_vjp", "replace_leaves", "zeros_like_scene", "MAX_BOUNCES", "VARIANTS",
-    "SOURCE", "REPLACES",
+    "SOURCE", "REPLACES", "FUSED_TILE", "BWD_TILE", "fused_tile",
 ]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_fused.cu"
@@ -65,6 +65,24 @@ _RATIO_FLOOR = _f32(1e-6)
 # in registers (max_bounces <= 3); its records in local memory.
 VARIANTS = {"sink": 0, "registers": 1, "local_records": 2}
 REGISTER_ROUNDS = 4  # the records of "registers" (csrc/pt_fused.cuh kRegisterRounds)
+
+# B2's tile (the JAX package's name; ``render_kernel.KIND_DEFAULTS``): 8 x 32
+# pixels, warps of one row of 32. No point beat it at every shape measured on
+# an H100 (PERF.md, tile sweep).
+FUSED_TILE = _rk.KIND_DEFAULTS["fused"]
+# The tile of ``render_kernel_vjp``'s backward: in the port it is the
+# contraction of B2's Jacobian (the JAX package's reference tier has a
+# two-pass backward kernel of its own), so B2's.
+BWD_TILE = FUSED_TILE
+
+
+def fused_tile(scene: Scene, rows: int, width: int, max_bounces: int, tile=FUSED_TILE):
+    """The point (``render_kernel.Tile``) ``render_fused`` launches at for
+    this workload: ``tile`` shrunk where its records would pass what a block
+    may hold (``render_kernel.fit_tile``), as the JAX package's
+    ``fused_tile``; the one sizing call of the wrapper and its counting
+    twin."""
+    return _rk.fit_tile("fused", scene, rows, width, max_bounces, tile)
 
 # The scene leaves that carry a gradient, as (table or None, field).
 _GRAD_LEAVES = (
@@ -87,6 +105,7 @@ def render_fused(
     count_rounds: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ):
     """``(image (rows, W, 3), jac (9 * M + 3, rows, W))`` float32, on the
     scene's device, of the block of ``rows`` rows (default: all) from
@@ -103,12 +122,16 @@ def render_fused(
     ``jac`` takes ``(9 * M + 3) * H * W * 4`` bytes (579 MB at 1024 x 1024
     with 15 materials). The wrapper allocates it zero-filled; the kernel
     adds into it.
+
+    ``tile``: the launch shape (``render_kernel.TILES``; default
+    ``FUSED_TILE``) as ``fused_tile`` fits it; no output depends on it.
     """
     rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
                              sample_offset, row_start, rows)
     if max_bounces > MAX_BOUNCES:
         raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
                          f"cap of {MAX_BOUNCES}")
+    t = fused_tile(scene, rows, width, max_bounces, FUSED_TILE if tile is None else tile)
     device = scene.device
     if device.type == "cpu":
         return render_fused_reference(
@@ -118,7 +141,7 @@ def render_fused(
         )
     img, jac, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
                                 sample_offset, jitter, count_rounds, row_start=row_start,
-                                rows=rows)
+                                rows=rows, tile=t)
     return (img, jac, int(counter[0])) if count_rounds else (img, jac)
 
 
@@ -126,9 +149,10 @@ render_fused.launches = 0
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            count, variant=None, row_start=0, rows=None):
+            count, variant=None, row_start=0, rows=None, tile=None):
     """Launch B2 on the scene's CUDA device over the block of ``rows`` rows
-    (None: all) from ``row_start``: the timed kernel, its counting
+    (None: all) from ``row_start``: the timed kernel at point ``tile``
+    (None: the default), its counting
     instantiation (``count``: the counters, thread-rounds and warp
     lane-rounds, come back beside the planes), or a measurement variant."""
     device = scene.device
@@ -153,8 +177,9 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
                         row_start, rows)
     if variant is None:
-        err = lib.render_fused(*args, _rk._ptr(counter), *run)
-        name = "render_fused"
+        t = _rk.tile_point(tile, "fused")
+        err = _rk._entry("render_fused", t)(*args, _rk._ptr(counter), *run)
+        name = f"render_fused at {t.name}"
     else:
         err = lib.render_fused_variant(VARIANTS[variant], *args, *run)
         name = f"render_fused variant {variant}"
@@ -179,6 +204,7 @@ def render_fused_round_counts(
     jitter: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ) -> dict:
     """The rounds B2 runs for one render (of a row block, as
     ``render_fused`` takes it: the blocks' counts sum to the whole's): ``thread_rounds`` (as
@@ -189,33 +215,39 @@ def render_fused_round_counts(
     counts in ``render_fused.launches``), CPU tensors the plain twin, which
     also gives ``warp_lane_rounds_regen``, the rounds path regeneration
     would run (each warp as many as its busiest lane's total over all
-    samples)."""
+    samples). A warp is the footprint of the launch's point (``fused_tile``
+    of ``tile``)."""
     rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
                              sample_offset, row_start, rows)
     if max_bounces > MAX_BOUNCES:
         raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
                          f"cap of {MAX_BOUNCES}")
+    t = fused_tile(scene, rows, width, max_bounces, FUSED_TILE if tile is None else tile)
     if scene.device.type == "cpu":
         return render_fused_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            row_start, rows)
+            row_start, rows, tile=t)
     _, _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
-                            sample_offset, jitter, True, row_start=row_start, rows=rows)
+                            sample_offset, jitter, True, row_start=row_start, rows=rows,
+                            tile=t)
     thread_rounds, warp_rounds = counter.tolist()
     return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
 
 
 def render_fused_round_counts_reference(scene, camera, height, width, spp, max_bounces, seed,
                                         sample_offset=0, jitter=False, row_start=0,
-                                        rows=None) -> dict:
+                                        rows=None, tile=None) -> dict:
     """Plain twin of ``render_fused_round_counts``, on the scene's device:
     the twin's rounds of every (sample, pixel), grouped by warp under both
-    schedules (``render_kernel.round_groupings``)."""
+    schedules (``render_kernel.round_groupings``), a warp the footprint of
+    the point ``fused_tile`` gives ``tile``."""
+    n_rows = height if rows is None else rows
+    t = fused_tile(scene, n_rows, width, max_bounces, FUSED_TILE if tile is None else tile)
     per_sample = []
     render_fused_reference(scene, camera, height, width, spp, max_bounces, seed,
                            sample_offset=sample_offset, jitter=jitter,
                            on_sample=per_sample.append, row_start=row_start, rows=rows)
-    return _rk.round_groupings(torch.stack(per_sample))
+    return _rk.round_groupings(torch.stack(per_sample), t.footprint)
 
 
 def render_fused_variant(
@@ -442,11 +474,12 @@ class _RenderFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, albedo, emission_color, emission_strength, transparency,
                 sky_color, scene, camera, height, width, spp, max_bounces, seed,
-                sample_offset, jitter, row_start, rows):
+                sample_offset, jitter, row_start, rows, tile):
         leaves = (albedo, emission_color, emission_strength, transparency, sky_color)
         img, jac = render_fused(
             _with_leaves(scene, leaves), camera, height, width, spp, max_bounces,
-            seed, sample_offset=sample_offset, jitter=jitter, row_start=row_start, rows=rows)
+            seed, sample_offset=sample_offset, jitter=jitter, row_start=row_start, rows=rows,
+            tile=tile)
         ctx.save_for_backward(jac, albedo, emission_color, emission_strength)
         ctx.spp = spp
         return img
@@ -456,7 +489,7 @@ class _RenderFused(torch.autograd.Function):
     def backward(ctx, g):
         jac, albedo, emission_color, emission_strength = ctx.saved_tensors
         return (*_contract(jac, g, ctx.spp, albedo, emission_color, emission_strength),
-                *(None,) * 11)
+                *(None,) * 12)
 
 
 def render_kernel_vjp(
@@ -471,6 +504,7 @@ def render_kernel_vjp(
     jitter: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ) -> torch.Tensor:
     """Differentiable fast render: the image (rows, W, 3) of
     ``render_kernel`` (a row block where ``row_start`` and ``rows`` say so),
@@ -487,13 +521,16 @@ def render_kernel_vjp(
     Memory: the Jacobian, ``(9 * M + 3) * H * W * 4`` bytes (579 MB at
     1024 x 1024 with 15 materials), is held from forward to backward.
 
-    With no leaf requiring a gradient this is ``render_kernel``.
+    With no leaf requiring a gradient this is ``render_kernel``. ``tile``:
+    the launch shape of the kernel it runs (``render_kernel.TILES``; by
+    default ``BWD_TILE``, or ``render_kernel``'s own without a gradient).
     """
     leaves = _grad_leaves(scene)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)):
         return _rk.render_kernel(
             scene, camera, height, width, spp, max_bounces, seed,
-            sample_offset=sample_offset, jitter=jitter, row_start=row_start, rows=rows)
+            sample_offset=sample_offset, jitter=jitter, row_start=row_start, rows=rows,
+            tile=tile)
     return _RenderFused.apply(
         *leaves, scene, camera, height, width, spp, max_bounces, seed,
-        sample_offset, jitter, row_start, rows)
+        sample_offset, jitter, row_start, rows, BWD_TILE if tile is None else tile)

@@ -17,6 +17,7 @@ The twin works on (H*W,) planes, one per ray component.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,9 +28,11 @@ from ..scene.scene import Scene
 
 __all__ = ["render_kernel", "render_kernel_reference", "render_kernel_round_counts",
            "render_kernel_round_counts_reference", "render_kernel_variant", "packed_launcher",
-           "reference_pixel_rounds", "warp_lane_rounds", "round_groupings", "table_bytes",
-           "tables_in_shared", "policy", "VARIANTS", "KERNEL_POLICY", "SHARED_TABLE_BUDGET",
-           "SOURCE", "REPLACES"]
+           "reference_pixel_rounds", "warp_lane_rounds", "round_groupings", "warp_map",
+           "table_bytes", "tables_in_shared", "policy", "VARIANTS", "KERNEL_POLICY",
+           "SHARED_TABLE_BUDGET", "SOURCE", "REPLACES", "Tile", "TILES", "DEFAULT_TILE",
+           "KIND_TILES", "KIND_DEFAULTS", "SMEM_OPTIN", "tile_point", "fit_tile", "block_smem",
+           "tile_pixels"]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_fwd.cu"
 REPLACES = "path_tracer_c_tpu/ops/pallas_kernels.py:453"
@@ -57,6 +60,176 @@ _POLICIES = {None: KERNEL_POLICY,
              "global_tables": {**KERNEL_POLICY, "tables": "global"}}
 # The most bytes of tables a block stages (csrc/pt_sched.cuh kSharedTableBudget).
 SHARED_TABLE_BUDGET = 48 * 1024
+
+
+# -- launch shapes ---------------------------------------------------------
+
+
+class Tile(NamedTuple):
+    """A launch shape (``csrc/pt_sched.cuh`` ``Tile``): a block renders
+    ``th x tw`` pixels, one thread a pixel, as the JAX package's ``tile`` is
+    the pixels one program renders; its warps are ``wh x ww`` footprints
+    (``wh * ww = 32``) laid over the block row-major."""
+
+    th: int
+    tw: int
+    wh: int
+    ww: int
+
+    @property
+    def name(self) -> str:
+        return f"{self.th}x{self.tw}/{self.wh}x{self.ww}"
+
+    @property
+    def threads(self) -> int:
+        return self.th * self.tw
+
+    @property
+    def footprint(self) -> tuple:
+        return (self.wh, self.ww)
+
+
+# The points the render kernels are built at, in the order of
+# csrc/pt_sched.cuh ``TileAt`` (a point's position is its number there): the
+# timed library holds each kernel at its default point (``KIND_DEFAULTS``),
+# the sweep library at the others.
+TILES = {t.name: t for t in (Tile(8, 32, 1, 32), Tile(4, 32, 1, 32), Tile(16, 32, 1, 32),
+                             Tile(16, 16, 2, 16), Tile(16, 16, 4, 8), Tile(8, 32, 4, 8),
+                             Tile(8, 16, 4, 8))}
+# B1's tile (the JAX package's name): 8 x 16 pixels, warps of 4 x 8
+# (csrc/pt_sched.cuh ``FwdTile``). It beat 8 x 32 with warps of one row of 32
+# by 2-3% alone at both shapes B1 was compared at on an H100, glossy
+# 1024^2/64 spp/8 bounces and 1024 spheres at 512^2/16/4, and as called
+# (PERF.md, tile sweep): a 4 x 8 warp straddles fewer silhouettes.
+DEFAULT_TILE = (8, 16)
+# The render kernels by the sweep's names, and their sources' stems.
+KINDS = {"fwd": "render_fwd", "fused": "render_fused", "phys": "render_phys",
+         "phys_fused": "render_phys_fused", "phys_bwd": "render_phys_bwd"}
+# Each kernel's default point, the one the timed library holds. B2-B5 keep 8
+# x 32 with warps of one row of 32, which no point beat at every shape (the
+# JAX package's ``render_physical_pallas`` takes ``DEFAULT_TILE``; B3 does
+# not follow B1: at 1024 spheres its 41 KB tables cost 128-thread tiles
+# 3-7%). ``ops/render_grad.py`` and ``ops/render_physical_grad.py`` name
+# theirs as the JAX package does.
+KIND_DEFAULTS = {"fwd": DEFAULT_TILE, "fused": (8, 32), "phys": (8, 32),
+                 "phys_fused": (8, 32), "phys_bwd": (8, 32)}
+# The points of each kernel. Every point keeps a multiprocessor's threads
+# (csrc/pt_sched.cuh ``min_blocks``): 1024 for B1-B4, 768 for B5, which no
+# block of 512 threads divides.
+KIND_TILES = {kind: tuple(n for n, t in TILES.items()
+                          if (768 if kind == "phys_bwd" else 1024) % t.threads == 0)
+              for kind in KINDS}
+# The most shared memory a block may opt into on an H100 (227 KB).
+SMEM_OPTIN = 232448
+# Bytes of one round of B2's per-bounce records (csrc/render_fused.cu
+# SharedRecords).
+_FUSED_ROUND_BYTES = 15
+
+
+def tile_point(tile=None, kind: str | None = None) -> Tile:
+    """The point of ``TILES`` that ``tile`` names: ``None`` (``kind``'s
+    default, ``KIND_DEFAULTS``; without ``kind``, B1's ``DEFAULT_TILE``), a
+    ``Tile``, a name ``"THxTW/WHxWW"``, or ``"THxTW"`` and ``(th, tw)`` for
+    the first point of that tile (its widest footprint), or ``(th, tw, wh,
+    ww)``. With ``kind``, one of that kernel's points (``KIND_TILES``).
+    Raises ``ValueError`` naming the points otherwise."""
+    points = KIND_TILES[kind] if kind is not None else tuple(TILES)
+    spec = (KIND_DEFAULTS[kind] if kind is not None else DEFAULT_TILE) if tile is None else tile
+    name = None
+    if isinstance(spec, str):
+        name = spec if "/" in spec else next(
+            (n for n in TILES if n.split("/")[0] == spec), spec)
+    elif isinstance(spec, (tuple, list)) and len(spec) in (2, 4) and all(
+            isinstance(v, int) for v in spec):
+        name = (Tile(*spec).name if len(spec) == 4 else next(
+            (n for n, t in TILES.items() if (t.th, t.tw) == tuple(spec)), None))
+    if name not in points:
+        of = f" of {KINDS[kind]}" if kind is not None else ""
+        raise ValueError(f"tile {tile!r} is no point{of}; one of {', '.join(points)}")
+    return TILES[name]
+
+
+def tile_pixels(tile, rows: int, width: int, device=None):
+    """The twin of ``csrc/pt_sched.cuh`` ``Tile::pixel``: a launch at point
+    ``tile`` over ``rows`` rows of ``width`` pixels, every thread's row and
+    column as two (blocks, threads) int64 tensors (the blocks row-major over
+    the grid, a block's threads by their flat index: lane ``tid % 32`` of
+    warp ``tid // 32``), and whether it lies inside the image."""
+    t = tile_point(tile)
+    grid_y, grid_x = -(-rows // t.th), -(-width // t.tw)
+    tid = torch.arange(t.threads, device=device)
+    lane, warp = tid % 32, tid // 32
+    across = t.tw // t.ww
+    row_in = (warp // across) * t.wh + lane // t.ww
+    col_in = (warp % across) * t.ww + lane % t.ww
+    by = torch.arange(grid_y, device=device).repeat_interleave(grid_x)
+    bx = torch.arange(grid_x, device=device).repeat(grid_y)
+    row = by[:, None] * t.th + row_in[None, :]
+    col = bx[:, None] * t.tw + col_in[None, :]
+    return row, col, (row < rows) & (col < width)
+
+
+def block_smem(kind: str, tile, scene: Scene, max_bounces: int, n_em_cap: int = 0) -> int:
+    """Bytes of shared memory a block of B2 (``kind`` "fused") or B5
+    ("phys_bwd") takes at ``tile``: B2's records, ``(max_bounces + 1) *
+    threads * 15``; B5's tables, one a warp of ``8 (M + 1) + 4
+    max(n_em_cap, 1)`` floats. The other kernels' blocks do not grow with
+    the tile: B1's and B3's staged tables are the same at every tile and
+    capped at ``SHARED_TABLE_BUDGET``, and B4 keeps its records in local
+    memory and its planes in device memory."""
+    t = tile_point(tile, kind)
+    if kind == "fused":
+        return (max_bounces + 1) * t.threads * _FUSED_ROUND_BYTES
+    if kind != "phys_bwd":
+        raise ValueError(f"block_smem sizes B2 and B5 only, not {kind!r}")
+    n_acc = 8 * (scene.num_materials + 1) + 4 * max(n_em_cap, 1)
+    return -(-4 * (t.threads // 32) * n_acc // 16) * 16
+
+
+def fit_tile(kind: str, scene: Scene, rows: int, width: int, max_bounces: int, tile=None,
+             n_em_cap: int = 0) -> Tile:
+    """The point (``TILES``) a launch of ``kind``'s kernel (``KINDS``) uses:
+    the one ``tile`` names (``tile_point``), the default where it is None.
+    Where a block of B2 or B5 at that point would take more shared memory
+    than a block may (``block_smem`` against ``SMEM_OPTIN``) it takes the
+    next smaller point of the same warp footprint, as the JAX package's
+    ``_fit_tile`` shrinks its tile to the VMEM budget; raises
+    ``ValueError`` where none fits. B1's, B3's and B4's blocks fit at every
+    point (``block_smem``). The one sizing call of the wrappers, the
+    counting twins (their warp footprint) and ``utils/flops.sol_report``.
+    The kernels mask a ragged edge, so ``rows`` and ``width`` ask nothing of
+    the tile (the JAX tile divides them)."""
+    del rows, width  # see above
+    t = tile_point(tile, kind)
+    if kind not in ("fused", "phys_bwd"):
+        return t
+    while block_smem(kind, t, scene, max_bounces, n_em_cap) > SMEM_OPTIN:
+        smaller = [TILES[n] for n in KIND_TILES[kind]
+                   if TILES[n].footprint == t.footprint and TILES[n].threads < t.threads]
+        if not smaller:
+            raise ValueError(f"{KINDS[kind]}: no point of footprint {t.wh}x{t.ww} keeps a "
+                             f"block within {SMEM_OPTIN} bytes of shared memory")
+        t = max(smaller, key=lambda p: p.threads)
+    return t
+
+
+def _sweep_units() -> tuple:
+    """The sweep library's (source stem, point) pairs: every kernel at each
+    of its points but its default."""
+    return tuple((stem, list(TILES).index(n)) for kind, stem in KINDS.items()
+                 for n in KIND_TILES[kind] if n != tile_point(None, kind).name)
+
+
+def _entry(stem: str, t: Tile):
+    """The C entry of the timed kernel ``stem`` at point ``t``: the timed
+    library's at the kernel's default point, else the sweep library's, built
+    on its first use (``ops/build.py``)."""
+    from .build import load_library, load_sweep_library
+
+    kind = next(k for k, v in KINDS.items() if v == stem)
+    if t == tile_point(None, kind):
+        return getattr(load_library(), stem)
+    return getattr(load_sweep_library(_sweep_units()), f"{stem}_tiled_{list(TILES).index(t.name)}")
 
 
 def policy(variant: str | None = None) -> dict:
@@ -198,6 +371,13 @@ def _check_variant(scene: Scene, variant: str, physical: bool = False):
                          f"bytes, above the shared budget of {SHARED_TABLE_BUDGET}")
 
 
+def _variant_or_tile(variant, tile):
+    """The measurement instantiations are built at the default point only,
+    so a call names a ``variant`` or a ``tile``, not both."""
+    if variant is not None and tile is not None:
+        raise ValueError(f"variant {variant} is built at the default tile; it takes no tile")
+
+
 def _cuda_only(scene: Scene, name: str):
     """A measurement instantiation has no twin: it runs on CUDA tensors only."""
     if scene.device.type != "cuda":
@@ -254,6 +434,7 @@ def render_kernel(
     count_rounds: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ):
     """Radiance image (rows, W, 3) float32, on the scene's device: the
     block of ``rows`` rows (default: all ``height``) from ``row_start``, the
@@ -272,9 +453,15 @@ def render_kernel(
     is per thread; the JAX package counts whole tile rounds, so the two
     are not comparable. Counting is a second instantiation of the kernel
     and waits for the device; timed renders leave it off.
+
+    ``tile``: the launch shape, a point of ``TILES`` (``tile_point``;
+    default ``DEFAULT_TILE``), as ``fit_tile`` fits it; a tile that is no
+    point raises ``ValueError`` on every device. The image and the
+    thread-rounds do not depend on it; the twin takes none.
     """
     rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                          row_start, rows)
+    t = fit_tile("fwd", scene, rows, width, max_bounces, tile)
     device = scene.device
     if device.type == "cpu":
         return render_kernel_reference(
@@ -283,7 +470,8 @@ def render_kernel(
             row_start=row_start, rows=rows,
         )
     out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
-                           sample_offset, jitter, count_rounds, row_start=row_start, rows=rows)
+                           sample_offset, jitter, count_rounds, row_start=row_start, rows=rows,
+                           tile=t)
     return (out, int(counter[0])) if count_rounds else out
 
 
@@ -291,18 +479,20 @@ render_kernel.launches = 0
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            count, variant=None, row_start=0, rows=None):
+            count, variant=None, row_start=0, rows=None, tile=None):
     """Launch B1 on the scene's CUDA device over the block of ``rows`` rows
-    (None: all) from ``row_start``: the timed kernel, or with ``variant`` an
-    instantiation of ``VARIANTS``; with ``count``, its counting
-    instantiation, whose two counters (thread-rounds, warp lane-rounds of
-    its schedule) come back beside the image."""
+    (None: all) from ``row_start``: the timed kernel at point ``tile``
+    (None: the default), or with ``variant`` an instantiation of
+    ``VARIANTS``; with ``count``, its counting instantiation, whose two
+    counters (thread-rounds, warp lane-rounds of its schedule) come back
+    beside the image."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
     from .build import load_library
 
     lib = load_library()
+    t = tile_point(tile, "fwd")
     operands = _scene_operands(scene)
     par = _camera_params(camera, scene, height, width)
     rows = height if rows is None else rows
@@ -312,7 +502,7 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
             *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
                        row_start, rows))
     if variant is None:
-        err, name = lib.render_fwd(*args), "render_fwd"
+        err, name = _entry("render_fwd", t)(*args), f"render_fwd at {t.name}"
     else:
         err, name = lib.render_fwd_variant(VARIANTS[variant], *args), f"render_fwd {variant}"
     if err != 0:
@@ -357,13 +547,17 @@ render_kernel_variant.launches = 0
 
 
 def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: int,
-                    max_bounces: int, variant: str | None = None, jitter: bool = False):
-    """B1, or its instantiation ``variant``, on operands packed once, on
-    CUDA tensors only: ``launch(seed)`` runs it into one image, which it
-    returns (the same tensor each call), without the packing that
+                    max_bounces: int, variant: str | None = None, jitter: bool = False,
+                    tile=None):
+    """B1 at point ``tile`` (``fit_tile``), or its instantiation ``variant``
+    (built at the default point: it takes no ``tile``), on operands packed
+    once, on CUDA tensors only: ``launch(seed)`` runs it into one image,
+    which it returns (the same tensor each call), without the packing that
     ``render_kernel`` does on every call. What the measurement scripts time
     as the kernel alone; no user path runs it, and its launches count
     nowhere."""
+    _variant_or_tile(variant, tile)
+    t = fit_tile("fwd", scene, height, width, max_bounces, tile)
     _cuda_only(scene, "packed_launcher")
     if variant is not None:
         _check_variant(scene, variant)
@@ -376,7 +570,7 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     head = (*_table_args(operands), _ptr(par), _ptr(out), None)
     if variant is None:
-        entry, name = lib.render_fwd, "render_fwd"
+        entry, name = _entry("render_fwd", t), f"render_fwd at {t.name}"
     else:
         entry, name = lib.render_fwd_variant, f"render_fwd {variant}"
         head = (VARIANTS[variant], *head)
@@ -404,6 +598,7 @@ def render_kernel_round_counts(
     variant: str | None = None,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ) -> dict:
     """The rounds B1 runs for one render: ``thread_rounds`` (as
     ``count_rounds``) and the rounds its warps run times their lanes in the
@@ -412,66 +607,86 @@ def render_kernel_round_counts(
     ``warp_lane_rounds_regen`` where it regenerates paths (each warp as many
     rounds as its busiest lane's total over all samples). Their difference
     from the thread-rounds is the lane slots lost to divergence. A warp is
-    32 consecutive columns of one row, starting at a multiple of 32 (the
-    launch's 32 x 8 blocks). CUDA tensors run the counting instantiation of
-    the timed kernel (a launch: it counts in ``render_kernel.launches``), or
-    of ``variant`` (in ``render_kernel_variant.launches``), which gives the
-    key of its own schedule; CPU tensors the plain twin, which gives both
+    the footprint of the launch's point ``tile`` (``fit_tile``; by default
+    ``DEFAULT_TILE``'s, 4 x 8 pixels). CUDA tensors
+    run the counting instantiation of the timed kernel (a launch: it counts
+    in ``render_kernel.launches``), or of ``variant`` (in
+    ``render_kernel_variant.launches``), which gives the key of its own
+    schedule; CPU tensors the plain twin, which gives both
     (``render_kernel_round_counts_reference``). ``row_start`` and ``rows``:
     a row block, as in ``render_kernel``; the blocks' counts sum to the
     whole image's."""
+    _variant_or_tile(variant, tile)
     rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                          row_start, rows)
+    t = fit_tile("fwd", scene, rows, width, max_bounces, tile)
     if scene.device.type == "cpu":
         return render_kernel_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            row_start, rows)
+            row_start, rows, tile=t)
     if variant is not None:
         _check_variant(scene, variant)
     _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         jitter, True, variant, row_start, rows)
+                         jitter, True, variant, row_start, rows, tile=t)
     thread_rounds, warp_rounds = counter.tolist()
     return {"thread_rounds": thread_rounds, _warp_key(variant): warp_rounds}
 
 
 def render_kernel_round_counts_reference(scene, camera, height, width, spp, max_bounces, seed,
                                          sample_offset=0, jitter=False, row_start=0,
-                                         rows=None) -> dict:
+                                         rows=None, tile=None) -> dict:
     """Plain twin of ``render_kernel_round_counts``, on the scene's device:
     the twin's rounds of every (sample, pixel), grouped by warp under both
-    schedules (``round_groupings``)."""
+    schedules (``round_groupings``), a warp the footprint of the point
+    ``fit_tile`` gives ``tile``."""
     rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                          row_start, rows)
+    t = fit_tile("fwd", scene, rows, width, max_bounces, tile)
     return round_groupings(reference_pixel_rounds(scene, camera, height, width, spp,
                                                   max_bounces, seed, sample_offset, jitter,
-                                                  row_start, rows))
+                                                  row_start, rows), t.footprint)
 
 
-def warp_lane_rounds(rounds: torch.Tensor) -> int:
+def warp_map(height: int, width: int, footprint=(1, 32), device=None):
+    """The warps of a launch over ``height`` rows of ``width`` pixels whose
+    warps are ``footprint`` = (wh, ww) pixels (``Tile.footprint``): the
+    footprints lie on a grid from the block of rows' first pixel (every
+    tile is a whole number of them), the ragged edge's cut. Returns each
+    pixel's warp, row-major (H*W,) int64, the number of warps and each
+    warp's lanes inside the image."""
+    wh, ww = footprint
+    across = -(-width // ww)
+    r = torch.arange(height, device=device) // wh
+    c = torch.arange(width, device=device) // ww
+    warp = (r[:, None] * across + c[None, :]).reshape(-1)
+    n_warps = -(-height // wh) * across
+    return warp, n_warps, torch.bincount(warp, minlength=n_warps)
+
+
+def warp_lane_rounds(rounds: torch.Tensor, footprint=(1, 32)) -> int:
     """Warp lane-rounds of per-(sample, pixel) round counts ``rounds``
-    (spp, H, W): each warp (32 columns of a row from a multiple of 32)
-    runs, in each sample, as many rounds as its longest lane, for each of
-    its lanes inside the image."""
+    (spp, H, W): each warp (``footprint``, ``warp_map``; by default 32
+    columns of a row from a multiple of 32) runs, in each sample, as many
+    rounds as its longest lane, for each of its lanes inside the image."""
     spp, height, width = rounds.shape
-    n_warps = -(-width // 32)
-    padded = torch.zeros((spp, height, 32 * n_warps), dtype=rounds.dtype, device=rounds.device)
-    padded[..., :width] = rounds
-    widest = padded.reshape(spp, height, n_warps, 32).amax(dim=-1)
-    lanes = torch.clamp(width - 32 * torch.arange(n_warps, device=rounds.device), max=32)
+    warp, n_warps, lanes = warp_map(height, width, footprint, rounds.device)
+    widest = torch.zeros((spp, n_warps), dtype=rounds.dtype, device=rounds.device)
+    widest.scatter_reduce_(1, warp.expand(spp, -1), rounds.reshape(spp, -1), "amax")
     return int((widest * lanes).sum())
 
 
-def round_groupings(rounds: torch.Tensor) -> dict:
+def round_groupings(rounds: torch.Tensor, footprint=(1, 32)) -> dict:
     """The rounds of per-(sample, pixel) round counts ``rounds`` (spp, H,
-    W) under two schedules: ``thread_rounds``;
+    W) under two schedules, a warp ``footprint`` (``warp_map``):
+    ``thread_rounds``;
     ``warp_lane_rounds``, each warp running each sample for as many rounds
     as that sample's longest lane (every lane waits at the end of a sample:
     the per-sample schedule); ``warp_lane_rounds_regen``, each warp running
     for as many rounds as its busiest lane's total over all samples (path
     regeneration: a lane starts its next sample at once)."""
     return {"thread_rounds": int(rounds.sum()),
-            "warp_lane_rounds": warp_lane_rounds(rounds),
-            "warp_lane_rounds_regen": warp_lane_rounds(rounds.sum(0)[None])}
+            "warp_lane_rounds": warp_lane_rounds(rounds, footprint),
+            "warp_lane_rounds_regen": warp_lane_rounds(rounds.sum(0)[None], footprint)}
 
 
 def reference_pixel_rounds(scene, camera, height, width, spp, max_bounces, seed,

@@ -179,6 +179,7 @@ def render_physical_kernel(
     count_events: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ):
     """Physical-tier radiance image (rows, W, 3) float32, on the scene's
     device: the estimator of ``models.physical.render_physical`` on the
@@ -196,10 +197,12 @@ def render_physical_kernel(
     comparable. ``count_events=True`` returns ``(image, counts)`` with one
     count per name in ``EVENTS``: what this render's data made the threads
     do. Counting is a second instantiation of the kernel and waits for the
-    device; timed renders leave it off.
+    device; timed renders leave it off. ``tile``: the launch shape, as
+    ``render_kernel.render_kernel`` takes it (``fit_tile("phys", ...)``).
     """
     rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
                              sample_offset, row_start, rows)
+    t = _rk.fit_tile("phys", scene, rows, width, max_bounces, tile)
     device = scene.device
     if device.type == "cpu":
         return render_physical_kernel_reference(
@@ -210,7 +213,7 @@ def render_physical_kernel(
         )
     out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                            jitter, nee, tri_nee, count_rounds or count_events,
-                           row_start=row_start, rows=rows)
+                           row_start=row_start, rows=rows, tile=t)
     return _with_counts(out, counter, count_rounds, count_events)
 
 
@@ -218,9 +221,10 @@ render_physical_kernel.launches = 0
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
-            tri_nee, count, variant=None, row_start=0, rows=None):
+            tri_nee, count, variant=None, row_start=0, rows=None, tile=None):
     """Launch B3 on the scene's CUDA device over the block of ``rows`` rows
-    (None: all) from ``row_start``: the timed kernel, or with
+    (None: all) from ``row_start``: the timed kernel at point ``tile``
+    (None: the default), or with
     ``variant`` an instantiation of ``render_kernel.VARIANTS``; with
     ``count``, its counting instantiation, whose counters (``EVENTS``, then
     ``WARP_EVENTS`` of its schedule) come back beside the image."""
@@ -230,6 +234,7 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     from .build import load_library
 
     lib = load_library()
+    t = _rk.tile_point(tile, "phys")
     operands = _rk._scene_operands(scene)
     ph = _phys_operands(scene, operands)
     par = _rk._camera_params(camera, scene, height, width)
@@ -243,7 +248,7 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
             *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
                            row_start, rows))
     if variant is None:
-        err, name = lib.render_phys(*args), "render_phys"
+        err, name = _rk._entry("render_phys", t)(*args), f"render_phys at {t.name}"
     else:
         err = lib.render_phys_variant(_rk.VARIANTS[variant], *args)
         name = f"render_phys {variant}"
@@ -292,13 +297,16 @@ render_physical_kernel_variant.launches = 0
 
 def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: int,
                     max_bounces: int, variant: str | None = None, jitter: bool = True,
-                    nee: bool = True, tri_nee: bool = False):
-    """B3, or its instantiation ``variant``, on operands packed once, on
-    CUDA tensors only: ``launch(seed)`` runs it into one image, which it
-    returns (the same tensor each call), without the packing that
-    ``render_physical_kernel`` does on every call. What the measurement
-    scripts time as the kernel alone; no user path runs it, and its
-    launches count nowhere."""
+                    nee: bool = True, tri_nee: bool = False, tile=None):
+    """B3 at point ``tile`` (``render_kernel.fit_tile``), or its
+    instantiation ``variant`` (built at the default point: it takes no
+    ``tile``), on operands packed once, on CUDA tensors only:
+    ``launch(seed)`` runs it into one image, which it returns (the same
+    tensor each call), without the packing that ``render_physical_kernel``
+    does on every call. What the measurement scripts time as the kernel
+    alone; no user path runs it, and its launches count nowhere."""
+    _rk._variant_or_tile(variant, tile)
+    t = _rk.fit_tile("phys", scene, height, width, max_bounces, tile)
     _rk._cuda_only(scene, "packed_launcher")
     if variant is not None:
         _rk._check_variant(scene, variant, physical=True)
@@ -313,7 +321,7 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
     head = (*_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out), None,
             int(bool(nee)), int(bool(tri_nee)))
     if variant is None:
-        entry, name = lib.render_phys, "render_phys"
+        entry, name = _rk._entry("render_phys", t), f"render_phys at {t.name}"
     else:
         entry, name = lib.render_phys_variant, f"render_phys {variant}"
         head = (_rk.VARIANTS[variant], *head)
@@ -344,6 +352,7 @@ def render_physical_kernel_round_counts(
     variant: str | None = None,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ) -> dict:
     """The rounds and branch events B3 runs for one render:
     ``thread_rounds``, ``light_samples`` and ``shadow_scans`` (as
@@ -358,18 +367,21 @@ def render_physical_kernel_round_counts(
     their own schedule; CPU tensors the plain twin, which gives both
     (``render_physical_kernel_round_counts_reference``). ``row_start`` and
     ``rows``: a row block, as in ``render_physical_kernel``; the blocks'
-    counts sum to the whole image's."""
+    counts sum to the whole image's. A warp is the footprint of the
+    launch's point ``tile`` (``render_kernel.fit_tile``)."""
+    _rk._variant_or_tile(variant, tile)
     rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
                              sample_offset, row_start, rows)
+    t = _rk.fit_tile("phys", scene, rows, width, max_bounces, tile)
     kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee,
               row_start=row_start, rows=rows)
     if scene.device.type == "cpu":
         return render_physical_kernel_round_counts_reference(
-            scene, camera, height, width, spp, max_bounces, seed, **kw)
+            scene, camera, height, width, spp, max_bounces, seed, **kw, tile=t)
     if variant is not None:
         _rk._check_variant(scene, variant, physical=True)
     _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         jitter, nee, tri_nee, True, variant, row_start, rows)
+                         jitter, nee, tri_nee, True, variant, row_start, rows, tile=t)
     c = counter.tolist()
     suffix = _rk._warp_key(variant)[len("warp_lane_rounds"):]
     return {"thread_rounds": c[0], "light_samples": c[2], "shadow_scans": c[3],
@@ -380,14 +392,15 @@ def render_physical_kernel_round_counts_reference(scene, camera, height, width, 
                                                   max_bounces, seed, sample_offset=0,
                                                   jitter=True, nee=True,
                                                   tri_nee=False, row_start=0,
-                                                  rows=None) -> dict:
+                                                  rows=None, tile=None) -> dict:
     """Plain twin of ``render_physical_kernel_round_counts``, on the scene's
     device: the twin's rounds and branch events of every (sample, round,
     pixel) of the row block, grouped by warp under both schedules
-    (``WarpGroupings``)."""
+    (``WarpGroupings``), a warp the footprint of ``tile``'s point."""
     rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
                              sample_offset, row_start, rows)
-    groups = WarpGroupings(rows, width, spp, max_bounces, scene.device)
+    t = _rk.fit_tile("phys", scene, rows, width, max_bounces, tile)
+    groups = WarpGroupings(rows, width, spp, max_bounces, scene.device, t.footprint)
     render_physical_kernel_reference(scene, camera, height, width, spp, max_bounces, seed,
                                      sample_offset=sample_offset, jitter=jitter, nee=nee,
                                      tri_nee=tri_nee, on_round=groups.add_round,
@@ -399,7 +412,8 @@ class WarpGroupings:
     """Warp lane-rounds of the twin's rounds and of its branch events (a
     light sample computed, a shadow scan run), fed one round of every pixel
     at a time (``add_round``; samples ascending, rounds ascending). A warp is
-    32 consecutive columns of one row from a multiple of 32. Per sample, a
+    a ``footprint`` of pixels (``render_kernel.warp_map``; by default 32
+    consecutive columns of one row from a multiple of 32). Per sample, a
     warp runs round b of sample s, and the branch in it, if some lane of the
     warp does; under path regeneration a lane's rounds follow one another
     across its samples, so its k-th round overall runs in the warp's k-th
@@ -408,13 +422,8 @@ class WarpGroupings:
 
     _KEYS = dict(zip(("rounds", "light", "shadow"), WARP_EVENTS))
 
-    def __init__(self, height, width, spp, max_bounces, device):
-        n_wc = -(-width // 32)
-        pix = torch.arange(height * width, device=device)
-        self.warp = torch.div(pix, width, rounding_mode="floor") * n_wc + (pix % width) // 32
-        lanes = torch.clamp(width - 32 * torch.arange(n_wc, device=device), max=32)
-        self.lanes = lanes.repeat(height)
-        self.n_warps = height * n_wc
+    def __init__(self, height, width, spp, max_bounces, device, footprint=(1, 32)):
+        self.warp, self.n_warps, self.lanes = _rk.warp_map(height, width, footprint, device)
         self.bounces = max_bounces + 1
         # Per warp, the iterations in which some lane ran a round or event.
         self.iters = {k: torch.zeros((self.n_warps, spp * self.bounces), dtype=torch.bool,

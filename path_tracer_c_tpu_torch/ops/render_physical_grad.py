@@ -74,6 +74,7 @@ __all__ = [
     "MAX_BOUNCES", "EVENTS", "COUNTERS", "KERNEL_POLICY", "VARIANTS", "POLICY_VARIANTS",
     "CHIP_PLANE_FLOATS",
     "MAX_CHIP_MATERIALS", "SOURCE", "REPLACES", "SOURCE_BWD", "REPLACES_BWD",
+    "PHYS_FUSED_TILE", "PHYS_BWD_TILE", "phys_fused_tile",
 ]
 
 SOURCE = "path_tracer_c_tpu_torch/csrc/render_phys_fused.cu"
@@ -305,6 +306,25 @@ def _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed, sam
     return rows
 
 
+# B4's and B5's tiles (the JAX package's names;
+# ``render_kernel.KIND_DEFAULTS``): 8 x 32 pixels, warps of one row of 32. No
+# point beat them at every shape measured on an H100 (PERF.md, tile sweep).
+PHYS_FUSED_TILE = _rk.KIND_DEFAULTS["phys_fused"]
+PHYS_BWD_TILE = _rk.KIND_DEFAULTS["phys_bwd"]
+
+
+def phys_fused_tile(scene: Scene, rows: int, width: int, max_bounces: int, tile=None):
+    """The point (``render_kernel.Tile``) ``render_physical_fused`` launches
+    at for this workload (``tile``, default ``PHYS_FUSED_TILE``, as
+    ``render_kernel.fit_tile`` fits it), as the JAX package's
+    ``phys_fused_tile``: the one sizing call of the wrapper and its counting
+    twin. The JAX function also takes the emitter caps and ``rough_grad``,
+    which size its kernel's VMEM; B4 keeps its planes in device memory and
+    its records in local memory, so nothing of them sizes a block here."""
+    return _rk.fit_tile("phys_fused", scene, rows, width, max_bounces,
+                        PHYS_FUSED_TILE if tile is None else tile)
+
+
 def _load_library():
     from .build import load_library
 
@@ -434,6 +454,7 @@ def render_physical_fused(
     count_events: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ):
     """``(image (H, W, 3), jac (mp * M + 3, H, W))`` float32 on the scene's
     device (H: the ``rows`` rows from ``row_start`` of a row block, as
@@ -455,9 +476,14 @@ def render_physical_fused(
     The planes take ``(mp * M + 3 + 12 * n_em_cap + 27 * tri_em_cap) * H * W
     * 4`` bytes (629 MB at 1024 x 1024 with 15 materials and one tracked
     emitter). The wrapper allocates them zero-filled; the kernel adds.
+
+    ``tile``: the launch shape (``render_kernel.TILES``; default
+    ``PHYS_FUSED_TILE``) as ``phys_fused_tile`` fits it; no output depends
+    on it.
     """
     rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
                               sample_offset, n_em_cap, tri_em_cap, tri_nee, row_start, rows)
+    t = phys_fused_tile(scene, rows, width, max_bounces, tile)
     device = scene.device
     kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, n_em_cap=n_em_cap,
               tri_nee=tri_nee, tri_em_cap=tri_em_cap, count_rounds=count_rounds,
@@ -469,7 +495,7 @@ def render_physical_fused(
     img, jac, jgeo, jtri, counter = _launch_fused(
         scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
         n_em_cap, tri_nee, tri_em_cap, rough_grad, count_rounds or count_events,
-        row_start=row_start, rows=rows)
+        row_start=row_start, rows=rows, tile=t)
     return _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_rounds,
                           count_events)
 
@@ -481,9 +507,10 @@ render_physical_fused.REPLACES = REPLACES
 
 def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
                   nee, n_em_cap, tri_nee, tri_em_cap, rough_grad, count, variant=None,
-                  row_start=0, rows=None, chip_floats=None):
+                  row_start=0, rows=None, chip_floats=None, tile=None):
     """Launch B4 on the scene's CUDA device over the block of ``rows`` rows
-    (None: all) from ``row_start``: the timed kernel, its counting
+    (None: all) from ``row_start``: the timed kernel at point ``tile``
+    (None: the default), its counting
     instantiation (``count``: the ``COUNTERS`` come back beside the planes),
     or a measurement variant; where the planes live in slots, with
     ``chip_floats`` a thread (default ``CHIP_PLANE_FLOATS``)."""
@@ -506,10 +533,11 @@ def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_o
     run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
                         row_start, rows)
     if variant is None:
-        err = lib.render_phys_fused(
+        t = _rk.tile_point(tile, "phys_fused")
+        err = _rk._entry("render_phys_fused", t)(
             *tables, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
             int(bool(rough_grad)), n_em_cap, tri_em_cap, *run)
-        name = "render_phys_fused"
+        name = f"render_phys_fused at {t.name}"
     else:
         split = _chip_split(scene, n_em_cap, tri_em_cap, variant, chip_floats)
         err = lib.render_phys_fused_variant(VARIANTS[variant], *tables, int(bool(nee)),
@@ -539,6 +567,7 @@ def render_physical_fused_round_counts(
     tri_nee: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ) -> dict:
     """The rounds B4 runs for one render (of a row block, as
     ``render_physical_fused`` takes it), as
@@ -546,16 +575,18 @@ def render_physical_fused_round_counts(
     ``warp_lane_rounds`` (CUDA tensors: the counting instantiation, a launch
     counted in ``render_physical_fused.launches``); CPU tensors take the
     twin, which also gives ``warp_lane_rounds_regen``. The planes do not
-    change the rounds, so no cap is taken."""
+    change the rounds, so no cap is taken. A warp is the footprint of the
+    launch's point (``phys_fused_tile`` of ``tile``)."""
     rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
                               sample_offset, tri_nee=tri_nee, row_start=row_start, rows=rows)
+    t = phys_fused_tile(scene, rows, width, max_bounces, tile)
     if scene.device.type == "cpu":
         return render_physical_fused_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
-            tri_nee, row_start, rows)
+            tri_nee, row_start, rows, tile=t)
     *_, counter = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
                                 sample_offset, jitter, nee, 0, tri_nee, 0, False, True,
-                                row_start=row_start, rows=rows)
+                                row_start=row_start, rows=rows, tile=t)
     counts = dict(zip(COUNTERS, counter.tolist()))
     return {"thread_rounds": counts["rounds"], "warp_lane_rounds": counts["warp_lane_rounds"]}
 
@@ -563,16 +594,18 @@ def render_physical_fused_round_counts(
 def render_physical_fused_round_counts_reference(scene, camera, height, width, spp,
                                                  max_bounces, seed, sample_offset=0,
                                                  jitter=True, nee=True, tri_nee=False,
-                                                 row_start=0, rows=None) -> dict:
+                                                 row_start=0, rows=None, tile=None) -> dict:
     """Plain twin of ``render_physical_fused_round_counts``: the twin's rounds
     of every (sample, pixel), grouped by warp under both schedules
-    (``render_kernel.round_groupings``)."""
+    (``render_kernel.round_groupings``), a warp the footprint of the point
+    ``phys_fused_tile`` gives ``tile``."""
+    t = phys_fused_tile(scene, height if rows is None else rows, width, max_bounces, tile)
     per_sample = []
     render_physical_fused_reference(scene, camera, height, width, spp, max_bounces, seed,
                                     sample_offset=sample_offset, jitter=jitter, nee=nee,
                                     tri_nee=tri_nee, on_sample=per_sample.append,
                                     row_start=row_start, rows=rows)
-    return _rk.round_groupings(torch.stack(per_sample))
+    return _rk.round_groupings(torch.stack(per_sample), t.footprint)
 
 
 def render_physical_fused_variant(
@@ -1049,12 +1082,13 @@ class _RenderPhysicalFused(torch.autograd.Function):
     def forward(ctx, *args):
         leaves, (scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                  jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad, row_start,
-                 rows) = args[:11], args[11:]
+                 rows, tile) = args[:11], args[11:]
         live = _with_leaves(scene, [t.detach() for t in leaves])
         out = render_physical_fused(
             live, camera, height, width, spp, max_bounces, seed, sample_offset=sample_offset,
             jitter=jitter, nee=nee, n_em_cap=geo_cap, tri_nee=tri_nee,
-            tri_em_cap=tri_geo_cap, rough_grad=rough_grad, row_start=row_start, rows=rows)
+            tri_em_cap=tri_geo_cap, rough_grad=rough_grad, row_start=row_start, rows=rows,
+            tile=tile)
         img, jac, rest = out[0], out[1], list(out[2:])
         jgeo = rest.pop(0) if geo_cap else None
         jtri = rest.pop(0) if tri_geo_cap else None
@@ -1074,7 +1108,7 @@ class _RenderPhysicalFused(torch.autograd.Function):
         d_tri = (None,) * 3
         if geo_t is not None:
             d_tri = _scatter_tri_emitter_geometry(scene, geo_t, geo_t.shape[0])
-        return (d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, d_c, d_r, *d_tri, *(None,) * 16)
+        return (d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, d_c, d_r, *d_tri, *(None,) * 17)
 
 
 def render_physical_kernel_vjp(
@@ -1095,6 +1129,7 @@ def render_physical_kernel_vjp(
     rough_grad: bool = False,
     row_start: int = 0,
     rows: int | None = None,
+    tile=None,
 ) -> torch.Tensor:
     """Differentiable fast render of the physical tier: the image (H, W, 3)
     of ``render_physical_kernel`` (H: the ``rows`` rows from ``row_start``
@@ -1124,14 +1159,16 @@ def render_physical_kernel_vjp(
 
     Memory: the planes (``render_physical_fused``) are held from forward to
     backward. With no leaf requiring a gradient this is
-    ``render_physical_kernel``.
+    ``render_physical_kernel``. ``tile``: the launch shape of the kernel it
+    runs (``render_kernel.TILES``; by default ``PHYS_FUSED_TILE``, or
+    ``render_physical_kernel``'s own without a gradient).
     """
     leaves = _grad_leaves(scene)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)):
         return _rp.render_physical_kernel(
             scene, camera, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee,
-            row_start=row_start, rows=rows)
+            row_start=row_start, rows=rows, tile=tile)
     if n_em_cap is None:
         n_em_cap = min(scene.num_spheres, 8)
     geo_cap = int(n_em_cap) if (geom and nee) else 0
@@ -1145,7 +1182,7 @@ def render_physical_kernel_vjp(
         tri_geo_cap = min(tri_geo_cap, _check_tri_emitter_cap(scene, tri_geo_cap))
     return _RenderPhysicalFused.apply(
         *leaves, scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-        jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad, row_start, rows)
+        jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad, row_start, rows, tile)
 
 
 # -- the two-pass oracle ------------------------------------------------------------
@@ -1201,10 +1238,12 @@ def bwd_atomics(counts: dict) -> dict:
 
 
 def _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed, sample_offset,
-                jitter, nee, n_em_cap, tri_nee, row_start, rows, count=False, variant=None):
-    """Launch B5 (or its counting instantiation, or a variant) and its
-    second pass on the scene's CUDA device; returns ``out``, ``geo`` and the
-    counters (or None)."""
+                jitter, nee, n_em_cap, tri_nee, row_start, rows, count=False, variant=None,
+                tile=None):
+    """Launch B5 at point ``tile`` (None: the default; or its counting
+    instantiation, or a variant, at the default) and its second pass on the
+    scene's CUDA device; returns ``out``, ``geo`` and the counters (or
+    None)."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_bwd runs on CUDA or CPU tensors, not {device}")
@@ -1217,7 +1256,8 @@ def _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed, sample_
     n_mat = scene.num_materials
     out = torch.empty((n_mat + 1, 8), dtype=torch.float32, device=device)
     geo = torch.empty((max(n_em_cap, 1), 4), dtype=torch.float32, device=device)
-    n_blocks = -(-width // 32) * -(-rows // 8)
+    t = _rk.tile_point(tile, "phys_bwd")
+    n_blocks = -(-width // t.tw) * -(-rows // t.th)
     partials = torch.empty(((out.numel() + geo.numel()) * n_blocks,), dtype=torch.float32,
                            device=device)
     counter = None
@@ -1230,7 +1270,13 @@ def _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed, sample_
             _ptr(out), _ptr(geo), _ptr(partials))
     run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
                         row_start, rows)
-    if variant is None:
+    if variant is None and t != _rk.tile_point(None, "phys_bwd"):
+        if count:
+            raise ValueError(f"count_sites: B5 counts at the default tile only, not {t.name}")
+        err = _rk._entry("render_phys_bwd", t)(*head, int(bool(nee)), int(bool(tri_nee)),
+                                               n_em_cap, *run)
+        name = f"render_phys_bwd at {t.name}"
+    elif variant is None:
         err = lib.render_phys_bwd(*head, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
                                   n_em_cap, *run)
         name = "render_phys_bwd"
@@ -1264,6 +1310,7 @@ def render_physical_bwd(
     row_start: int = 0,
     rows: int | None = None,
     count_sites: bool = False,
+    tile=None,
 ):
     """The cotangent of ``render_physical_kernel``'s image for the image
     cotangent ``g`` (H, W, 3; of the row block of ``rows`` rows from
@@ -1286,10 +1333,18 @@ def render_physical_bwd(
     the two agree to float32 rounding.
     CPU tensors go to ``render_physical_bwd_reference``. Any other device
     raises.
+
+    ``tile``: the launch shape (``render_kernel.KIND_TILES["phys_bwd"]``;
+    default ``PHYS_BWD_TILE``) as ``render_kernel.fit_tile`` fits it (a
+    block keeps a table of its sums a warp). Its blocks' sums, and so the
+    last bits of the cotangents, change with it; ``count_sites`` is counted
+    at the default tile only.
     """
     n_em_cap = _bwd_cap(scene, nee, n_em_cap)
     rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
                               sample_offset, n_em_cap, row_start=row_start, rows=rows)
+    t = _rk.fit_tile("phys_bwd", scene, rows, width, max_bounces,
+                     PHYS_BWD_TILE if tile is None else tile, n_em_cap=n_em_cap)
     device = scene.device
     if tuple(g.shape) != (rows, width, 3) or g.device != device:
         raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, expected "
@@ -1301,7 +1356,7 @@ def render_physical_bwd(
             tri_nee=tri_nee, row_start=row_start, rows=rows, count_sites=count_sites)
     out, geo, counter = _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed,
                                     sample_offset, jitter, nee, n_em_cap, tri_nee, row_start,
-                                    rows, count=count_sites)
+                                    rows, count=count_sites, tile=t)
     d = _bwd_scene(scene, out, geo, n_em_cap)
     return (d, dict(zip(BWD_COUNTS, counter.tolist()))) if count_sites else d
 
@@ -1363,11 +1418,7 @@ class _BwdCounts:
     sky's."""
 
     def __init__(self, rows, width, device):
-        per_row = -(-width // 32)
-        cols = torch.arange(width, device=device) // 32
-        self.warp = (torch.arange(rows, device=device)[:, None] * per_row + cols).reshape(-1)
-        self.n_warps = rows * per_row
-        self.lanes = torch.bincount(self.warp, minlength=self.n_warps)
+        self.warp, self.n_warps, self.lanes = _rk.warp_map(rows, width, (1, 32), device)
         self.total = torch.zeros(len(BWD_COUNTS), dtype=torch.int64, device=device)
 
     def site(self, site, on, key, n_keys):

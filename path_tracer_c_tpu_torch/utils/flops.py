@@ -31,6 +31,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from ..ops import render_kernel as rk
 from ..ops.rng import _f32, sqrt_rn
 from ..ops.sol_probes import MICRO_NOBJ, MICRO_REPS
 
@@ -521,14 +522,24 @@ def measure_op_rates(device=None, with_spread: bool = False, iters: int = 5):
     return out
 
 
+# The launch-shape kinds (ops/render_kernel.KINDS) of KINDS.
+_TILE_KINDS = {"forward": "fwd", "fused": "fused", "physical": "phys",
+               "physical_fused": "phys_fused", "physical_fused_geom": "phys_fused",
+               "physical_bwd": "phys_bwd"}
+
+
 def sol_report(kind: str, scene, height: int, width: int, spp: int, max_bounces: int,
                measured_seconds: float, events: dict, *, fwd_events: dict | None = None,
                n_em_cap: int = 0, rough_grad: bool = False, basis: str = "executed",
-               alu_rate: float | None = None, transc_rate=None, device=None) -> dict:
+               alu_rate: float | None = None, transc_rate=None, device=None,
+               tile=None) -> dict:
     """Measured speed-of-light report of one render by one hand kernel.
 
     ``measured_seconds`` is the render's timed device time; ``kind``,
     ``events`` and the rest select the counts (:func:`kernel_op_counts`).
+    ``tile``: the launch shape the time was measured at (the point
+    ``ops/render_kernel.fit_tile`` gives it, the default where it is None),
+    reported as ``tile``; the counts do not depend on it.
     ``alu_rate`` and ``transc_rate`` (a dict by class, or one blended rate)
     default to a fresh calibration on the card. ``sol_seconds`` issues every
     counted operation one after another at its class's measured rate, the
@@ -544,7 +555,10 @@ def sol_report(kind: str, scene, height: int, width: int, spp: int, max_bounces:
     if not isinstance(transc_rate, dict):
         transc_rate = {cls: transc_rate for cls in _TRANSC}
     sol_seconds = _ops_seconds(counts, {"alu": alu_rate, **transc_rate})
+    launch = rk.fit_tile(_TILE_KINDS[kind], scene, height, width, max_bounces, tile,
+                         n_em_cap=n_em_cap)
     return {
+        "tile": launch.name,
         "alu_ops": counts["alu"],
         "transcendental_ops": counts["transcendental"],
         "sqrt_ops": counts["sqrt"],

@@ -165,7 +165,8 @@ def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None,
     spp, bounces = (8, 4) if small else (64, 8)
     scene, cam = demo.glossy_scene(device), Camera.reference(device)
     shape = (scene, cam, height, width, spp, bounces)
-    n_blocks = -(-width // 32) * -(-height // 8)
+    tile = rk.tile_point(None)  # B7's launch: B1's default tile
+    n_blocks = -(-width // tile.tw) * -(-height // tile.th)
     nominal = rays_per_render(height, width, spp, bounces)
     warp_key = rk._warp_key(variant)
     suffix = warp_key[len("warp_lane_rounds"):]
@@ -222,7 +223,8 @@ def sol_decompose(device="cuda", small: bool = False, rates: dict | None = None,
     table_fraction = table_load_s / fwd_s
     out = {
         "kernel": "B1 render_fwd" if kind == "forward" else "B3 render_phys",
-        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, blocks 32x8"
+        "workload": (f"{height}x{width}/{spp}spp/{bounces}b glossy, "
+                     f"tile {rk.tile_point(None, flops._TILE_KINDS[kind]).name}")
                     + (", jitter on" if kind == "physical" else ""),
         "device": torch.cuda.get_device_name(device),
         "kernel_policy": rk.policy(variant),
@@ -336,7 +338,8 @@ def fused_decompose(kind: str = "fused", device="cuda", small: bool = False,
     }
     out = {
         "kernel": "B2 render_fused" if kind == "fused" else "B4 render_phys_fused",
-        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, blocks 32x8"
+        "workload": (f"{height}x{width}/{spp}spp/{bounces}b glossy, "
+                     f"tile {rk.tile_point(None, flops._TILE_KINDS[kind]).name}")
                     + (f", geometry planes n_em_cap={geo['n_em_cap']}" if geo else ""),
         "device": torch.cuda.get_device_name(device),
         "seconds": t,
@@ -427,7 +430,8 @@ def _bwd_decompose(device, small: bool, rates: dict | None, twin_counts: dict | 
     parts["remainder_fraction"] = 1.0 - sum(parts.values())
     out = {
         "kernel": "B5 render_phys_bwd",
-        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, blocks 32x8, "
+        "workload": f"{height}x{width}/{spp}spp/{bounces}b glossy, "
+                    f"tile {rk.tile_point(None, 'phys_bwd').name}, "
                     f"n_em_cap={n_live}",
         "device": torch.cuda.get_device_name(device),
         "seconds": t,

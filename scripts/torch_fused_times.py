@@ -77,14 +77,19 @@ FIT = (256, 256, 8, 3)  # config 4's fit shape
 REPEAT = 20
 
 
-def card_line() -> str:
-    """This checkout's ``utils/profiling.card_line`` for the card, loaded
-    by its path: ``--tree`` may name a checkout without it."""
+def this_module(path: str):
+    """This checkout's module at ``path`` (under the package), loaded by
+    its path: ``--tree`` may name a checkout without it."""
     spec = importlib.util.spec_from_file_location(
-        "_this_profiling", REPO / "path_tracer_c_tpu_torch" / "utils" / "profiling.py")
+        "_this_" + Path(path).stem, REPO / "path_tracer_c_tpu_torch" / path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.card_line("cuda")
+    return module
+
+
+def card_line() -> str:
+    """This checkout's ``utils/profiling.card_line`` for the card."""
+    return this_module("utils/profiling.py").card_line("cuda")
 
 
 def median_ms(fn, repeat=1, seeds=(1, 2, 3), warm=100) -> float:
@@ -316,28 +321,12 @@ def bwd_times(lib, pt, rk, rp, pg, dev, cam) -> dict:
 def sass_memory_ops(build, kernel: str) -> dict:
     """Shared (LDS, STS), generic (LD, ST), local (LDL, STL) and global
     (LDG, STG) loads and stores, and all instructions, in the SASS of each
-    instantiation of ``kernel``, by mangled name, from cuobjdump on the
-    built library."""
-    import re
-    import subprocess
-
-    tool = Path(build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    found, current = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            current = name if kernel in name else None
-            if current is not None:
-                found[current] = {}
-        elif current is not None:
-            if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
-                found[current]["instructions"] = found[current].get("instructions", 0) + 1
-            m = re.search(r"\b(LDS|STS|LDL|STL|LDG|STG|LD|ST)(?=[.\s])", line)
-            if m:
-                found[current][m.group(1)] = found[current].get(m.group(1), 0) + 1
-    return found
+    instantiation of ``kernel`` in the library that ``build`` (the tree's
+    ``ops/build.py``) built, by mangled name, counted by this checkout's
+    ``ops/build.sass_opcodes``."""
+    found = this_module("ops/build.py").sass_opcodes(r"LDS|STS|LDL|STL|LDG|STG|LD|ST",
+                                                    build.library_path())
+    return {name: counts for name, counts in found.items() if kernel in name}
 
 
 # (sphere ordinals, triangle ordinals, emitter material slots) in slots, by

@@ -132,7 +132,7 @@ def test_port_does_not_import_jax():
             "path_tracer_c_tpu_torch.parallel.mesh, path_tracer_c_tpu_torch.parallel.render, "
             "path_tracer_c_tpu_torch.parallel.distributed, path_tracer_c_tpu_torch.models.split, "
             "path_tracer_c_tpu_torch.utils.capacity_sweep, path_tracer_c_tpu_torch.utils.geom_asym, "
-            "path_tracer_c_tpu_torch.parallel.scaling; "
+            "path_tracer_c_tpu_torch.parallel.scaling, path_tracer_c_tpu_torch.utils.tile_sweep; "
             "from path_tracer_c_tpu_torch import parallel; "
             "from path_tracer_c_tpu_torch.models.split import render_split; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
@@ -150,7 +150,7 @@ def test_no_jax_in_port_scripts():
     """The port's scripts import neither JAX nor the JAX package."""
     scripts = sorted((REPO / "scripts").glob("torch_*.py"))
     assert {"torch_capacity_sweep.py", "torch_geom_asym_bench.py",
-            "torch_scaling_bench.py"} <= {p.name for p in scripts}
+            "torch_scaling_bench.py", "torch_tile_sweep.py"} <= {p.name for p in scripts}
     jax_package = re.compile(r"^\s*(import|from)\s+path_tracer_c_tpu\b", re.M)
     for path in scripts:
         text = path.read_text()

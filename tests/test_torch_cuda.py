@@ -1091,3 +1091,39 @@ def test_mesh_larger_than_the_cards_is_refused(cuda_device):
     n = torch.cuda.device_count()
     with pytest.raises(ValueError, match=f"!= {n} devices"):
         parallel.make_mesh(tile=n + 1, spp=1)
+
+
+# -- launch shapes ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", ["glossy 19x45/4spp/8b (ragged)",
+                                   "glossy 48x80/4spp/8b rows 11-47"])
+def test_every_tile_equals_the_default_point(cuda_device, shape):
+    """chip_smoke.py phase 18's checks at one shape: B1-B4 at every point
+    equal to the default point bit for bit (images, planes, counts), warp
+    lane-rounds the twin's under each footprint, B5 within its gate and
+    two launches the same bits; B2's 512-thread point fitted at the bounce
+    cap."""
+    from path_tracer_c_tpu_torch.utils import tile_sweep as ts
+
+    summary = ts.check_tiles(cuda_device, shapes=[shape], log=lambda line: None)
+    assert summary["points"]["B1"] == sorted(rk.KIND_TILES["fwd"])
+    assert summary["points"]["B5"] == sorted(rk.KIND_TILES["phys_bwd"])
+    assert summary["fit"]["fitted"] == "8x32/1x32"
+
+
+@pytest.mark.parametrize("kind", ["fwd", "fused", "phys", "phys_fused", "phys_bwd"])
+def test_tile_sweep_alone_launch_equals_the_call(cuda_device, kind):
+    """The sweep's kernel alone (operands packed once, its C entry called
+    directly) gives the output that the call as a user makes it gives, at
+    the default point and at a point of the sweep library, on the
+    triangle-lit scene with tri_nee."""
+    from path_tracer_c_tpu_torch.utils import tile_sweep as ts
+
+    scene = ts.scene_named("tri_lit", cuda_device)
+    cam = P.Camera.reference(cuda_device)
+    shape = (19, 45, 2, 4)
+    for point in (None, "8x16/4x8"):
+        call = ts._call(kind, scene, cam, shape, point, True)
+        alone = ts._alone(kind, scene, cam, shape, point, True)
+        ts._same_work(kind, alone(5), call(5), scene, f"{kind} {point}")

@@ -125,9 +125,10 @@ def test_reference_forward_groupings():
     scene = P.demo.glossy_scene("cpu")
     args = (scene, CAM, 11, 45, 3, 5, 7)
     kw = dict(jitter=True, sample_offset=2)
-    counts = rk.render_kernel_round_counts(*args, **kw)
+    rows32 = dict(tile="8x32/1x32")  # warps of one row of 32, as numpy groups them
+    counts = rk.render_kernel_round_counts(*args, **kw, **rows32)
     rounds = rk.reference_pixel_rounds(*args, **kw)
-    assert counts == rk.render_kernel_round_counts_reference(*args, **kw)
+    assert counts == rk.render_kernel_round_counts_reference(*args, **kw, **rows32)
     assert counts == rk.round_groupings(rounds)
     masks = np.stack([rounds.numpy() > b for b in range(6)], 1)[..., None]
     per_sample, regen = numpy_event_groupings(masks)

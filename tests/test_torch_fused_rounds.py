@@ -106,7 +106,7 @@ def test_fused_rounds_are_the_forward_kernel_s_without_a_black_albedo():
     assert torch.equal(rounds, rk.reference_pixel_rounds(*args, **kw))
     counts = rk.round_groupings(rounds)
     assert counts["warp_lane_rounds"] == rk.render_kernel_round_counts(
-        *args, **kw)["warp_lane_rounds"]
+        *args, **kw, tile=rg.FUSED_TILE)["warp_lane_rounds"]
     assert counts["warp_lane_rounds_regen"] < counts["warp_lane_rounds"]
 
 

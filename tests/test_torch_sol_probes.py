@@ -103,7 +103,8 @@ def test_warp_lane_rounds_at_a_ragged_shape(jitter, offset):
     scene = P.demo.glossy_scene("cpu")
     args = (scene, CAM, 19, 45, 3, 5, 7)
     kw = dict(jitter=jitter, sample_offset=offset)
-    counts = rk.render_kernel_round_counts(*args, **kw)
+    # warps of one row of 32, as numpy_warp_lane_rounds groups them
+    counts = rk.render_kernel_round_counts(*args, **kw, tile="8x32/1x32")
     per_pixel = rk.reference_pixel_rounds(*args, **kw)
     assert per_pixel.shape == (3, 19, 45) and per_pixel.dtype == torch.int64
     nominal = 19 * 45 * 3 * 6
