@@ -1,0 +1,7 @@
+"""B1's share of its roofline: the least time its counted operations and
+bytes need on the card (67 TFLOP/s float32, 3.35 TB/s) over its mean
+device time a launch in the trace."""
+
+
+def read(ctx):
+    return ctx.roofline_pct("b1")
