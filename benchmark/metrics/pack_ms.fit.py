@@ -1,0 +1,15 @@
+"""Mean host time of the program's packing spans (``pt.pack.*``,
+``utils/tracing.py``) in the traced window, one a fit step's forward: the
+library looked up and the scene's tables packed. The camera's parameters,
+whose copy waits for the card (for the last step's B2, contraction and
+Adam), are a span of their own (``pt.wait.camera_params``); the image and
+B2's zero-filled Jacobian are allocated after it, in ``pt.launch``.
+``None`` where the trace holds none (a program without them). A
+traced-window reading: it holds the profiler's host cost, as
+``device_idle_pct.fit`` does."""
+
+from harness import program_spans
+
+
+def read(ctx):
+    return program_spans.mean_ms(ctx, "pt.pack.")

@@ -210,6 +210,21 @@ import tempfile
 import time
 from pathlib import Path
 
+
+class _Launches:
+    """The port's launches since this was made, by kernel source stem:
+    ``since["render_fwd"]`` is what the counter ``launch.render_fwd``
+    (``utils/tracing.counters``) counted meanwhile."""
+
+    def __init__(self):
+        from path_tracer_c_tpu_torch.utils import tracing
+
+        self._counters, self._base = tracing.counters, tracing.counters()
+
+    def __getitem__(self, stem: str) -> int:
+        return (self._counters() - self._base)[f"launch.{stem}"]
+
+
 # Statistical tolerance of the JAX suite's kernel-against-core check
 # (tests/test_pallas.py). On the card the kernel is built to round as its
 # twin does and the two agree bit for bit (the "exact" share printed), but
@@ -670,14 +685,13 @@ def speed_of_light(dev, card, glossy, cam, specs, twin_rounds) -> dict:
         f"twin's")
 
     # The speed-of-light path: the four rates, then B1's decomposition.
-    probes = (flops.calib_kernel, sp.sol_null, sp.sol_micro, rk.render_kernel)
-    for fn in probes:
-        fn.launches = 0
+    since = _Launches()
     t0 = time.perf_counter()
     rates, samples = flops.measure_op_rates(dev, with_spread=True)
     decomposition = sol_decompose(dev, rates=rates)
     sol_seconds = time.perf_counter() - t0
-    n_calib, n_null, n_micro, n_fwd = (fn.launches for fn in probes)
+    n_calib, n_null, n_micro, n_fwd = (since[k] for k in ("calib", "sol_null", "sol_micro",
+                                                          "render_fwd"))
     log(f"speed-of-light path: measure_op_rates + sol_decompose in {sol_seconds:.1f} s launched "
         f"calib {n_calib}, sol_null {n_null}, sol_micro {n_micro}, render_kernel {n_fwd} time(s)")
     if min(n_calib, n_null, n_micro, n_fwd) < 1:
@@ -947,7 +961,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
             runs = {"one chunk": [], "chunked": [], "chunked, saved": []}
             order = ("one chunk", "chunked", "chunked, saved", "chunked, saved", "chunked",
                      "one chunk")
-            kernel.launches = 0
+            since = _Launches()
             for i, kind in enumerate(order):
                 out = tmp / f"{label}_{i}.bmp"
                 argv = ["render", *base, "--out", str(out)]
@@ -993,7 +1007,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
             if data != (tmp / f"{label}_1.bmp").read_bytes():
                 raise AssertionError(f"{label}: the resumed render differs from the chunked one")
             _npz_equal(path, tmp / f"{label}_2.npz", f"{label} resumed")
-            n = kernel.launches
+            n = since[name]
             launches[name][f"render --checkpoint-every {CHUNK_SPP} (6 renders, one interrupted "
                            f"and resumed)"] = n
             expected = 2 + 4 * (SPP // CHUNK_SPP) + SPP // CHUNK_SPP
@@ -1021,7 +1035,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
             nan_scene.materials, emission_strength=torch.full_like(
                 nan_scene.materials.emission_strength, float("nan"))))
         save_scene(tmp / "nan_scene.json", nan_scene)
-        rk.render_kernel.launches = 0
+        since = _Launches()
         try:
             _cli_quiet(cli_main, ["render", "--scene", str(tmp / "nan_scene.json"), "--width",
                                   "256", "--height", "256", "--spp", "4", "--max-bounces", "4",
@@ -1029,7 +1043,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
             raise AssertionError("--debug-nans: no FloatingPointError")
         except FloatingPointError as e:
             nan_msg = str(e)
-        if rk.render_kernel.launches != 1 or (tmp / "nan.bmp").exists():
+        if since["render_fwd"] != 1 or (tmp / "nan.bmp").exists():
             raise AssertionError("--debug-nans: not one kernel launch, or a BMP written")
         launches["render_fwd"]["render --debug-nans"] = 1
         log(f"long runs: CLI `render --debug-nans` on a NaN scene through B1 raised: {nan_msg}")
@@ -1052,7 +1066,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
         frame_ms = {"native": [], "numpy": []}
         window_ms = {"native": [], "numpy": []}
         frame_paths = {}
-        rk.render_kernel.launches = 0
+        since = _Launches()
         # In turns, then once more with the native writer under the profiler.
         for i, writer in enumerate(("native", "numpy", "numpy", "native", "native")):
             raw["out_dir"] = str(tmp / f"frames_{i}")
@@ -1074,7 +1088,10 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
                 native.available = real_available
             if i == 0:
                 sweep_calls = calls
-            recs = [json.loads(x) for x in metrics.read_text().splitlines()]
+            *recs, spans = [json.loads(x) for x in metrics.read_text().splitlines()]
+            if spans["kind"] != "spans" or spans["counters"]["launch.render_fwd"] != SWEEP_FRAMES:
+                raise AssertionError(f"sweep {i}: the last record is not the spans record of "
+                                     f"{SWEEP_FRAMES} launches: {spans}")
             frames = [x for x in recs if x["kind"] == "frame"]
             if len(frames) != SWEEP_FRAMES or {x["writer"] for x in recs} != {writer}:
                 raise AssertionError(f"sweep {i}: frames {len(frames)}, writers "
@@ -1105,7 +1122,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
             log(f"long runs: sweep {i} (writer {writer}): {seconds:.4f} s for {SWEEP_FRAMES} "
                 f"frames, {window:.2f} ms a frame after the first; gaps between hand-overs ms "
                 + ", ".join(f"{x:.1f}" for x in frame_ms[writer][-1]) + f" [{card}]")
-        sweep_launches = rk.render_kernel.launches
+        sweep_launches = since["render_fwd"]
         if sweep_launches != 5 * SWEEP_FRAMES:
             raise AssertionError(f"sweep: {sweep_launches} launches of B1")
         launches["render_fwd"][f"animate config 5 ({SWEEP_FRAMES} frames, 5 runs)"] = sweep_launches
@@ -1164,7 +1181,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
         for label, name, kernel, cfg_path, mode in fits:
             steps = load(cfg_path, FitConfig).steps
             every = ["--checkpoint-every", str(max(1, steps // 10))]
-            kernel.launches = 0
+            since = _Launches()
             base = ["fit", "--config", cfg_path, *mode, *every]
             full = _cli_quiet(cli_main, base + ["--checkpoint-path", str(tmp / f"{label}_a.npz")])
             _cli_quiet(cli_main, base + ["--steps", str(steps // 2), "--checkpoint-path",
@@ -1175,7 +1192,7 @@ def long_runs(pt, root: Path, dev, card: str, cli_main) -> dict:
             strip = lambda s: re.sub(r"in [\d.]+s, ", "", s)
             if strip(full) != strip(resumed):
                 raise AssertionError(f"{label} fit: lines differ: {full} / {resumed}")
-            n = kernel.launches
+            n = since[name]
             if n != 2 * steps:
                 raise AssertionError(f"{label} fit: {n} launches for {2 * steps} steps")
             launches[name][" ".join(["fit", *mode, "--checkpoint-path (3 runs: whole, half, "
@@ -1402,12 +1419,12 @@ def worker(argv) -> int:
         mesh = parallel.make_mesh(tile=world, spp=1, devices=[dev])
         status = parallel.distributed.health_check(mesh)
         glossy, cam = pt.demo.glossy_scene(dev), pt.Camera.reference(dev)
-        rk.render_kernel.launches = 0
+        since = _Launches()
         t0 = time.perf_counter()
         img = parallel.render_sharded(glossy, cam, H, W, SPP, BOUNCES, 1, mesh, engine="cuda")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = rk.render_kernel.launches
+        launches = since["render_fwd"]
         if rank == 0:
             torch.save({"image": img.cpu(), "status": status, "seconds": seconds,
                         "launches": launches,
@@ -1514,10 +1531,10 @@ def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
     sharded = {}
     for tile, spp_ax in ((8, 1), (c5.mesh.tile, c5.mesh.spp)):
         m = mesh(tile, spp_ax)
-        rk.render_kernel.launches = 0
+        since = _Launches()
         img = parallel.render_sharded(demo, cam, *frame, m, engine="cuda")
         torch.cuda.synchronize()
-        n = rk.render_kernel.launches
+        n = since["render_fwd"]
         launches["render_fwd"][f"render_sharded config 5 {tile}x{spp_ax}"] = n
         if n != tile * spp_ax:
             raise AssertionError(f"{tile}x{spp_ax}: B1 launched {n} times, not {tile * spp_ax}")
@@ -1550,14 +1567,14 @@ def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
     pshape = (pcfg.height, pcfg.width, pcfg.spp, pcfg.max_bounces, 1)
     pwhole = rp.render_physical_kernel(glossy, cam, *pshape, **pkw)
     for tile, spp_ax in ((4, 1), (2, 2)):
-        rp.render_physical_kernel.launches = 0
+        since = _Launches()
         img = parallel.render_sharded(glossy, cam, *pshape, mesh(tile, spp_ax),
                                       engine="physical_pallas", **pkw)
         torch.cuda.synchronize()
         launches["render_phys"][f"render_sharded config 3 {tile}x{spp_ax}"] = \
-            rp.render_physical_kernel.launches
+            since["render_phys"]
         what = (f"config 3 through render_sharded(physical_pallas) {tile}x{spp_ax}: "
-                f"{rp.render_physical_kernel.launches} launches of B3")
+                f"{since['render_phys']} launches of B3")
         if spp_ax == 1:
             if not torch.equal(img, pwhole):
                 raise AssertionError(f"{what}: differs from the unsharded render")
@@ -1578,12 +1595,12 @@ def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
     leaves = [(tb, nm) for tb, nm in rg._GRAD_LEAVES]
     live = [getattr(getattr(spheres, tb) if tb else spheres, nm).detach().clone().requires_grad_()
             for tb, nm in leaves]
-    rg.render_fused.launches = 0
+    since = _Launches()
     img = parallel.render_sharded(rg.replace_leaves(spheres, [(tb, nm, t) for (tb, nm), t in
                                                                zip(leaves, live)]),
                                   cam, *fshape, 3, m22, engine="cuda")
     g_sharded = torch.autograd.grad(torch.mean((img - target) ** 2), live)
-    launches["render_fused"]["render_sharded 2x2 gradient"] = rg.render_fused.launches
+    launches["render_fused"]["render_sharded 2x2 gradient"] = since["render_fused"]
     _, d_scene = diff.loss_and_grad(spheres, target, cam, *fshape, 3, engine="cuda")
     for (tb, nm), g in zip(leaves, g_sharded):
         ref = getattr(getattr(d_scene, tb) if tb else d_scene, nm)
@@ -1593,9 +1610,9 @@ def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
         f"{len(leaves)} leaves")
     params = diff.make_material_params(spheres)
     step = parallel.make_train_step(cam, *fshape, m22, diff.apply_material_params, engine="cuda")
-    rg.render_fused.launches = 0
+    since = _Launches()
     step(params, type("NoStep", (), {"step": staticmethod(lambda: None)})(), spheres, target, 3)
-    launches["render_fused"]["make_train_step 2x2"] = rg.render_fused.launches
+    launches["render_fused"]["make_train_step 2x2"] = since["render_fused"]
     probe = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
     ref_loss = diff.render_loss(diff.apply_material_params(spheres, probe), target, cam, *fshape, 3,
                                 engine="cuda")
@@ -1614,9 +1631,9 @@ def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
         raw["steps"] = 20
         fit_cfg = tmp / "fit_2x2.json"
         fit_cfg.write_text(json.dumps(raw))
-        rg.render_fused.launches = 0
+        since = _Launches()
         line = _cli_quiet(cli_main, ["fit", "--config", str(fit_cfg)])
-        n = rg.render_fused.launches
+        n = since["render_fused"]
         launches["render_fused"]["CLI fit on a 2x2 mesh"] = n
         got = re.search(r"fit on mesh 2x2: 20 steps in .*loss ([\d.e+-]+) -> ([\d.e+-]+)", line)
         if not got or n != 80 or not float(got.group(2)) < float(got.group(1)):
@@ -1637,11 +1654,11 @@ def sharded_runs(pt, root: Path, dev, card: str, cli_main, glossy, cam) -> dict:
         gparams = diff.make_geometry_params(moved, (li,))
         gstep = parallel.make_train_step(cam, *gshape, m22, apply_geo, engine="physical_pallas",
                                          geom=True)
-        pg.render_physical_fused.launches = 0
+        since = _Launches()
         gstep(gparams, type("NoStep", (), {"step": staticmethod(lambda: None)})(), moved,
               gtarget, 9)
         launches["render_phys_fused"]["make_train_step 2x2 geometry"] = \
-            pg.render_physical_fused.launches
+            since["render_phys_fused"]
         gprobe = {k: v.detach().clone().requires_grad_() for k, v in gparams.items()}
         img = pg.render_physical_kernel_vjp(apply_geo(moved, gprobe), cam, *gshape, 9,
                                             jitter=False, geom=True)
@@ -1793,7 +1810,7 @@ def script_runs(pt, dev, card: str) -> dict:
     del first, second
 
     # The capacity sweep.
-    rk.render_kernel.launches = rp.render_physical_kernel.launches = 0
+    since = _Launches()
     for line in cs.sweep(dev, cs.SHAPE):
         log(json.dumps(line))
         for key, physical in (("fwd", False), ("physical", True)):
@@ -1806,14 +1823,14 @@ def script_runs(pt, dev, card: str) -> dict:
                                      "placement or instantiation time wrong")
     torch.cuda.synchronize()
     n_calls = len(cs.SWEEPS) * len(cs.POINTS) * 4  # a warm-up call and three timed
-    for name, n in (("render_fwd", rk.render_kernel.launches),
-                    ("render_phys", rp.render_physical_kernel.launches)):
+    for name, n in (("render_fwd", since["render_fwd"]),
+                    ("render_phys", since["render_phys"])):
         if n != n_calls:
             raise AssertionError(f"capacity sweep: {name} launched {n} times, not {n_calls}")
         launches[name]["capacity sweep"] = n
 
     # The geometry gradient, fused against eager.
-    rp.render_physical_kernel.launches = pg.render_physical_fused.launches = 0
+    since = _Launches()
     asym = ga.geom_asym(dev, pair_eager_reps=1,
                         log=lambda msg: log(f"  geom_asym: {msg} [{card}]"))
     torch.cuda.synchronize()
@@ -1822,10 +1839,10 @@ def script_runs(pt, dev, card: str) -> dict:
         raise AssertionError("geom_asym: a fused gradient leaf is not finite")
     if not all(v > 0 for k, v in asym.items() if k.endswith("_seconds") and v is not None):
         raise AssertionError("geom_asym: a time is not positive")
-    launches["render_phys"]["geom_asym targets"] = rp.render_physical_kernel.launches
-    launches["render_phys_fused"]["geom_asym fused sides"] = pg.render_physical_fused.launches
-    if pg.render_physical_fused.launches != 3 * 5:  # warm-up, three timed, one checked
-        raise AssertionError(f"geom_asym: B4 launched {pg.render_physical_fused.launches} "
+    launches["render_phys"]["geom_asym targets"] = since["render_phys"]
+    launches["render_phys_fused"]["geom_asym fused sides"] = since["render_phys_fused"]
+    if since["render_phys_fused"] != 3 * 5:  # warm-up, three timed, one checked
+        raise AssertionError(f"geom_asym: B4 launched {since['render_phys_fused']} "
                              "times, not 15")
 
     # The scaling harness on B1.
@@ -1833,14 +1850,14 @@ def script_runs(pt, dev, card: str) -> dict:
     visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     for label, devices in (("visible", visible), ("cuda:0 x2", [dev] * 2),
                            ("cuda:0 x4", [dev] * 4)):
-        rk.render_kernel.launches = 0
+        since = _Launches()
         for line, image in sc.scaling(devices, sc.SHAPE, "pallas"):
             log(json.dumps(line))
             if not torch.equal(image, whole):
                 raise AssertionError(f"scaling {label} {line['mesh']}: differs from the "
                                      "unsharded B1 image")
         torch.cuda.synchronize()
-        launches["render_fwd"][f"scaling {label}"] = rk.render_kernel.launches
+        launches["render_fwd"][f"scaling {label}"] = since["render_fwd"]
     log(f"scaling: every mesh's image equals the unsharded B1 image bit for bit [{card}]")
     return {"launches": launches, "max_abs_err": max_err}
 
@@ -1922,7 +1939,7 @@ def main() -> int:
     log("forward kernel and its measurement instantiations vs plain twin (on the card, value "
         "for value, unless named):")
     cam = pt.Camera.reference(dev)
-    launches0 = rk.render_kernel.launches
+    since = _Launches()
     max_err = 0.0
     demo_names = ("demo_scene", "glossy_scene", "cornell_spheres_scene")
     small_cases = ((False, 0, 4), (True, 3, 8))  # jitter, sample offset, bounces
@@ -1951,16 +1968,16 @@ def main() -> int:
                                    sample_offset=2, jitter=True)
     s = compare(k.cpu(), r, "demo_scene 24x40 2spp 4b jitter, twin on the CPU")
     max_err = max(max_err, s["max"])
-    if rk.render_kernel.launches <= launches0:
+    if since["render_fwd"] < 1:
         raise AssertionError("render_kernel did not launch its kernel")
 
     # -- 4. the forward main path, through the CLI --
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "glossy.bmp"
-        rk.render_kernel.launches = 0
+        since = _Launches()
         cli_main(["render", "--scene", "glossy", "--width", str(W), "--height", str(H),
                   "--spp", str(SPP), "--max-bounces", str(BOUNCES), "--out", str(out)])
-        fwd_launches = rk.render_kernel.launches
+        fwd_launches = since["render_fwd"]
         log(f"forward main path: render_kernel launched {fwd_launches} time(s)")
         if fwd_launches < 1:
             raise AssertionError("the CLI render did not go through the kernel")
@@ -2039,11 +2056,11 @@ def main() -> int:
 
     # -- 7. the gradient main path --
     target = rk.render_kernel(glossy, cam, H, W, SPP, BOUNCES, 12345)
-    rg.render_fused.launches = 0
+    since = _Launches()
     torch.cuda.reset_peak_memory_stats()
     loss, d_scene = diff.loss_and_grad(glossy, target, cam, H, W, SPP, BOUNCES, 1, engine="cuda")
     torch.cuda.synchronize()
-    lg_launches = rg.render_fused.launches
+    lg_launches = since["render_fused"]
     peak = torch.cuda.max_memory_allocated()
     dm = d_scene.materials
     log(f"gradient main path: loss_and_grad launched render_fused {lg_launches} time(s), "
@@ -2069,13 +2086,13 @@ def main() -> int:
 
     steps = fcfg.steps
     buf = io.StringIO()
-    rg.render_fused.launches = 0
+    since = _Launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         cli_main(["fit", "--config", str(root / FIT_CONFIG)])
     torch.cuda.synchronize()
     fit_seconds = time.perf_counter() - t0
-    fit_launches = rg.render_fused.launches
+    fit_launches = since["render_fused"]
     fit_line = buf.getvalue().strip().splitlines()[-1]
     log(f"gradient main path: CLI `fit --config {FIT_CONFIG}` ({steps} steps, "
         f"{fit_seconds:.1f} s): {fit_line}")
@@ -2090,7 +2107,7 @@ def main() -> int:
 
     # -- 8. physical kernel against its plain twin --
     log("physical kernel vs plain twin (both on the card unless named):")
-    phys_launches0 = rp.render_physical_kernel.launches
+    since = _Launches()
     phys_err = 0.0
     phys_scenes = {**scenes, "diffuse_sphere_scene (no emitter)": pt.demo.diffuse_sphere_scene(dev),
                    "tri_light_scene": tri_light_scene(pt, dev)}
@@ -2161,17 +2178,17 @@ def main() -> int:
                                             sample_offset=2, tri_nee=True)
     s = compare_physical(k.cpu(), r, "tri_light_scene 24x40 2spp 4b tri_nee, twin on the CPU")
     phys_err = max(phys_err, s["max"])
-    if rp.render_physical_kernel.launches <= phys_launches0:
+    if since["render_phys"] < 1:
         raise AssertionError("render_physical_kernel did not launch its kernel")
 
     # -- 9. the physical main path, through the CLI --
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "config3.bmp"
-        rp.render_physical_kernel.launches = 0
+        since = _Launches()
         t0 = time.perf_counter()
         cli_main(["render", "--config", str(root / PHYS_CONFIG), "--out", str(out)])
         phys_cli_seconds = time.perf_counter() - t0
-        phys_launches = rp.render_physical_kernel.launches
+        phys_launches = since["render_phys"]
         log(f"physical main path: CLI `render --config {PHYS_CONFIG}` launched "
             f"render_physical_kernel {phys_launches} time(s), {phys_cli_seconds * 1e3:.1f} ms "
             f"to the written BMP [{card}]")
@@ -2322,12 +2339,12 @@ def main() -> int:
     # -- 12. the physical gradient's main path --
     n_live = rp.live_emitter_count(glossy)
     phys_target = rp.render_physical_kernel(glossy, cam, H, W, SPP, BOUNCES, 12345, jitter=False)
-    pg.render_physical_fused.launches = pg.render_physical_bwd.launches = 0
+    since = _Launches()
     torch.cuda.reset_peak_memory_stats()
     loss, d_scene = diff.loss_and_grad(glossy, phys_target, cam, H, W, SPP, BOUNCES, 1,
                                        engine="physical_pallas")
     torch.cuda.synchronize()
-    plg_launches = pg.render_physical_fused.launches
+    plg_launches = since["render_phys_fused"]
     peak_lg = torch.cuda.max_memory_allocated()
     dm = d_scene.materials
     log(f"physical gradient main path: loss_and_grad(engine='physical_pallas') launched "
@@ -2354,7 +2371,7 @@ def main() -> int:
                                         n_em_cap=n_live)
     vjp_grads = torch.autograd.grad(img, leaves, g_main, allow_unused=True)
     torch.cuda.synchronize()
-    pvjp_launches = pg.render_physical_fused.launches - plg_launches
+    pvjp_launches = since["render_phys_fused"] - plg_launches
     peak_geo = torch.cuda.max_memory_allocated()
     d_vjp = pg._with_leaves(rg.zeros_like_scene(glossy),
                             [torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, vjp_grads)])
@@ -2373,7 +2390,7 @@ def main() -> int:
     # The oracle at the same shape, against the fused path's cotangents.
     d5 = pg.render_physical_bwd(glossy, cam, g_main, H, W, SPP, BOUNCES, 1, n_em_cap=n_live)
     torch.cuda.synchronize()
-    pbwd_launches = pg.render_physical_bwd.launches
+    pbwd_launches = since["render_phys_bwd"]
     if pbwd_launches != 1:
         raise AssertionError("render_physical_bwd did not launch its kernel once")
     log(f"physical gradient main path: render_physical_bwd launched its kernel {pbwd_launches} time(s)")
@@ -2451,14 +2468,14 @@ def main() -> int:
                      "materials": float("inf")}
         for mode in ("geometry", "roughness", "materials"):
             buf = io.StringIO()
-            pg.render_physical_fused.launches = 0
+            since = _Launches()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 cli_main(["fit", "--config", str(cfg_path), "--mode", mode])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             line = buf.getvalue().strip().splitlines()[-1]
-            launches = pg.render_physical_fused.launches
+            launches = since["render_phys_fused"]
             log(f"physical gradient main path: CLI `fit --mode {mode} --engine physical_pallas` "
                 f"({fit_steps} steps, {seconds:.1f} s, render_physical_fused launched {launches} "
                 f"time(s)): {line}")

@@ -684,8 +684,20 @@ def build_parser():
 
 
 def main(argv=None):
+    """Run a subcommand. With ``--metrics`` it runs under
+    ``utils/tracing.recording()``, and its last record (``"kind": "spans"``)
+    holds each span's count, total and largest milliseconds by name
+    (``spans``) and what the counters counted (``counters``)."""
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    if not args.metrics:
+        return args.fn(args)
+    from ..utils import tracing
+    from ..utils.metrics import MetricsLogger
+
+    with tracing.recording() as rec:
+        out = args.fn(args)
+    MetricsLogger(args.metrics).log("spans", **rec.summary())
+    return out
 
 
 if __name__ == "__main__":

@@ -68,6 +68,7 @@ from ..ops.render_physical import (
 from ..ops.render_physical_grad import render_physical_kernel_vjp
 from ..scene.scene import Scene
 from ..utils import checkpoint as _ckpt
+from ..utils.tracing import wait
 
 __all__ = [
     "mse_loss",
@@ -291,7 +292,10 @@ def _run_fit_loop(step_fn, steps, seed0, callback, params, opt, checkpoint_path=
     save the variables, ``state``, Adam's state and the losses; an existing
     file is resumed from, and one that is complete runs no step. Losses
     stay on the device until a save or the end unless a callback wants each
-    one, so the host does not wait for the device every step."""
+    one, so the host does not wait for the device every step. Where it
+    waits is a span of its own (``utils/tracing.wait``): ``pt.wait.loss``
+    (a callback's loss), ``pt.wait.flush`` (the losses kept on the device)
+    and ``pt.wait.checkpoint`` (a save)."""
     state = {} if state is None else state
     start, losses, pending = 0, [], []
     if checkpoint_path and Path(checkpoint_path).exists():
@@ -305,21 +309,24 @@ def _run_fit_loop(step_fn, steps, seed0, callback, params, opt, checkpoint_path=
 
     def flush():
         if pending:
-            losses.extend(torch.stack(pending).tolist())
+            with wait("flush"):
+                losses.extend(torch.stack(pending).tolist())
             pending.clear()
 
     for i in range(start, steps):
         loss = step_fn((seed0 + i + 1) & 0xFFFFFFFF)
         if callback is not None:
-            losses.append(float(loss))
+            with wait("loss"):
+                losses.append(float(loss))
             callback(i, losses[-1])
         else:
             pending.append(loss)
         if checkpoint_path and checkpoint_every and (
                 (i + 1) % checkpoint_every == 0 or i + 1 == steps):
             flush()
-            _ckpt.save_fit(checkpoint_path, i + 1, {**params, **state},
-                           _adam_state(opt, params), losses)
+            with wait("checkpoint"):
+                _ckpt.save_fit(checkpoint_path, i + 1, {**params, **state},
+                               _adam_state(opt, params), losses)
     flush()
     return losses
 

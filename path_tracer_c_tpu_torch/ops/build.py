@@ -9,7 +9,9 @@ loaded as it is. ptxas's account of every kernel (registers, spills, local
 memory) is kept beside the library; ``resource_usage`` reads it and
 ``ptxas_entries`` parses it, ``sass_opcodes`` counts instructions in a
 built library's SASS and ``demangle`` names its kernels. Nothing is
-prebuilt or downloaded. Nothing here runs at import.
+prebuilt or downloaded. Nothing here runs at import. A build is the span
+``pt.build.kernels`` (``pt.build.sweep``), counted in ``build.kernels``
+(``build.sweep``; ``utils/tracing.py``).
 
 That timed library holds every render kernel at its default launch shape
 (``csrc/pt_sched.cuh`` ``DefaultTile``). The other shapes form the sweep
@@ -275,6 +277,18 @@ def _build(lib_path: Path, units) -> None:
             os.unlink(tmp)
 
 
+def _build_counted(library: str, lib_path: Path, units) -> None:
+    """``_build`` as the span ``pt.build.<library>``, counted in
+    ``build.<library>`` (``utils/tracing.py``). Imported here, not at the
+    top: ``utils/tile_sweep.py`` and ``scripts/torch_fused_times.py`` load
+    this file by its path, outside the package, for its parsers."""
+    from ..utils.tracing import count, span
+
+    count(f"build.{library}")
+    with span(f"pt.build.{library}"):
+        _build(lib_path, units)
+
+
 def _declare(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
     for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)
@@ -289,7 +303,7 @@ def load_library() -> ctypes.CDLL:
     entry points' argument types. Raises if nvcc fails."""
     lib_path = library_path()
     if not lib_path.exists():
-        _build(lib_path, [(src, (), None) for src in _sources()])
+        _build_counted("kernels", lib_path, [(src, (), None) for src in _sources()])
     return _declare(ctypes.CDLL(str(lib_path)), _SIGNATURES)
 
 
@@ -301,7 +315,7 @@ def load_sweep_library(units: tuple) -> ctypes.CDLL:
     ``<stem>_tiled_<point>``. Raises if nvcc fails."""
     lib_path = sweep_library_path(units)
     if not lib_path.exists():
-        _build(lib_path, [(_CSRC / f"{stem}.cu", (f"-DPT_TILE_POINT={k}",),
-                           f"{stem} point {k}") for stem, k in units])
+        _build_counted("sweep", lib_path, [(_CSRC / f"{stem}.cu", (f"-DPT_TILE_POINT={k}",),
+                                            f"{stem} point {k}") for stem, k in units])
     return _declare(ctypes.CDLL(str(lib_path)),
                     {f"{stem}_tiled_{k}": TILED_ENTRIES[stem] for stem, k in units})

@@ -40,6 +40,7 @@ from . import render_kernel as _rk
 from .camera import Camera
 from .rng import _f32
 from ..scene.scene import Scene
+from ..utils.tracing import count, span, wait
 
 __all__ = [
     "render_fused", "render_fused_reference", "render_fused_round_counts",
@@ -115,9 +116,10 @@ def render_fused(
     material is exactly black).
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
-    ``render_fused.launches`` counts its launches. CPU tensors go to
-    ``render_fused_reference``. Any other device raises, and so does
-    ``max_bounces > MAX_BOUNCES`` on every device.
+    the counter ``launch.render_fused`` (``utils/tracing.py``) counts its
+    launches. CPU tensors go to ``render_fused_reference``. Any other
+    device raises, and so does ``max_bounces > MAX_BOUNCES`` on every
+    device.
 
     ``jac`` takes ``(9 * M + 3) * H * W * 4`` bytes (579 MB at 1024 x 1024
     with 15 materials). The wrapper allocates it zero-filled; the kernel
@@ -126,14 +128,10 @@ def render_fused(
     ``tile``: the launch shape (``render_kernel.TILES``; default
     ``FUSED_TILE``) as ``fused_tile`` fits it; no output depends on it.
     """
-    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                             sample_offset, row_start, rows)
-    if max_bounces > MAX_BOUNCES:
-        raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
-                         f"cap of {MAX_BOUNCES}")
-    t = fused_tile(scene, rows, width, max_bounces, FUSED_TILE if tile is None else tile)
-    device = scene.device
-    if device.type == "cpu":
+    with span("pt.check.render_fused"):
+        rows, t = _fused_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                sample_offset, row_start, rows, tile)
+    if scene.device.type == "cpu":
         return render_fused_reference(
             scene, camera, height, width, spp, max_bounces, seed,
             sample_offset=sample_offset, jitter=jitter, count_rounds=count_rounds,
@@ -142,53 +140,66 @@ def render_fused(
     img, jac, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
                                 sample_offset, jitter, count_rounds, row_start=row_start,
                                 rows=rows, tile=t)
-    return (img, jac, int(counter[0])) if count_rounds else (img, jac)
+    if not count_rounds:
+        return img, jac
+    with wait("count_rounds"):
+        return img, jac, int(counter[0])
 
 
-render_fused.launches = 0
+def _fused_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
+                  row_start, rows, tile):
+    """``render_kernel._check_inputs`` and B2's cap on the bounces; returns
+    the block's row count and the point ``fused_tile`` fits ``tile`` to."""
+    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
+    if max_bounces > MAX_BOUNCES:
+        raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
+                         f"cap of {MAX_BOUNCES}")
+    return rows, fused_tile(scene, rows, width, max_bounces, FUSED_TILE if tile is None else tile)
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            count, variant=None, row_start=0, rows=None, tile=None):
+            count_on, variant=None, row_start=0, rows=None, tile=None):
     """Launch B2 on the scene's CUDA device over the block of ``rows`` rows
     (None: all) from ``row_start``: the timed kernel at point ``tile``
     (None: the default), its counting
-    instantiation (``count``: the counters, thread-rounds and warp
+    instantiation (``count_on``: the counters, thread-rounds and warp
     lane-rounds, come back beside the planes), or a measurement variant."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_fused runs on CUDA or CPU tensors, not {device}")
-    from .build import load_library
+    with span("pt.pack.render_fused"):
+        from .build import load_library
 
-    lib = load_library()
-    if lib.render_fused_max_bounces() != MAX_BOUNCES:
-        raise RuntimeError("csrc/render_fused.cu and MAX_BOUNCES disagree")
-    if scene.num_materials > MAX_MATERIALS:
-        raise ValueError(f"{scene.num_materials} materials: render_fused stores a "
-                         f"material index as int16, at most {MAX_MATERIALS}")
-    operands = _rk._scene_operands(scene)
-    par = _rk._camera_params(camera, scene, height, width)
-    n_j = _MAT_J_PLANES * scene.num_materials + 3
-    rows = height if rows is None else rows
-    img = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
-    jac = torch.zeros((n_j, rows, width), dtype=torch.float32, device=device)
-    counter = torch.zeros(2, dtype=torch.int64, device=device) if count else None
-    args = (*_rk._table_args(operands), _rk._ptr(par), _rk._ptr(img), _rk._ptr(jac))
-    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
-                        row_start, rows)
-    if variant is None:
+        lib = load_library()
+        if lib.render_fused_max_bounces() != MAX_BOUNCES:
+            raise RuntimeError("csrc/render_fused.cu and MAX_BOUNCES disagree")
+        if scene.num_materials > MAX_MATERIALS:
+            raise ValueError(f"{scene.num_materials} materials: render_fused stores a "
+                             f"material index as int16, at most {MAX_MATERIALS}")
         t = _rk.tile_point(tile, "fused")
-        err = _rk._entry("render_fused", t)(*args, _rk._ptr(counter), *run)
-        name = f"render_fused at {t.name}"
-    else:
-        err = lib.render_fused_variant(VARIANTS[variant], *args, *run)
-        name = f"render_fused variant {variant}"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if variant is None:
-        render_fused.launches += 1
-    else:
-        render_fused_variant.launches += 1
+        _rk._library("render_fused", t)
+        operands = _rk._scene_operands(scene)
+    with wait("camera_params"):
+        par = _rk._camera_params(camera, scene, height, width)
+    with span("pt.launch.render_fused"):
+        n_j = _MAT_J_PLANES * scene.num_materials + 3
+        rows = height if rows is None else rows
+        img = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
+        jac = torch.zeros((n_j, rows, width), dtype=torch.float32, device=device)
+        counter = torch.zeros(2, dtype=torch.int64, device=device) if count_on else None
+        args = (*_rk._table_args(operands), _rk._ptr(par), _rk._ptr(img), _rk._ptr(jac))
+        run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter,
+                            device, row_start, rows)
+        if variant is None:
+            err = _rk._entry("render_fused", t)(*args, _rk._ptr(counter), *run)
+            name = f"render_fused at {t.name}"
+        else:
+            err = lib.render_fused_variant(VARIANTS[variant], *args, *run)
+            name = f"render_fused variant {variant}"
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        count("launch.render_fused" if variant is None else "launch.render_fused.variant")
     return img, jac, counter
 
 
@@ -212,17 +223,14 @@ def render_fused_round_counts(
     times its lanes in the image, summed over warps: per sample, as many as
     that sample's longest lane (every lane waits at the end of a sample).
     CUDA tensors run the kernel's counting instantiation (a launch: it
-    counts in ``render_fused.launches``), CPU tensors the plain twin, which
+    counts in ``launch.render_fused``), CPU tensors the plain twin, which
     also gives ``warp_lane_rounds_regen``, the rounds path regeneration
     would run (each warp as many as its busiest lane's total over all
     samples). A warp is the footprint of the launch's point (``fused_tile``
     of ``tile``)."""
-    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                             sample_offset, row_start, rows)
-    if max_bounces > MAX_BOUNCES:
-        raise ValueError(f"max_bounces {max_bounces} is above the fused kernel's "
-                         f"cap of {MAX_BOUNCES}")
-    t = fused_tile(scene, rows, width, max_bounces, FUSED_TILE if tile is None else tile)
+    with span("pt.check.render_fused"):
+        rows, t = _fused_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                sample_offset, row_start, rows, tile)
     if scene.device.type == "cpu":
         return render_fused_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
@@ -230,7 +238,8 @@ def render_fused_round_counts(
     _, _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
                             sample_offset, jitter, True, row_start=row_start, rows=rows,
                             tile=t)
-    thread_rounds, warp_rounds = counter.tolist()
+    with wait("count_rounds"):
+        thread_rounds, warp_rounds = counter.tolist()
     return {"thread_rounds": thread_rounds, "warp_lane_rounds": warp_rounds}
 
 
@@ -271,20 +280,19 @@ def render_fused_variant(
     user path runs it. The image and, but for ``sink`` (whose planes hold
     one sum a pixel), the planes equal ``render_fused``'s.
     ``registers`` takes ``max_bounces <= 3``. Counts its launches in
-    ``render_fused_variant.launches``."""
-    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                             sample_offset, row_start, rows)
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
-    cap = REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
-    if max_bounces > cap:
-        raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap of {cap}")
+    ``launch.render_fused.variant``."""
+    with span("pt.check.render_fused"):
+        rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                 sample_offset, row_start, rows)
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+        cap = REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
+        if max_bounces > cap:
+            raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap "
+                             f"of {cap}")
     img, jac, _ = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                           jitter, False, variant=variant, row_start=row_start, rows=rows)
     return img, jac
-
-
-render_fused_variant.launches = 0
 
 
 # -- the plain twin --------------------------------------------------------
@@ -462,8 +470,9 @@ def contract_jacobian(scene: Scene, jac, g, spp: int) -> Scene:
     Every other leaf's cotangent is zero by contract (module docstring).
     """
     mats = scene.materials
-    five = _contract(jac, g, spp, mats.albedo, mats.emission_color, mats.emission_strength)
-    return _with_leaves(zeros_like_scene(scene), five)
+    with span("pt.contract.render_fused"):
+        five = _contract(jac, g, spp, mats.albedo, mats.emission_color, mats.emission_strength)
+        return _with_leaves(zeros_like_scene(scene), five)
 
 
 class _RenderFused(torch.autograd.Function):
@@ -475,11 +484,12 @@ class _RenderFused(torch.autograd.Function):
     def forward(ctx, albedo, emission_color, emission_strength, transparency,
                 sky_color, scene, camera, height, width, spp, max_bounces, seed,
                 sample_offset, jitter, row_start, rows, tile):
-        leaves = (albedo, emission_color, emission_strength, transparency, sky_color)
+        with span("pt.check.render_fused"):
+            leaves = (albedo, emission_color, emission_strength, transparency, sky_color)
+            scene = _with_leaves(scene, leaves)
         img, jac = render_fused(
-            _with_leaves(scene, leaves), camera, height, width, spp, max_bounces,
-            seed, sample_offset=sample_offset, jitter=jitter, row_start=row_start, rows=rows,
-            tile=tile)
+            scene, camera, height, width, spp, max_bounces, seed, sample_offset=sample_offset,
+            jitter=jitter, row_start=row_start, rows=rows, tile=tile)
         ctx.save_for_backward(jac, albedo, emission_color, emission_strength)
         ctx.spp = spp
         return img
@@ -487,9 +497,10 @@ class _RenderFused(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        jac, albedo, emission_color, emission_strength = ctx.saved_tensors
-        return (*_contract(jac, g, ctx.spp, albedo, emission_color, emission_strength),
-                *(None,) * 12)
+        with span("pt.contract.render_fused"):
+            jac, albedo, emission_color, emission_strength = ctx.saved_tensors
+            return (*_contract(jac, g, ctx.spp, albedo, emission_color, emission_strength),
+                    *(None,) * 12)
 
 
 def render_kernel_vjp(

@@ -25,6 +25,7 @@ from . import rng as _rng
 from .camera import Camera, check_rows, pixel_indices
 from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
+from ..utils.tracing import count, span, wait
 
 __all__ = ["render_kernel", "render_kernel_reference", "render_kernel_round_counts",
            "render_kernel_round_counts_reference", "render_kernel_variant", "packed_launcher",
@@ -220,16 +221,26 @@ def _sweep_units() -> tuple:
                  for n in KIND_TILES[kind] if n != tile_point(None, kind).name)
 
 
-def _entry(stem: str, t: Tile):
-    """The C entry of the timed kernel ``stem`` at point ``t``: the timed
-    library's at the kernel's default point, else the sweep library's, built
-    on its first use (``ops/build.py``)."""
+def _at_default(stem: str, t: Tile) -> bool:
+    """Whether ``t`` is the timed kernel ``stem``'s default point."""
+    return t == tile_point(None, next(k for k, v in KINDS.items() if v == stem))
+
+
+def _library(stem: str, t: Tile):
+    """The library that holds the timed kernel ``stem``'s entry at point
+    ``t``: the timed library at the kernel's default point, else the sweep
+    library; each built on its first use (``ops/build.py``). A wrapper loads
+    it while it packs, so that a build never runs inside a launch's span."""
     from .build import load_library, load_sweep_library
 
-    kind = next(k for k, v in KINDS.items() if v == stem)
-    if t == tile_point(None, kind):
-        return getattr(load_library(), stem)
-    return getattr(load_sweep_library(_sweep_units()), f"{stem}_tiled_{list(TILES).index(t.name)}")
+    return load_library() if _at_default(stem, t) else load_sweep_library(_sweep_units())
+
+
+def _entry(stem: str, t: Tile):
+    """The C entry of the timed kernel ``stem`` at point ``t``, in
+    ``_library``'s library."""
+    name = stem if _at_default(stem, t) else f"{stem}_tiled_{list(TILES).index(t.name)}"
+    return getattr(_library(stem, t), name)
 
 
 def policy(variant: str | None = None) -> dict:
@@ -386,7 +397,9 @@ def _cuda_only(scene: Scene, name: str):
 
 def _camera_params(camera: Camera, scene: Scene, height: int, width: int):
     """(17,) float32: tan(fov/2), aspect, sky rgb, camera origin, right,
-    up, forward. Built on the scene's device, without a host sync."""
+    up, forward, on the scene's device. The aspect is copied from the
+    host's pageable memory, which waits for the device's stream: a launch
+    takes it under ``wait("camera_params")``."""
     device = scene.device
     tan2 = torch.tan(camera.fov * 0.5).reshape(1)
     aspect = torch.tensor([_f32(width / height)], dtype=torch.float32, device=device)
@@ -443,8 +456,9 @@ def render_kernel(
     and ``row_start + rows <= height``.
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
-    ``render_kernel.launches`` counts its launches. CPU tensors go to
-    ``render_kernel_reference``. Any other device raises.
+    the counter ``launch.render_fwd`` (``utils/tracing.py``) counts its
+    launches. CPU tensors go to ``render_kernel_reference``. Any other
+    device raises.
 
     ``count_rounds=True`` returns ``(image, executed_rounds)``: the bounce
     rounds that ran, summed over threads (one per pixel) and samples, as a
@@ -459,9 +473,10 @@ def render_kernel(
     point raises ``ValueError`` on every device. The image and the
     thread-rounds do not depend on it; the twin takes none.
     """
-    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         row_start, rows)
-    t = fit_tile("fwd", scene, rows, width, max_bounces, tile)
+    with span("pt.check.render_fwd"):
+        rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
+        t = fit_tile("fwd", scene, rows, width, max_bounces, tile)
     device = scene.device
     if device.type == "cpu":
         return render_kernel_reference(
@@ -472,45 +487,43 @@ def render_kernel(
     out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed,
                            sample_offset, jitter, count_rounds, row_start=row_start, rows=rows,
                            tile=t)
-    return (out, int(counter[0])) if count_rounds else out
-
-
-render_kernel.launches = 0
+    if not count_rounds:
+        return out
+    with wait("count_rounds"):
+        return out, int(counter[0])
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-            count, variant=None, row_start=0, rows=None, tile=None):
+            count_on, variant=None, row_start=0, rows=None, tile=None):
     """Launch B1 on the scene's CUDA device over the block of ``rows`` rows
     (None: all) from ``row_start``: the timed kernel at point ``tile``
     (None: the default), or with ``variant`` an instantiation of
-    ``VARIANTS``; with ``count``, its counting instantiation, whose two
+    ``VARIANTS``; with ``count_on``, its counting instantiation, whose two
     counters (thread-rounds, warp lane-rounds of its schedule) come back
     beside the image."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
-    from .build import load_library
-
-    lib = load_library()
-    t = tile_point(tile, "fwd")
-    operands = _scene_operands(scene)
-    par = _camera_params(camera, scene, height, width)
-    rows = height if rows is None else rows
-    out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
-    counter = torch.zeros(2, dtype=torch.int64, device=device) if count else None
-    args = (*_table_args(operands), _ptr(par), _ptr(out), _ptr(counter),
-            *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
-                       row_start, rows))
-    if variant is None:
-        err, name = _entry("render_fwd", t)(*args), f"render_fwd at {t.name}"
-    else:
-        err, name = lib.render_fwd_variant(VARIANTS[variant], *args), f"render_fwd {variant}"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if variant is None:
-        render_kernel.launches += 1
-    else:
-        render_kernel_variant.launches += 1
+    with span("pt.pack.render_fwd"):
+        t = tile_point(tile, "fwd")
+        lib = _library("render_fwd", t)
+        operands = _scene_operands(scene)
+    with wait("camera_params"):
+        par = _camera_params(camera, scene, height, width)
+    with span("pt.launch.render_fwd"):
+        rows = height if rows is None else rows
+        out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
+        counter = torch.zeros(2, dtype=torch.int64, device=device) if count_on else None
+        args = (*_table_args(operands), _ptr(par), _ptr(out), _ptr(counter),
+                *_run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
+                           row_start, rows))
+        if variant is None:
+            err, name = _entry("render_fwd", t)(*args), f"render_fwd at {t.name}"
+        else:
+            err, name = lib.render_fwd_variant(VARIANTS[variant], *args), f"render_fwd {variant}"
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        count("launch.render_fwd" if variant is None else "launch.render_fwd.variant")
     return out, counter
 
 
@@ -534,16 +547,14 @@ def render_kernel_variant(
     user path runs it; its image equals ``render_kernel``'s, row blocks
     included. One that stages its tables (``policy``) raises where they
     exceed ``SHARED_TABLE_BUDGET``. Counts its launches in
-    ``render_kernel_variant.launches``."""
-    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         row_start, rows)
-    _check_variant(scene, variant)
-    _cuda_only(scene, "render_kernel_variant")
+    ``launch.render_fwd.variant``."""
+    with span("pt.check.render_fwd"):
+        rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
+        _check_variant(scene, variant)
+        _cuda_only(scene, "render_kernel_variant")
     return _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
                    False, variant, row_start, rows)[0]
-
-
-render_kernel_variant.launches = 0
 
 
 def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: int,
@@ -555,7 +566,7 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
     which it returns (the same tensor each call), without the packing that
     ``render_kernel`` does on every call. What the measurement scripts time
     as the kernel alone; no user path runs it, and its launches count
-    nowhere."""
+    nowhere. Each launch is a ``pt.launch.render_fwd`` span."""
     _variant_or_tile(variant, tile)
     t = fit_tile("fwd", scene, height, width, max_bounces, tile)
     _cuda_only(scene, "packed_launcher")
@@ -576,9 +587,11 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
         head = (VARIANTS[variant], *head)
 
     def launch(seed):
-        err = entry(*head, *_run_args(height, width, spp, max_bounces, seed, 0, jitter, device))
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        with span("pt.launch.render_fwd"):
+            err = entry(*head, *_run_args(height, width, spp, max_bounces, seed, 0, jitter,
+                                          device))
+            if err != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
         return out
 
     launch.keep = (operands, par)  # the pointers' tensors, kept alive
@@ -610,25 +623,27 @@ def render_kernel_round_counts(
     the footprint of the launch's point ``tile`` (``fit_tile``; by default
     ``DEFAULT_TILE``'s, 4 x 8 pixels). CUDA tensors
     run the counting instantiation of the timed kernel (a launch: it counts
-    in ``render_kernel.launches``), or of ``variant`` (in
-    ``render_kernel_variant.launches``), which gives the key of its own
+    in ``launch.render_fwd``), or of ``variant`` (in
+    ``launch.render_fwd.variant``), which gives the key of its own
     schedule; CPU tensors the plain twin, which gives both
     (``render_kernel_round_counts_reference``). ``row_start`` and ``rows``:
     a row block, as in ``render_kernel``; the blocks' counts sum to the
     whole image's."""
-    _variant_or_tile(variant, tile)
-    rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
-                         row_start, rows)
-    t = fit_tile("fwd", scene, rows, width, max_bounces, tile)
+    with span("pt.check.render_fwd"):
+        _variant_or_tile(variant, tile)
+        rows = _check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                             sample_offset, row_start, rows)
+        t = fit_tile("fwd", scene, rows, width, max_bounces, tile)
+        if variant is not None and scene.device.type != "cpu":
+            _check_variant(scene, variant)
     if scene.device.type == "cpu":
         return render_kernel_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
             row_start, rows, tile=t)
-    if variant is not None:
-        _check_variant(scene, variant)
     _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                          jitter, True, variant, row_start, rows, tile=t)
-    thread_rounds, warp_rounds = counter.tolist()
+    with wait("count_rounds"):
+        thread_rounds, warp_rounds = counter.tolist()
     return {"thread_rounds": thread_rounds, _warp_key(variant): warp_rounds}
 
 

@@ -36,6 +36,7 @@ from .camera import Camera
 from .render_kernel import _ptr
 from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
+from ..utils.tracing import count, span, wait
 
 __all__ = [
     "render_physical_kernel", "render_physical_kernel_reference",
@@ -187,8 +188,9 @@ def render_physical_kernel(
     ``row_start``, as ``render_kernel.render_kernel`` takes it.
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
-    ``render_physical_kernel.launches`` counts its launches. CPU tensors go
-    to ``render_physical_kernel_reference``. Any other device raises.
+    the counter ``launch.render_phys`` (``utils/tracing.py``) counts its
+    launches. CPU tensors go to ``render_physical_kernel_reference``. Any
+    other device raises.
 
     ``count_rounds=True`` returns ``(image, executed_rounds)``: the bounce
     rounds that ran, summed over threads (one per pixel) and samples, as a
@@ -200,9 +202,10 @@ def render_physical_kernel(
     device; timed renders leave it off. ``tile``: the launch shape, as
     ``render_kernel.render_kernel`` takes it (``fit_tile("phys", ...)``).
     """
-    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                             sample_offset, row_start, rows)
-    t = _rk.fit_tile("phys", scene, rows, width, max_bounces, tile)
+    with span("pt.check.render_phys"):
+        rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                 sample_offset, row_start, rows)
+        t = _rk.fit_tile("phys", scene, rows, width, max_bounces, tile)
     device = scene.device
     if device.type == "cpu":
         return render_physical_kernel_reference(
@@ -214,50 +217,49 @@ def render_physical_kernel(
     out, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                            jitter, nee, tri_nee, count_rounds or count_events,
                            row_start=row_start, rows=rows, tile=t)
-    return _with_counts(out, counter, count_rounds, count_events)
-
-
-render_physical_kernel.launches = 0
+    if not (count_rounds or count_events):
+        return out
+    with wait("count_events" if count_events else "count_rounds"):
+        return _with_counts(out, counter, count_rounds, count_events)
 
 
 def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
-            tri_nee, count, variant=None, row_start=0, rows=None, tile=None):
+            tri_nee, count_on, variant=None, row_start=0, rows=None, tile=None):
     """Launch B3 on the scene's CUDA device over the block of ``rows`` rows
     (None: all) from ``row_start``: the timed kernel at point ``tile``
     (None: the default), or with
     ``variant`` an instantiation of ``render_kernel.VARIANTS``; with
-    ``count``, its counting instantiation, whose counters (``EVENTS``, then
+    ``count_on``, its counting instantiation, whose counters (``EVENTS``, then
     ``WARP_EVENTS`` of its schedule) come back beside the image."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_kernel runs on CUDA or CPU tensors, not {device}")
-    from .build import load_library
-
-    lib = load_library()
-    t = _rk.tile_point(tile, "phys")
-    operands = _rk._scene_operands(scene)
-    ph = _phys_operands(scene, operands)
-    par = _rk._camera_params(camera, scene, height, width)
-    rows = height if rows is None else rows
-    out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
-    counter = None
-    if count:
-        counter = torch.zeros(len(EVENTS) + len(WARP_EVENTS), dtype=torch.int64, device=device)
-    args = (*_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out), _ptr(counter),
-            int(bool(nee)), int(bool(tri_nee)),
-            *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
-                           row_start, rows))
-    if variant is None:
-        err, name = _rk._entry("render_phys", t)(*args), f"render_phys at {t.name}"
-    else:
-        err = lib.render_phys_variant(_rk.VARIANTS[variant], *args)
-        name = f"render_phys {variant}"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if variant is None:
-        render_physical_kernel.launches += 1
-    else:
-        render_physical_kernel_variant.launches += 1
+    with span("pt.pack.render_phys"):
+        t = _rk.tile_point(tile, "phys")
+        lib = _rk._library("render_phys", t)
+        operands = _rk._scene_operands(scene)
+        ph = _phys_operands(scene, operands)
+    with wait("camera_params"):
+        par = _rk._camera_params(camera, scene, height, width)
+    with span("pt.launch.render_phys"):
+        rows = height if rows is None else rows
+        out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
+        counter = None
+        if count_on:
+            counter = torch.zeros(len(EVENTS) + len(WARP_EVENTS), dtype=torch.int64,
+                                  device=device)
+        args = (*_rk._table_args(operands), *_emitter_args(ph), _ptr(par), _ptr(out),
+                _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
+                *_rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter,
+                               device, row_start, rows))
+        if variant is None:
+            err, name = _rk._entry("render_phys", t)(*args), f"render_phys at {t.name}"
+        else:
+            err = lib.render_phys_variant(_rk.VARIANTS[variant], *args)
+            name = f"render_phys {variant}"
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        count("launch.render_phys" if variant is None else "launch.render_phys.variant")
     return out, counter
 
 
@@ -283,16 +285,14 @@ def render_physical_kernel_variant(
     user path runs it; its image equals ``render_physical_kernel``'s, row
     blocks included. One that stages its tables raises where they exceed
     the shared budget. Counts its launches in
-    ``render_physical_kernel_variant.launches``."""
-    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                             sample_offset, row_start, rows)
-    _rk._check_variant(scene, variant, physical=True)
-    _rk._cuda_only(scene, "render_physical_kernel_variant")
+    ``launch.render_phys.variant``."""
+    with span("pt.check.render_phys"):
+        rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                 sample_offset, row_start, rows)
+        _rk._check_variant(scene, variant, physical=True)
+        _rk._cuda_only(scene, "render_physical_kernel_variant")
     return _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
                    nee, tri_nee, False, variant, row_start, rows)[0]
-
-
-render_physical_kernel_variant.launches = 0
 
 
 def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: int,
@@ -304,7 +304,8 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
     ``launch(seed)`` runs it into one image, which it returns (the same
     tensor each call), without the packing that ``render_physical_kernel``
     does on every call. What the measurement scripts time as the kernel
-    alone; no user path runs it, and its launches count nowhere."""
+    alone; no user path runs it, and its launches count nowhere. Each
+    launch is a ``pt.launch.render_phys`` span."""
     _rk._variant_or_tile(variant, tile)
     t = _rk.fit_tile("phys", scene, height, width, max_bounces, tile)
     _rk._cuda_only(scene, "packed_launcher")
@@ -327,10 +328,11 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
         head = (_rk.VARIANTS[variant], *head)
 
     def launch(seed):
-        err = entry(*head, *_rk._run_args(height, width, spp, max_bounces, seed, 0, jitter,
-                                          device))
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        with span("pt.launch.render_phys"):
+            err = entry(*head, *_rk._run_args(height, width, spp, max_bounces, seed, 0, jitter,
+                                              device))
+            if err != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
         return out
 
     launch.keep = (operands, ph, par)  # the pointers' tensors, kept alive
@@ -362,27 +364,29 @@ def render_physical_kernel_round_counts(
     wait). Without a ``_regen`` suffix, the warp runs each sample for as many
     rounds as its longest lane; with it, it regenerates paths. CUDA tensors
     run the counting instantiation of the timed kernel (a launch: it counts
-    in ``render_physical_kernel.launches``), or of ``variant`` (in
-    ``render_physical_kernel_variant.launches``), which give the keys of
+    in ``launch.render_phys``), or of ``variant`` (in
+    ``launch.render_phys.variant``), which give the keys of
     their own schedule; CPU tensors the plain twin, which gives both
     (``render_physical_kernel_round_counts_reference``). ``row_start`` and
     ``rows``: a row block, as in ``render_physical_kernel``; the blocks'
     counts sum to the whole image's. A warp is the footprint of the
     launch's point ``tile`` (``render_kernel.fit_tile``)."""
-    _rk._variant_or_tile(variant, tile)
-    rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                             sample_offset, row_start, rows)
-    t = _rk.fit_tile("phys", scene, rows, width, max_bounces, tile)
+    with span("pt.check.render_phys"):
+        _rk._variant_or_tile(variant, tile)
+        rows = _rk._check_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                 sample_offset, row_start, rows)
+        t = _rk.fit_tile("phys", scene, rows, width, max_bounces, tile)
+        if variant is not None and scene.device.type != "cpu":
+            _rk._check_variant(scene, variant, physical=True)
     kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, tri_nee=tri_nee,
               row_start=row_start, rows=rows)
     if scene.device.type == "cpu":
         return render_physical_kernel_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, **kw, tile=t)
-    if variant is not None:
-        _rk._check_variant(scene, variant, physical=True)
     _, counter = _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                          jitter, nee, tri_nee, True, variant, row_start, rows, tile=t)
-    c = counter.tolist()
+    with wait("count_events"):
+        c = counter.tolist()
     suffix = _rk._warp_key(variant)[len("warp_lane_rounds"):]
     return {"thread_rounds": c[0], "light_samples": c[2], "shadow_scans": c[3],
             **{k + suffix: v for k, v in zip(WARP_EVENTS, c[len(EVENTS):])}}

@@ -62,6 +62,7 @@ from .render_grad import replace_leaves, zeros_like_scene
 from .render_kernel import _ptr
 from .rng import _f32, sqrt_rn
 from ..scene.scene import Scene
+from ..utils.tracing import count, span, wait
 
 __all__ = [
     "render_physical_fused", "render_physical_fused_reference",
@@ -469,9 +470,10 @@ def render_physical_fused(
     black.
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
-    ``render_physical_fused.launches`` counts its launches. CPU tensors go
-    to ``render_physical_fused_reference``. Any other device raises, and so
-    does ``max_bounces > MAX_BOUNCES`` on every device.
+    the counter ``launch.render_phys_fused`` (``utils/tracing.py``) counts
+    its launches. CPU tensors go to ``render_physical_fused_reference``. Any
+    other device raises, and so does ``max_bounces > MAX_BOUNCES`` on every
+    device.
 
     The planes take ``(mp * M + 3 + 12 * n_em_cap + 27 * tri_em_cap) * H * W
     * 4`` bytes (629 MB at 1024 x 1024 with 15 materials and one tracked
@@ -481,75 +483,82 @@ def render_physical_fused(
     ``PHYS_FUSED_TILE``) as ``phys_fused_tile`` fits it; no output depends
     on it.
     """
-    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                              sample_offset, n_em_cap, tri_em_cap, tri_nee, row_start, rows)
-    t = phys_fused_tile(scene, rows, width, max_bounces, tile)
-    device = scene.device
-    kw = dict(sample_offset=sample_offset, jitter=jitter, nee=nee, n_em_cap=n_em_cap,
-              tri_nee=tri_nee, tri_em_cap=tri_em_cap, count_rounds=count_rounds,
-              rough_grad=rough_grad, count_events=count_events, row_start=row_start,
-              rows=rows)
-    if device.type == "cpu":
+    with span("pt.check.render_phys_fused"):
+        rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                  sample_offset, n_em_cap, tri_em_cap, tri_nee, row_start, rows)
+        t = phys_fused_tile(scene, rows, width, max_bounces, tile)
+    if scene.device.type == "cpu":
         return render_physical_fused_reference(
-            scene, camera, height, width, spp, max_bounces, seed, **kw)
+            scene, camera, height, width, spp, max_bounces, seed, sample_offset=sample_offset,
+            jitter=jitter, nee=nee, n_em_cap=n_em_cap, tri_nee=tri_nee, tri_em_cap=tri_em_cap,
+            count_rounds=count_rounds, rough_grad=rough_grad, count_events=count_events,
+            row_start=row_start, rows=rows)
     img, jac, jgeo, jtri, counter = _launch_fused(
         scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
         n_em_cap, tri_nee, tri_em_cap, rough_grad, count_rounds or count_events,
         row_start=row_start, rows=rows, tile=t)
-    return _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_rounds,
-                          count_events)
+    if not (count_rounds or count_events):
+        return _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, None, False, False)
+    with wait("count_events" if count_events else "count_rounds"):
+        return _fused_outputs(img, jac, jgeo, jtri, n_em_cap, tri_em_cap, counter, count_rounds,
+                              count_events)
 
 
-render_physical_fused.launches = 0
 render_physical_fused.SOURCE = SOURCE
 render_physical_fused.REPLACES = REPLACES
 
 
 def _launch_fused(scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter,
-                  nee, n_em_cap, tri_nee, tri_em_cap, rough_grad, count, variant=None,
+                  nee, n_em_cap, tri_nee, tri_em_cap, rough_grad, count_on, variant=None,
                   row_start=0, rows=None, chip_floats=None, tile=None):
     """Launch B4 on the scene's CUDA device over the block of ``rows`` rows
     (None: all) from ``row_start``: the timed kernel at point ``tile``
     (None: the default), its counting
-    instantiation (``count``: the ``COUNTERS`` come back beside the planes),
+    instantiation (``count_on``: the ``COUNTERS`` come back beside the planes),
     or a measurement variant; where the planes live in slots, with
     ``chip_floats`` a thread (default ``CHIP_PLANE_FLOATS``)."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_fused runs on CUDA or CPU tensors, not {device}")
-    lib = _load_library()
-    operands = _rk._scene_operands(scene)
-    ph = _rp._phys_operands(scene, operands)
-    par = _rk._camera_params(camera, scene, height, width)
-    rows = height if rows is None else rows
-    planes = lambda n: torch.zeros((n, rows, width), dtype=torch.float32, device=device)
-    img = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
-    jac = planes((12 if rough_grad else 9) * scene.num_materials + 3)
-    jgeo = planes(12 * n_em_cap) if n_em_cap else None
-    jtri = planes(27 * tri_em_cap) if tri_em_cap else None
-    counter = torch.zeros(len(COUNTERS), dtype=torch.int64, device=device) if count else None
-    tables = (*_rk._table_args(operands), *_rp._emitter_args(ph), _ptr(par), _ptr(img),
-              _ptr(jac), _ptr(jgeo), _ptr(jtri))
-    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
-                        row_start, rows)
-    if variant is None:
+    with span("pt.pack.render_phys_fused"):
+        lib = _load_library()
         t = _rk.tile_point(tile, "phys_fused")
-        err = _rk._entry("render_phys_fused", t)(
-            *tables, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
-            int(bool(rough_grad)), n_em_cap, tri_em_cap, *run)
-        name = f"render_phys_fused at {t.name}"
-    else:
-        split = _chip_split(scene, n_em_cap, tri_em_cap, variant, chip_floats)
-        err = lib.render_phys_fused_variant(VARIANTS[variant], *tables, int(bool(nee)),
-                                            int(bool(tri_nee)), n_em_cap, tri_em_cap, *split,
-                                            *run)
-        name = f"render_phys_fused variant {variant}"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if variant is None:
-        render_physical_fused.launches += 1
-    else:
-        render_physical_fused_variant.launches += 1
+        _rk._library("render_phys_fused", t)
+        operands = _rk._scene_operands(scene)
+        ph = _rp._phys_operands(scene, operands)
+    with wait("camera_params"):
+        par = _rk._camera_params(camera, scene, height, width)
+    with span("pt.launch.render_phys_fused"):
+        rows = height if rows is None else rows
+        planes = lambda n: torch.zeros((n, rows, width), dtype=torch.float32, device=device)
+        img = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
+        jac = planes((12 if rough_grad else 9) * scene.num_materials + 3)
+        jgeo = planes(12 * n_em_cap) if n_em_cap else None
+        jtri = planes(27 * tri_em_cap) if tri_em_cap else None
+        counter = None
+        if count_on:
+            counter = torch.zeros(len(COUNTERS), dtype=torch.int64, device=device)
+        split = None
+        if variant is not None:
+            split = _chip_split(scene, n_em_cap, tri_em_cap, variant, chip_floats)
+        tables = (*_rk._table_args(operands), *_rp._emitter_args(ph), _ptr(par), _ptr(img),
+                  _ptr(jac), _ptr(jgeo), _ptr(jtri))
+        run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter,
+                            device, row_start, rows)
+        if variant is None:
+            err = _rk._entry("render_phys_fused", t)(
+                *tables, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
+                int(bool(rough_grad)), n_em_cap, tri_em_cap, *run)
+            name = f"render_phys_fused at {t.name}"
+        else:
+            err = lib.render_phys_fused_variant(VARIANTS[variant], *tables, int(bool(nee)),
+                                                int(bool(tri_nee)), n_em_cap, tri_em_cap,
+                                                *split, *run)
+            name = f"render_phys_fused variant {variant}"
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        count("launch.render_phys_fused" if variant is None
+              else "launch.render_phys_fused.variant")
     return img, jac, jgeo, jtri, counter
 
 
@@ -573,13 +582,14 @@ def render_physical_fused_round_counts(
     ``render_physical_fused`` takes it), as
     ``render_grad.render_fused_round_counts``: ``thread_rounds`` and
     ``warp_lane_rounds`` (CUDA tensors: the counting instantiation, a launch
-    counted in ``render_physical_fused.launches``); CPU tensors take the
+    counted in ``launch.render_phys_fused``); CPU tensors take the
     twin, which also gives ``warp_lane_rounds_regen``. The planes do not
     change the rounds, so no cap is taken. A warp is the footprint of the
     launch's point (``phys_fused_tile`` of ``tile``)."""
-    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                              sample_offset, tri_nee=tri_nee, row_start=row_start, rows=rows)
-    t = phys_fused_tile(scene, rows, width, max_bounces, tile)
+    with span("pt.check.render_phys_fused"):
+        rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                  sample_offset, tri_nee=tri_nee, row_start=row_start, rows=rows)
+        t = phys_fused_tile(scene, rows, width, max_bounces, tile)
     if scene.device.type == "cpu":
         return render_physical_fused_round_counts_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset, jitter, nee,
@@ -587,7 +597,8 @@ def render_physical_fused_round_counts(
     *_, counter = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
                                 sample_offset, jitter, nee, 0, tri_nee, 0, False, True,
                                 row_start=row_start, rows=rows, tile=t)
-    counts = dict(zip(COUNTERS, counter.tolist()))
+    with wait("count_rounds"):
+        counts = dict(zip(COUNTERS, counter.tolist()))
     return {"thread_rounds": counts["rounds"], "warp_lane_rounds": counts["warp_lane_rounds"]}
 
 
@@ -635,26 +646,25 @@ def render_physical_fused_variant(
     ``utils/sol_decompose.fused_decompose``. Where the variant's planes live
     in slots, ``chip_floats`` a thread (default ``CHIP_PLANE_FLOATS``). No
     user path runs it. Counts its launches in
-    ``render_physical_fused_variant.launches``."""
-    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                              sample_offset, n_em_cap, tri_em_cap, tri_nee,
-                              row_start=row_start, rows=rows)
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
-    if tri_nee and variant not in POLICY_VARIANTS:
-        raise ValueError(f"variant {variant} is built without tri_nee")
-    cap = _rg.REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
-    if max_bounces > cap:
-        raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap of {cap}")
+    ``launch.render_phys_fused.variant``."""
+    with span("pt.check.render_phys_fused"):
+        rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                  sample_offset, n_em_cap, tri_em_cap, tri_nee,
+                                  row_start=row_start, rows=rows)
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+        if tri_nee and variant not in POLICY_VARIANTS:
+            raise ValueError(f"variant {variant} is built without tri_nee")
+        cap = _rg.REGISTER_ROUNDS - 1 if variant == "registers" else MAX_BOUNCES
+        if max_bounces > cap:
+            raise ValueError(f"max_bounces {max_bounces} is above variant {variant}'s cap "
+                             f"of {cap}")
     img, jac, jgeo, jtri, _ = _launch_fused(scene, camera, height, width, spp, max_bounces, seed,
                                             sample_offset, jitter, nee, n_em_cap, tri_nee,
                                             tri_em_cap, False, False, variant=variant,
                                             row_start=row_start, rows=rows,
                                             chip_floats=chip_floats)
     return (img, jac) + ((jgeo,) if n_em_cap else ()) + ((jtri,) if tri_em_cap else ())
-
-
-render_physical_fused_variant.launches = 0
 
 
 # -- the replay both twins share -----------------------------------------------
@@ -1029,8 +1039,10 @@ def contract_physical_jacobian(scene: Scene, jac, g, spp: int, jac_geo=None, jac
     on every device: the JAX package computes it outside its kernels too.
     """
     mats = scene.materials
-    return _cotangent_scene(scene, *_contract(
-        jac, jac_geo, jac_tri, g, spp, mats.albedo, mats.emission_color, mats.emission_strength))
+    with span("pt.contract.render_phys_fused"):
+        return _cotangent_scene(scene, *_contract(
+            jac, jac_geo, jac_tri, g, spp, mats.albedo, mats.emission_color,
+            mats.emission_strength))
 
 
 def _check_emitter_cap(scene: Scene, n_em_cap: int, raise_: bool = False):
@@ -1083,7 +1095,8 @@ class _RenderPhysicalFused(torch.autograd.Function):
         leaves, (scene, camera, height, width, spp, max_bounces, seed, sample_offset,
                  jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad, row_start,
                  rows, tile) = args[:11], args[11:]
-        live = _with_leaves(scene, [t.detach() for t in leaves])
+        with span("pt.check.render_phys_fused"):
+            live = _with_leaves(scene, [t.detach() for t in leaves])
         out = render_physical_fused(
             live, camera, height, width, spp, max_bounces, seed, sample_offset=sample_offset,
             jitter=jitter, nee=nee, n_em_cap=geo_cap, tri_nee=tri_nee,
@@ -1099,16 +1112,18 @@ class _RenderPhysicalFused(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        scene, mats = ctx.scene, ctx.scene.materials
-        d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, geo, geo_t = _contract(
-            *ctx.planes, g, ctx.spp, mats.albedo, mats.emission_color, mats.emission_strength)
-        d_c = d_r = None
-        if geo is not None:
-            d_c, d_r = _scatter_emitter_geometry(scene, geo, geo.shape[0])
-        d_tri = (None,) * 3
-        if geo_t is not None:
-            d_tri = _scatter_tri_emitter_geometry(scene, geo_t, geo_t.shape[0])
-        return (d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, d_c, d_r, *d_tri, *(None,) * 17)
+        with span("pt.contract.render_phys_fused"):
+            scene, mats = ctx.scene, ctx.scene.materials
+            d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, geo, geo_t = _contract(
+                *ctx.planes, g, ctx.spp, mats.albedo, mats.emission_color,
+                mats.emission_strength)
+            d_c = d_r = None
+            if geo is not None:
+                d_c, d_r = _scatter_emitter_geometry(scene, geo, geo.shape[0])
+            d_tri = (None,) * 3
+            if geo_t is not None:
+                d_tri = _scatter_tri_emitter_geometry(scene, geo_t, geo_t.shape[0])
+            return (d_alb, d_eco, d_est, d_trn, d_rgh, d_sky, d_c, d_r, *d_tri, *(None,) * 17)
 
 
 def render_physical_kernel_vjp(
@@ -1174,12 +1189,14 @@ def render_physical_kernel_vjp(
     geo_cap = int(n_em_cap) if (geom and nee) else 0
     if geo_cap:
         # Ordinals beyond the live emitters would only buy planes of zeros.
-        geo_cap = min(geo_cap, _check_emitter_cap(scene, geo_cap))
+        with wait("emitter_count"):
+            geo_cap = min(geo_cap, _check_emitter_cap(scene, geo_cap))
     if tri_em_cap is None:
         tri_em_cap = min(scene.num_triangles, 8)
     tri_geo_cap = int(tri_em_cap) if (geom and nee and tri_nee) else 0
     if tri_geo_cap:
-        tri_geo_cap = min(tri_geo_cap, _check_tri_emitter_cap(scene, tri_geo_cap))
+        with wait("emitter_count"):
+            tri_geo_cap = min(tri_geo_cap, _check_tri_emitter_cap(scene, tri_geo_cap))
     return _RenderPhysicalFused.apply(
         *leaves, scene, camera, height, width, spp, max_bounces, seed, sample_offset,
         jitter, nee, geo_cap, tri_nee, tri_geo_cap, rough_grad, row_start, rows, tile)
@@ -1238,7 +1255,7 @@ def bwd_atomics(counts: dict) -> dict:
 
 
 def _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed, sample_offset,
-                jitter, nee, n_em_cap, tri_nee, row_start, rows, count=False, variant=None,
+                jitter, nee, n_em_cap, tri_nee, row_start, rows, count_on=False, variant=None,
                 tile=None):
     """Launch B5 at point ``tile`` (None: the default; or its counting
     instantiation, or a variant, at the default) and its second pass on the
@@ -1247,49 +1264,51 @@ def _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed, sample_
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_bwd runs on CUDA or CPU tensors, not {device}")
-    lib = _load_library()
-    operands = _rk._scene_operands(scene)
-    ph = _rp._phys_operands(scene, operands)
-    par = _rk._camera_params(camera, scene, height, width)
-    g32 = g.to(torch.float32).contiguous()
-    eco = scene.materials.emission_color.contiguous()
-    n_mat = scene.num_materials
-    out = torch.empty((n_mat + 1, 8), dtype=torch.float32, device=device)
-    geo = torch.empty((max(n_em_cap, 1), 4), dtype=torch.float32, device=device)
-    t = _rk.tile_point(tile, "phys_bwd")
-    n_blocks = -(-width // t.tw) * -(-rows // t.th)
-    partials = torch.empty(((out.numel() + geo.numel()) * n_blocks,), dtype=torch.float32,
-                           device=device)
-    counter = None
-    if count:
-        if lib.render_phys_bwd_counters() != len(BWD_COUNTS):
-            raise RuntimeError("csrc/render_phys_bwd.cu and BWD_COUNTS disagree")
-        counter = torch.zeros(len(BWD_COUNTS), dtype=torch.int64, device=device)
-    args = _rp._emitter_args(ph)
-    head = (*_rk._table_args(operands), *args[:-1], _ptr(eco), args[-1], _ptr(par), _ptr(g32),
-            _ptr(out), _ptr(geo), _ptr(partials))
-    run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter, device,
-                        row_start, rows)
-    if variant is None and t != _rk.tile_point(None, "phys_bwd"):
-        if count:
+    with span("pt.pack.render_phys_bwd"):
+        lib = _load_library()
+        t = _rk.tile_point(tile, "phys_bwd")
+        at_default = t == _rk.tile_point(None, "phys_bwd")
+        if variant is None and not at_default and count_on:
             raise ValueError(f"count_sites: B5 counts at the default tile only, not {t.name}")
-        err = _rk._entry("render_phys_bwd", t)(*head, int(bool(nee)), int(bool(tri_nee)),
-                                               n_em_cap, *run)
-        name = f"render_phys_bwd at {t.name}"
-    elif variant is None:
-        err = lib.render_phys_bwd(*head, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
-                                  n_em_cap, *run)
-        name = "render_phys_bwd"
-    else:
-        err = lib.render_phys_bwd_variant(BWD_VARIANTS[variant], *head, int(bool(nee)),
-                                          n_em_cap, *run)
-        name = f"render_phys_bwd variant {variant}"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if variant is None:
-        render_physical_bwd.launches += 1
-    else:
-        render_physical_bwd_variant.launches += 1
+        _rk._library("render_phys_bwd", t)
+        operands = _rk._scene_operands(scene)
+        ph = _rp._phys_operands(scene, operands)
+        g32 = g.to(torch.float32).contiguous()
+        eco = scene.materials.emission_color.contiguous()
+    with wait("camera_params"):
+        par = _rk._camera_params(camera, scene, height, width)
+    with span("pt.launch.render_phys_bwd"):
+        n_mat = scene.num_materials
+        out = torch.empty((n_mat + 1, 8), dtype=torch.float32, device=device)
+        geo = torch.empty((max(n_em_cap, 1), 4), dtype=torch.float32, device=device)
+        n_blocks = -(-width // t.tw) * -(-rows // t.th)
+        partials = torch.empty(((out.numel() + geo.numel()) * n_blocks,), dtype=torch.float32,
+                               device=device)
+        counter = None
+        if count_on:
+            if lib.render_phys_bwd_counters() != len(BWD_COUNTS):
+                raise RuntimeError("csrc/render_phys_bwd.cu and BWD_COUNTS disagree")
+            counter = torch.zeros(len(BWD_COUNTS), dtype=torch.int64, device=device)
+        args = _rp._emitter_args(ph)
+        head = (*_rk._table_args(operands), *args[:-1], _ptr(eco), args[-1], _ptr(par),
+                _ptr(g32), _ptr(out), _ptr(geo), _ptr(partials))
+        run = _rk._run_args(height, width, spp, max_bounces, seed, sample_offset, jitter,
+                            device, row_start, rows)
+        if variant is None and not at_default:
+            err = _rk._entry("render_phys_bwd", t)(*head, int(bool(nee)), int(bool(tri_nee)),
+                                                   n_em_cap, *run)
+            name = f"render_phys_bwd at {t.name}"
+        elif variant is None:
+            err = lib.render_phys_bwd(*head, _ptr(counter), int(bool(nee)), int(bool(tri_nee)),
+                                      n_em_cap, *run)
+            name = "render_phys_bwd"
+        else:
+            err = lib.render_phys_bwd_variant(BWD_VARIANTS[variant], *head, int(bool(nee)),
+                                              n_em_cap, *run)
+            name = f"render_phys_bwd variant {variant}"
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        count("launch.render_phys_bwd" if variant is None else "launch.render_phys_bwd.variant")
     return out, geo, counter
 
 
@@ -1327,10 +1346,10 @@ def render_physical_bwd(
     ``nee`` off). Triangle vertices and roughness are zero here.
 
     CUDA tensors go to the hand kernel (``csrc/render_phys_bwd.cu``; with
-    ``count_sites`` its counting instantiation);
-    ``render_physical_bwd.launches`` counts its launches. It sums in a fixed
-    order, so two runs agree bit for bit; its order is not the twin's, so
-    the two agree to float32 rounding.
+    ``count_sites`` its counting instantiation); the counter
+    ``launch.render_phys_bwd`` (``utils/tracing.py``) counts its launches.
+    It sums in a fixed order, so two runs agree bit for bit; its order is
+    not the twin's, so the two agree to float32 rounding.
     CPU tensors go to ``render_physical_bwd_reference``. Any other device
     raises.
 
@@ -1340,15 +1359,16 @@ def render_physical_bwd(
     last bits of the cotangents, change with it; ``count_sites`` is counted
     at the default tile only.
     """
-    n_em_cap = _bwd_cap(scene, nee, n_em_cap)
-    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                              sample_offset, n_em_cap, row_start=row_start, rows=rows)
-    t = _rk.fit_tile("phys_bwd", scene, rows, width, max_bounces,
-                     PHYS_BWD_TILE if tile is None else tile, n_em_cap=n_em_cap)
-    device = scene.device
-    if tuple(g.shape) != (rows, width, 3) or g.device != device:
-        raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, expected "
-                         f"{(rows, width, 3)} on {device}")
+    with span("pt.check.render_phys_bwd"):
+        n_em_cap = _bwd_cap(scene, nee, n_em_cap)
+        rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                  sample_offset, n_em_cap, row_start=row_start, rows=rows)
+        t = _rk.fit_tile("phys_bwd", scene, rows, width, max_bounces,
+                         PHYS_BWD_TILE if tile is None else tile, n_em_cap=n_em_cap)
+        device = scene.device
+        if tuple(g.shape) != (rows, width, 3) or g.device != device:
+            raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, expected "
+                             f"{(rows, width, 3)} on {device}")
     if device.type == "cpu":
         return render_physical_bwd_reference(
             scene, camera, g, height, width, spp, max_bounces, seed,
@@ -1356,12 +1376,14 @@ def render_physical_bwd(
             tri_nee=tri_nee, row_start=row_start, rows=rows, count_sites=count_sites)
     out, geo, counter = _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed,
                                     sample_offset, jitter, nee, n_em_cap, tri_nee, row_start,
-                                    rows, count=count_sites, tile=t)
+                                    rows, count_on=count_sites, tile=t)
     d = _bwd_scene(scene, out, geo, n_em_cap)
-    return (d, dict(zip(BWD_COUNTS, counter.tolist()))) if count_sites else d
+    if not count_sites:
+        return d
+    with wait("count_sites"):
+        return d, dict(zip(BWD_COUNTS, counter.tolist()))
 
 
-render_physical_bwd.launches = 0
 render_physical_bwd.SOURCE = SOURCE_BWD
 render_physical_bwd.REPLACES = REPLACES_BWD
 
@@ -1387,25 +1409,23 @@ def render_physical_bwd_variant(
     (``BWD_VARIANTS``; without tri_nee), on CUDA tensors only, for
     ``utils/sol_decompose.fused_decompose``: the kernel's cotangents but for
     the ``sink``'s (its tables are not the cotangents). No user path runs
-    it. Counts its launches in ``render_physical_bwd_variant.launches``."""
-    n_em_cap = _bwd_cap(scene, nee, n_em_cap)
-    rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
-                              sample_offset, n_em_cap, row_start=row_start, rows=rows)
-    if variant not in BWD_VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(BWD_VARIANTS)}")
-    if tuple(g.shape) != (rows, width, 3) or g.device != scene.device:
-        raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, expected "
-                         f"{(rows, width, 3)} on {scene.device}")
-    if scene.device.type != "cuda":
-        raise ValueError(f"render_physical_bwd_variant runs on CUDA tensors only, not "
-                         f"{scene.device}")
+    it. Counts its launches in ``launch.render_phys_bwd.variant``."""
+    with span("pt.check.render_phys_bwd"):
+        n_em_cap = _bwd_cap(scene, nee, n_em_cap)
+        rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
+                                  sample_offset, n_em_cap, row_start=row_start, rows=rows)
+        if variant not in BWD_VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; one of {', '.join(BWD_VARIANTS)}")
+        if tuple(g.shape) != (rows, width, 3) or g.device != scene.device:
+            raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, expected "
+                             f"{(rows, width, 3)} on {scene.device}")
+        if scene.device.type != "cuda":
+            raise ValueError(f"render_physical_bwd_variant runs on CUDA tensors only, not "
+                             f"{scene.device}")
     out, geo, _ = _launch_bwd(scene, camera, g, height, width, spp, max_bounces, seed,
                               sample_offset, jitter, nee, n_em_cap, False, row_start, rows,
                               variant=variant)
     return _bwd_scene(scene, out, geo, n_em_cap)
-
-
-render_physical_bwd_variant.launches = 0
 
 
 class _BwdCounts:

@@ -13,8 +13,9 @@ of ``scripts/sol_decompose.py``:
   at every object, as the forward kernel loads its scene tables, and the
   ``hoisted`` one once, before the loop. The difference prices a table load.
 
-On CUDA tensors the wrappers launch the kernels (``.launches`` counts
-them); on CPU tensors they run the twins. Both probes equal their twins
+On CUDA tensors the wrappers launch the kernels (the counters
+``launch.sol_null`` and ``launch.sol_micro`` count them); on CPU tensors
+they run the twins. Both probes equal their twins
 value for value: B7 moves values, B8 issues each multiply and add
 separately, as the twin does.
 """
@@ -29,6 +30,7 @@ from .camera import Camera
 from .render_kernel import _camera_params, _check_inputs, _ptr, _scene_operands, _table_args
 from .rng import _f32
 from ..scene.scene import Scene
+from ..utils.tracing import count
 
 __all__ = ["sol_null", "sol_null_launcher", "sol_null_reference", "sol_micro",
            "sol_micro_reference",
@@ -62,13 +64,10 @@ def sol_null(scene: Scene, camera: Camera, height: int, width: int) -> torch.Ten
     return sol_null_launcher(scene, camera, height, width)()
 
 
-sol_null.launches = 0
-
-
 def sol_null_launcher(scene: Scene, camera: Camera, height: int, width: int):
     """B7 on operands packed once: a function of no arguments that launches
     the kernel and returns its image, so that a caller can time the kernel
-    without the packing. Each call counts in ``sol_null.launches``. CUDA
+    without the packing. Each call counts in ``launch.sol_null``. CUDA
     tensors only."""
     _check_inputs(scene, camera, height, width, 1, 0, 0, 0)
     device = scene.device
@@ -85,7 +84,7 @@ def sol_null_launcher(scene: Scene, camera: Camera, height: int, width: int):
         err = lib.sol_null(*args, _ptr(out), height, width, device.index, _stream(device))
         if err != 0:
             raise RuntimeError(f"sol_null kernel launch failed: CUDA error {err}")
-        sol_null.launches += 1
+        count("launch.sol_null")
         return out
 
     launch.operands = (operands, par)  # kept alive with the launcher
@@ -140,11 +139,8 @@ def sol_micro(table: torch.Tensor, seed: torch.Tensor, height: int, width: int,
                         int(reps), int(bool(hoisted)), device.index, _stream(device))
     if err != 0:
         raise RuntimeError(f"sol_micro kernel launch failed: CUDA error {err}")
-    sol_micro.launches += 1
+    count("launch.sol_micro")
     return out
-
-
-sol_micro.launches = 0
 
 
 def sol_micro_reference(table: torch.Tensor, seed: torch.Tensor, height: int, width: int,

@@ -34,6 +34,7 @@ from torch.utils._pytree import tree_leaves
 from ..ops import render_kernel as rk
 from ..ops.rng import _f32, sqrt_rn
 from ..ops.sol_probes import MICRO_NOBJ, MICRO_REPS
+from . import tracing
 
 __all__ = [
     "CLASSES", "PEAK_FP32", "PEAK_BYTES", "kernel_op_counts", "probe_op_counts", "bound_ms",
@@ -414,7 +415,7 @@ def calib_kernel(kind: str, reps: int, x: torch.Tensor) -> torch.Tensor:
     """B6 on a contiguous 1-D float32 tensor: one thread an element, each
     running ``reps * CALIB_UNROLL`` dependent steps of ``kind``'s chain; the
     result of every element. CUDA tensors launch ``csrc/calib.cu``
-    (``calib_kernel.launches`` counts them); CPU tensors run
+    (the counter ``launch.calib`` counts them); CPU tensors run
     ``calib_reference``. Any other device raises."""
     _check_kind(kind)
     if reps < 0:
@@ -434,11 +435,8 @@ def calib_kernel(kind: str, reps: int, x: torch.Tensor) -> torch.Tensor:
                     _CALIB_KIND_ID[kind], int(reps), x.device.index, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"calib kernel launch failed: CUDA error {err}")
-    calib_kernel.launches += 1
+    tracing.count("launch.calib")
     return out
-
-
-calib_kernel.launches = 0
 
 
 def _cuda_device(device) -> torch.device:

@@ -12,7 +12,7 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
-__all__ = ["rays_per_render", "shape_name", "Timer", "MetricsLogger", "throughput"]
+__all__ = ["rays_per_render", "shape_name", "MetricsLogger", "throughput"]
 
 
 def rays_per_render(height: int, width: int, spp: int, max_bounces: int) -> int:
@@ -32,22 +32,6 @@ def shape_name(shape) -> str:
 def throughput(height, width, spp, max_bounces, seconds: float) -> float:
     """rays/sec for one timed render."""
     return rays_per_render(height, width, spp, max_bounces) / max(seconds, 1e-12)
-
-
-@dataclass
-class Timer:
-    """Wall-clock block timer: ``with Timer() as t: ...; t.seconds``."""
-
-    seconds: float = 0.0
-    _t0: float = 0.0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.seconds = time.perf_counter() - self._t0
-        return False
 
 
 @dataclass

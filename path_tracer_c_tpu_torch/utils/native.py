@@ -13,9 +13,11 @@ repository's root (a directory git ignores), with the source's hash beside
 it; a changed source is rebuilt. The tracked ``native/`` directory is only
 read: its build script and its prebuilt library are never used. Where
 ``g++`` is missing or the build fails, ``available()`` is False and the
-callers write with ``utils/bitmap.py``. Encoding a whole image into Python
-bytes stays with numpy (``utils/bitmap.bitmap_bytes``), which is faster at
-that than a copy out of the library.
+callers write with ``utils/bitmap.py``. A build is the span
+``pt.build.native``, counted in ``build.native`` (``utils/tracing.py``).
+Encoding a whole image into Python bytes stays with numpy
+(``utils/bitmap.bitmap_bytes``), which is faster at that than a copy out
+of the library.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+
+from .tracing import count, span
 
 __all__ = ["available", "build", "library_path", "write_bitmap", "AsyncBitmapWriter",
            "ThreadPool"]
@@ -71,9 +75,11 @@ def build() -> bool:
     _LIB.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=_LIB.parent, suffix=".so.tmp")
     os.close(fd)
+    count("build.native")
     try:
-        subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, str(_SRC)], check=True,
-                       capture_output=True, timeout=600)
+        with span("pt.build.native"):
+            subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, str(_SRC)], check=True,
+                           capture_output=True, timeout=600)
         os.replace(tmp, _LIB)
         _write_atomic(_STAMP, _digest().encode())
     except (subprocess.SubprocessError, OSError):

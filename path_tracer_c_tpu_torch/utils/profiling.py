@@ -1,10 +1,9 @@
-"""Profiling: ``torch.profiler`` traces, timing, and a hand roofline estimate.
+"""Profiling: ``torch.profiler`` traces and timing.
 
 The counterpart of ``path_tracer_c_tpu/utils/profiling.py``. ``trace()``
-records host and device activity around a block and writes a Chrome trace;
-``time_fn`` is the median time of a call, by CUDA events on the card; ``roofline()``
-is the JAX package's back-of-envelope operation table for one render, with
-the H100's published float32 rate as its default peak. The measured model
+records host and device activity around a block and writes a Chrome trace,
+the program's spans (``utils/tracing.py``) among its events; ``time_fn`` is
+the median time of a call, by CUDA events on the card. The roofline model
 (operation counts from the kernels' sources against rates measured on the
 card by kernel B6) is ``utils/flops.sol_report``.
 
@@ -24,11 +23,7 @@ import time
 
 import torch
 
-__all__ = ["trace", "time_fn", "roofline", "H100_PEAK_FP32", "bench_device", "card_line"]
-
-# The float32 rate of one H100 SXM outside the tensor cores (NVIDIA's data
-# sheet, at the 700 W power limit), counting a fused multiply-add as two.
-H100_PEAK_FP32 = 67e12
+__all__ = ["trace", "time_fn", "bench_device", "card_line"]
 
 
 @contextlib.contextmanager
@@ -110,45 +105,3 @@ def card_line(device) -> str:
     ).stdout
     return out.strip().splitlines()[0].strip()
 
-
-# The JAX package's rough per-ray-bounce operation counts of its megakernel:
-# a sphere test, a triangle test, a material select, the shading.
-_FLOPS_SPHERE = 22
-_FLOPS_TRI = 50
-_FLOPS_MAT = 10
-_FLOPS_SHADE = 190
-
-
-def roofline(
-    height: int,
-    width: int,
-    spp: int,
-    max_bounces: int,
-    n_spheres: int,
-    n_triangles: int,
-    n_materials: int,
-    peak_flops: float = H100_PEAK_FP32,
-):
-    """Estimated FLOPs, bytes and speed-of-light seconds of one render.
-
-    Hand-estimated only (a fixed per-op table and one blended rate), with
-    the JAX package's formula: every pixel-sample runs ``max_bounces + 1``
-    rounds, and the kernel writes 12 bytes of radiance per pixel. The
-    default peak is the H100 data sheet's float32 rate; the kernels, built
-    without FMA contraction, can reach at most half of it.
-    """
-    rays = height * width * spp * (max_bounces + 1)
-    flops_per = (
-        _FLOPS_SPHERE * n_spheres
-        + _FLOPS_TRI * n_triangles
-        + _FLOPS_MAT * n_materials
-        + _FLOPS_SHADE
-    )
-    flops = rays * flops_per
-    return {
-        "rays": rays,
-        "flops": flops,
-        "flops_per_ray": flops_per,
-        "hbm_bytes": 12 * height * width,
-        "sol_seconds": flops / peak_flops,
-    }

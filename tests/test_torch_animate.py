@@ -20,7 +20,7 @@ import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.app import main as app
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
 from path_tracer_c_tpu_torch.ops import render_physical as rp
-from path_tracer_c_tpu_torch.utils import bitmap, native, termview
+from path_tracer_c_tpu_torch.utils import bitmap, native, termview, tracing
 from path_tracer_c_tpu_torch.utils.config import AnimationConfig, load, save
 
 torch.set_num_threads(1)
@@ -39,7 +39,8 @@ def _animate(tmp_path, engine="cuda", frames=3, extra=()):
               "--width", "16", "--height", "8", "--spp", "2", "--max-bounces", "2",
               "--frames", str(frames), "--out-dir", str(out), "--metrics", str(metrics),
               *extra])
-    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    *recs, spans = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert spans["kind"] == "spans"  # the recording's, last (tests/test_torch_tracing.py)
     return sorted(out.glob("frame_*.bmp")), recs
 
 
@@ -122,11 +123,11 @@ def test_config5_on_one_device_and_its_mesh_refused(tmp_path):
     small = tmp_path / "c5.json"
     save(acfg, small)
     assert load(small, AnimationConfig) == acfg
-    launches = rk.render_kernel.launches
+    launches = tracing.counters()
     app.main(["animate", "--device", "cpu", "--config", str(small)])
     frames = sorted((tmp_path / "c5").glob("frame_*.bmp"))
     assert len(frames) == 2 and all(len(f.read_bytes()) == 54 + 16 * 16 * 3 for f in frames)
-    assert rk.render_kernel.launches == launches  # the kernel's twin on the CPU
+    assert (tracing.counters() - launches)["launch.render_fwd"] == 0  # the twin ran
     cam = app._orbit_cameras(acfg, "cpu")[1]
     img = rk.render_kernel(P.demo.demo_scene("cpu"), cam, 16, 16, 2, 2, 1)
     assert frames[1].read_bytes() == bitmap.bitmap_bytes(P.render_image_u8(img).numpy())

@@ -14,6 +14,7 @@ from path_tracer_c_tpu.utils.bitmap import bitmap_bytes as j_bitmap_bytes
 import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.app import main as app
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
+from path_tracer_c_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -113,10 +114,10 @@ def test_config_pallas_engine_maps_to_the_kernel(tmp_path):
     cfg.write_text(json.dumps({"width": 16, "height": 8, "spp": 1, "max_bounces": 1,
                                "scene": "diffuse", "engine": "pallas", "tile_h": 128,
                                "output": str(tmp_path / "c.bmp")}))
-    launches = rk.render_kernel.launches
+    launches = tracing.counters()
     app.main(["render", "--device", "cpu", "--config", str(cfg)])
     assert (tmp_path / "c.bmp").exists()
-    assert rk.render_kernel.launches == launches  # the twin ran on the CPU
+    assert (tracing.counters() - launches)["launch.render_fwd"] == 0  # the twin ran
 
 
 def test_port_does_not_import_jax():

@@ -22,6 +22,7 @@ import torch
 import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.ops import render_physical as rp
 from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+from path_tracer_c_tpu_torch.utils import tracing
 from path_tracer_c_tpu_torch.utils.sol_decompose import fused_decompose
 
 torch.set_num_threads(1)
@@ -183,7 +184,7 @@ def test_bwd_variants_are_for_the_card_only():
     launches."""
     scene = P.demo.glossy_scene("cpu")
     g = torch.zeros(4, 8, 3)
-    launches = (pg.render_physical_bwd.launches, pg.render_physical_bwd_variant.launches)
+    launches = tracing.counters()
     with pytest.raises(ValueError, match="CUDA"):
         pg.render_physical_bwd_variant(scene, CAM, g, 4, 8, 1, 2, 0, "sink")
     with pytest.raises(ValueError, match="unknown variant"):
@@ -192,5 +193,6 @@ def test_bwd_variants_are_for_the_card_only():
         pg.render_physical_bwd_variant(scene, CAM, g[:3], 4, 8, 1, 2, 0, "sink")
     with pytest.raises(RuntimeError, match="CUDA"):
         fused_decompose("physical_bwd", "cpu", small=True)
-    assert launches == (pg.render_physical_bwd.launches, pg.render_physical_bwd_variant.launches)
+    grew = tracing.counters() - launches
+    assert grew["launch.render_phys_bwd"] == grew["launch.render_phys_bwd.variant"] == 0
     assert pg.BWD_VARIANTS == {"sink": 0, "shared_records": 1}

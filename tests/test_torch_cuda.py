@@ -24,8 +24,15 @@ from path_tracer_c_tpu_torch.ops import render_kernel as rk
 from path_tracer_c_tpu_torch.ops import render_physical as rp
 from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
 from path_tracer_c_tpu_torch.scene import demo as pdemo
+from path_tracer_c_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
+
+# Each timed kernel's launch counter (``utils/tracing.counters``), by wrapper.
+LAUNCH = {rk.render_kernel: "launch.render_fwd", rp.render_physical_kernel: "launch.render_phys",
+          rg.render_fused: "launch.render_fused",
+          pg.render_physical_fused: "launch.render_phys_fused",
+          pg.render_physical_bwd: "launch.render_phys_bwd"}
 
 
 def assert_close(a, b):
@@ -45,14 +52,14 @@ def cuda_device():
 @pytest.mark.parametrize("name", ["demo_scene", "glossy_scene", "cornell_spheres_scene"])
 def test_kernel_matches_twin(cuda_device, name):
     scene, cam = getattr(pdemo, name)(cuda_device), P.Camera.reference(cuda_device)
-    launches = rk.render_kernel.launches
+    launches = tracing.counters()
     for jitter, offset, bounces in ((False, 0, 4), (True, 3, 8)):
         args = (scene, cam, 100, 160, 4, bounces, 7)
         k = rk.render_kernel(*args, sample_offset=offset, jitter=jitter)
         r = rk.render_kernel_reference(*args, sample_offset=offset, jitter=jitter)
         assert k.device == cuda_device and k.shape == (100, 160, 3)
         assert_close(k, r)
-    assert rk.render_kernel.launches == launches + 2
+    assert (tracing.counters() - launches)["launch.render_fwd"] == 2
     # the chain to the twin on the CPU
     cpu = rk.render_kernel_reference(getattr(pdemo, name)("cpu"), P.Camera.reference("cpu"),
                                      24, 40, 2, 4, 5, sample_offset=2, jitter=True)
@@ -97,7 +104,7 @@ def test_fused_kernel_matches_forward_kernel_and_twin(cuda_device, name):
     random_spheres_scene has 33 materials, so 300 planes."""
     scene = mixed_scene(cuda_device) if name == "mixed" else getattr(pdemo, name)(cuda_device)
     cam = P.Camera.reference(cuda_device)
-    launches = rg.render_fused.launches
+    launches = tracing.counters()
     for jitter, offset, bounces in ((False, 0, 4), (True, 3, 8)):
         args = (scene, cam, 100, 160, 4, bounces, 7)
         kw = dict(sample_offset=offset, jitter=jitter)
@@ -107,7 +114,7 @@ def test_fused_kernel_matches_forward_kernel_and_twin(cuda_device, name):
         r_img, r_jac = rg.render_fused_reference(*args, **kw)
         assert torch.equal(img, r_img)
         assert torch.equal(jac, r_jac)
-    assert rg.render_fused.launches == launches + 2
+    assert (tracing.counters() - launches)["launch.render_fused"] == 2
 
 
 def test_count_rounds_match_twins(cuda_device):
@@ -126,14 +133,63 @@ def test_vjp_backward_matches_twin_contraction(cuda_device):
     h, w, spp, bounces, seed = 32, 64, 3, 4, 7
     g = torch.randn((h, w, 3), generator=torch.Generator().manual_seed(0)).to(cuda_device)
     leaves = [t.clone().requires_grad_() for t in rg._grad_leaves(scene)]
-    launches = rg.render_fused.launches
+    launches = tracing.counters()
     rg.render_kernel_vjp(rg._with_leaves(scene, leaves), cam, h, w, spp, bounces, seed).backward(g)
-    assert rg.render_fused.launches == launches + 1
+    assert (tracing.counters() - launches)["launch.render_fused"] == 1
     _, r_jac = rg.render_fused_reference(scene, cam, h, w, spp, bounces, seed)
     want = rg._grad_leaves(rg.contract_jacobian(scene, r_jac, g, spp))
     for leaf, expect in zip(leaves, want):
         torch.testing.assert_close(leaf.grad, expect, rtol=1e-5, atol=1e-6)
     assert scene.materials.roughness.grad is None
+
+
+def _bench_trace():
+    """The benchmark's reading of a profiler window (``benchmark/harness/trace.py``)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "harness" / "trace.py"
+    spec = importlib.util.spec_from_file_location("bench_harness_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_spans_share_the_profiler_clock_with_the_card(cuda_device):
+    """One B1 frame, one B3 frame and one B2 forward and backward under the
+    profiler: every call's check, pack and launch spans, and B2's
+    contraction, are host events of the trace, none inside another; the
+    benchmark's reading of the trace keeps none among the card's
+    activities (kernels and copies) and all among the host's."""
+    from torch.autograd import DeviceType
+
+    bench = _bench_trace()
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    shape = (32, 48, 2, 3)
+    rk.render_kernel(scene, cam, *shape, 1).cpu()  # the library built outside the trace
+    leaves = [t.clone().requires_grad_() for t in rg._grad_leaves(scene)]
+    with bench.profiled(True) as prof:
+        with torch.profiler.record_function(bench.WINDOW):
+            rk.render_kernel(scene, cam, *shape, 2).cpu()
+            rp.render_physical_kernel(scene, cam, *shape, 3).cpu()
+            img = rg.render_kernel_vjp(rg._with_leaves(scene, leaves), cam, *shape, 4)
+            img.sum().backward()
+            torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.name.startswith("pt.")]
+    want = [f"pt.{phase}.{stem}" for phase in ("check", "pack", "launch")
+            for stem in ("render_fwd", "render_phys", "render_fused")]
+    # B2's forward checks twice (the leaves replaced, then the entry's
+    # checks); each launch waits once for its camera's parameters.
+    want += ["pt.check.render_fused", "pt.contract.render_fused"] + ["pt.wait.camera_params"] * 3
+    assert sorted(n for _, _, n in spans) == sorted(want)
+    assert not [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA and e.name.startswith("pt.")]
+    assert not [(a[2], b[2]) for a in spans for b in spans
+                if a is not b and a[0] <= b[0] and b[1] <= a[1]]
+    trace = bench.Trace(prof)
+    assert trace.device and not [n for _, _, n in trace.device if "pt." in n]
+    assert {n for _, _, n in trace.host if n.startswith("pt.")} == {n for _, _, n in spans}
 
 
 def test_fused_kernel_rejects_bad_inputs(cuda_device):
@@ -143,10 +199,10 @@ def test_fused_kernel_rejects_bad_inputs(cuda_device):
     mixed = dataclasses.replace(scene, sky_color=scene.sky_color.cpu())
     with pytest.raises(ValueError):
         rg.render_fused(mixed, cam, 8, 8, 1, 1, 0)
-    launches = rg.render_fused.launches
+    launches = tracing.counters()
     with pytest.raises(ValueError, match="cap"):
         rg.render_fused(scene, cam, 8, 8, 1, rg.MAX_BOUNCES + 1, 0)
-    assert rg.render_fused.launches == launches
+    assert (tracing.counters() - launches)["launch.render_fused"] == 0
     img, _ = rg.render_fused(scene, cam, 8, 8, 1, rg.MAX_BOUNCES, 0)  # the cap itself runs
     assert torch.equal(img, rk.render_kernel(scene, cam, 8, 8, 1, rg.MAX_BOUNCES, 0))
 
@@ -199,7 +255,7 @@ def test_physical_kernel_matches_twin(cuda_device, name, kw):
     scene = (tri_light_mixed_scene(cuda_device) if name == "tri_light"
              else getattr(pdemo, name)(cuda_device))
     cam = P.Camera.reference(cuda_device)
-    launches = rp.render_physical_kernel.launches
+    launches = tracing.counters()
     args = (scene, cam, 100, 160, 4, 6, 7)
     k, n = rp.render_physical_kernel(*args, count_rounds=True, **kw)
     r, n_twin = rp.render_physical_kernel_reference(*args, count_rounds=True, **kw)
@@ -210,7 +266,7 @@ def test_physical_kernel_matches_twin(cuda_device, name, kw):
     events = rp.render_physical_kernel(*args, count_events=True, **kw)[1]
     assert events == rp.render_physical_kernel_reference(*args, count_events=True, **kw)[1]
     assert events["rounds"] == n
-    assert rp.render_physical_kernel.launches == launches + 3
+    assert (tracing.counters() - launches)["launch.render_phys"] == 3
     # the chain to the twin on the CPU
     cpu_scene = (tri_light_mixed_scene("cpu") if name == "tri_light"
                  else getattr(pdemo, name)("cpu"))
@@ -221,10 +277,10 @@ def test_physical_kernel_matches_twin(cuda_device, name, kw):
 
 def test_physical_kernel_rejects_mixed_devices(cuda_device):
     scene = pdemo.cornell_spheres_scene(cuda_device)
-    launches = rp.render_physical_kernel.launches
+    launches = tracing.counters()
     with pytest.raises(ValueError):
         rp.render_physical_kernel(scene, P.Camera.reference("cpu"), 8, 8, 1, 1, 0)
-    assert rp.render_physical_kernel.launches == launches
+    assert (tracing.counters() - launches)["launch.render_phys"] == 0
 
 
 # -- the physical tier's gradient kernels ----------------------------------------
@@ -250,7 +306,7 @@ def test_fused_physical_kernel_matches_forward_kernel_and_twin(cuda_device, name
     the executed rounds the twin's: one definition of the arithmetic, no
     FMA contraction, the twin's order of additions."""
     scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
-    launches = pg.render_physical_fused.launches
+    launches = tracing.counters()
     args = (scene, cam, 100, 160, 4, 6, 7)
     out = pg.render_physical_fused(*args, count_rounds=True, **kw)
     ref = pg.render_physical_fused_reference(*args, count_rounds=True, **kw)
@@ -263,7 +319,7 @@ def test_fused_physical_kernel_matches_forward_kernel_and_twin(cuda_device, name
     assert out[-1] >= rp.render_physical_kernel(*args, count_rounds=True, **fwd_kw)[1]
     plain = pg.render_physical_fused(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(plain, out[:-1]))
-    assert pg.render_physical_fused.launches == launches + 2
+    assert (tracing.counters() - launches)["launch.render_phys_fused"] == 2
 
 
 @pytest.mark.parametrize("name, kw", [
@@ -278,11 +334,11 @@ def test_two_pass_kernel_matches_twin_and_fused_contraction(cuda_device, name, k
     floor of 1e-6 of the leaf's scale (the JAX suite's gate between its two
     schemes), against the twin and against the fused kernel's contraction."""
     scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
-    launches = pg.render_physical_bwd.launches
+    launches = tracing.counters()
     g = torch.randn((100, 160, 3), generator=torch.Generator().manual_seed(1)).to(cuda_device)
     d = pg.render_physical_bwd(scene, cam, g, 100, 160, 4, 6, 7, **kw)
     r = pg.render_physical_bwd_reference(scene, cam, g, 100, 160, 4, 6, 7, **kw)
-    assert pg.render_physical_bwd.launches == launches + 1
+    assert (tracing.counters() - launches)["launch.render_phys_bwd"] == 1
     cap = kw.get("n_em_cap", min(scene.num_spheres, 8)) if kw.get("nee", True) else 0
     fkw = {k: v for k, v in kw.items() if k != "n_em_cap"}
     out = pg.render_physical_fused(scene, cam, 100, 160, 4, 6, 7, n_em_cap=cap, **fkw)
@@ -321,12 +377,12 @@ def test_two_pass_kernel_bits_and_counts(cuda_device, name, h, w, kw):
         kw["n_em_cap"] = rp.live_emitter_count(scene)
     g = torch.randn((h, w, 3), generator=torch.Generator().manual_seed(4)).to(cuda_device)
     args = (scene, cam, g, h, w, 4, 6, 7)
-    launches = pg.render_physical_bwd.launches
+    launches = tracing.counters()
     d = pg.render_physical_bwd(*args, **kw)
     again = pg.render_physical_bwd(*args, **kw)
     counted, counts = pg.render_physical_bwd(*args, count_sites=True, **kw)
     r, twin_counts = pg.render_physical_bwd_reference(*args, count_sites=True, **kw)
-    assert pg.render_physical_bwd.launches == launches + 3
+    assert (tracing.counters() - launches)["launch.render_phys_bwd"] == 3
     assert counts == twin_counts
     for a, b, c, ref in zip(*map(_two_pass_leaves, (d, again, counted, r))):
         assert torch.equal(a, b) and torch.equal(a, c)
@@ -342,10 +398,10 @@ def test_two_pass_measurement_instantiations(cuda_device, variant):
     scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
     g = torch.randn((37, 45, 3), generator=torch.Generator().manual_seed(5)).to(cuda_device)
     args = (scene, cam, g, 37, 45, 3, 5, 11)
-    launches = (pg.render_physical_bwd.launches, pg.render_physical_bwd_variant.launches)
+    launches = tracing.counters()
     got = pg.render_physical_bwd_variant(*args, variant, n_em_cap=1)
-    assert (pg.render_physical_bwd.launches,
-            pg.render_physical_bwd_variant.launches) == (launches[0], launches[1] + 1)
+    grew = tracing.counters() - launches
+    assert (grew["launch.render_phys_bwd"], grew["launch.render_phys_bwd.variant"]) == (0, 1)
     assert all(bool(torch.isfinite(x).all()) for x in _two_pass_leaves(got))
     if variant != "sink":
         want = pg.render_physical_bwd(*args, n_em_cap=1)
@@ -357,13 +413,13 @@ def test_physical_vjp_backward_matches_autograd_through_the_eager_tier(cuda_devi
     suite's gates (rtol 5e-3, atol 3e-5)."""
     scene, cam = tri_light_mixed_scene(cuda_device), P.Camera.reference(cuda_device)
     g = torch.randn((32, 64, 3), generator=torch.Generator().manual_seed(0)).to(cuda_device)
-    launches = pg.render_physical_fused.launches
+    launches = tracing.counters()
     grads = []
     for render in (pg.render_physical_kernel_vjp, P.render_physical):
         leaves = [t.clone().requires_grad_() for t in pg._grad_leaves(scene)]
         img = render(pg._with_leaves(scene, leaves), cam, 32, 64, 4, 3, 7, jitter=False)
         grads.append(torch.autograd.grad(img, leaves, g, allow_unused=True))
-    assert pg.render_physical_fused.launches == launches + 1
+    assert (tracing.counters() - launches)["launch.render_phys_fused"] == 1
     for (_, leaf), a, b in zip(pg._GRAD_LEAVES, *grads):
         if leaf in ("albedo", "emission_color", "emission_strength", "transparency", "sky_color"):
             torch.testing.assert_close(a, b, rtol=5e-3, atol=3e-5)
@@ -374,7 +430,7 @@ def test_physical_vjp_backward_matches_autograd_through_the_eager_tier(cuda_devi
 
 def test_physical_gradient_kernels_reject_bad_inputs(cuda_device):
     scene, cam = pdemo.cornell_spheres_scene(cuda_device), P.Camera.reference(cuda_device)
-    launches = (pg.render_physical_fused.launches, pg.render_physical_bwd.launches)
+    launches = tracing.counters()
     g = torch.ones((8, 8, 3), device=cuda_device)
     with pytest.raises(ValueError):
         pg.render_physical_fused(scene, P.Camera.reference("cpu"), 8, 8, 1, 1, 0)
@@ -384,7 +440,8 @@ def test_physical_gradient_kernels_reject_bad_inputs(cuda_device):
         pg.render_physical_bwd(scene, cam, g.cpu(), 8, 8, 1, 1, 0)
     with pytest.raises(ValueError):
         pg.render_physical_bwd(scene, cam, g, 8, 8, 1, pg.MAX_BOUNCES + 1, 0)
-    assert (pg.render_physical_fused.launches, pg.render_physical_bwd.launches) == launches
+    grew = tracing.counters() - launches
+    assert grew["launch.render_phys_fused"] == grew["launch.render_phys_bwd"] == 0
     out = pg.render_physical_fused(scene, cam, 8, 8, 1, pg.MAX_BOUNCES, 0)
     assert torch.equal(out[0], rp.render_physical_kernel(scene, cam, 8, 8, 1, pg.MAX_BOUNCES, 0))
 
@@ -406,10 +463,10 @@ def test_calibration_kernel_matches_twin(cuda_device, kind):
     from path_tracer_c_tpu_torch.utils import flops
 
     x = torch.linspace(-1.0, 1.0, 5000, device=cuda_device)
-    launches = flops.calib_kernel.launches
+    launches = tracing.counters()
     k = flops.calib_kernel(kind, 4, x)
     r = flops.calib_reference(kind, 4, x)
-    assert flops.calib_kernel.launches == launches + 1
+    assert (tracing.counters() - launches)["launch.calib"] == 1
     assert bool(torch.isfinite(k).all()) and int(ulps(k, r).max()) <= 2
     if kind in ("alu", "sqrt"):
         assert torch.equal(k, r)
@@ -429,14 +486,15 @@ def test_probes_equal_their_twins(cuda_device, h, w):
     from path_tracer_c_tpu_torch.ops import sol_probes as sp
 
     scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
-    launches = sp.sol_null.launches, sp.sol_micro.launches
+    launches = tracing.counters()
     assert torch.equal(sp.sol_null(scene, cam, h, w), sp.sol_null_reference(scene, cam, h, w))
     table, seed = sp.micro_table(cuda_device), torch.tensor([[7]], dtype=torch.int32,
                                                               device=cuda_device)
     ref = sp.sol_micro_reference(table, seed, h, w)
     for hoisted in (False, True):
         assert torch.equal(sp.sol_micro(table, seed, h, w, hoisted), ref)
-    assert (sp.sol_null.launches, sp.sol_micro.launches) == (launches[0] + 1, launches[1] + 2)
+    grew = tracing.counters() - launches
+    assert (grew["launch.sol_null"], grew["launch.sol_micro"]) == (1, 2)
 
 
 @pytest.mark.parametrize("h, w, kw", [(19, 45, {}), (100, 160, dict(jitter=True, sample_offset=3))])
@@ -509,11 +567,12 @@ def test_measurement_variants_match_the_kernels(cuda_device, variant):
     but for the sinks, its planes; none counts as a launch of the kernel."""
     scene, cam = pdemo.cornell_spheres_scene(cuda_device), P.Camera.reference(cuda_device)
     args = (scene, cam, 37, 45, 3, 3, 11)
-    launches = (rg.render_fused.launches, pg.render_physical_fused.launches)
+    launches = tracing.counters()
     b2 = rg.render_fused_variant(*args, variant, jitter=True) if variant in rg.VARIANTS else None
     b4 = (pg.render_physical_fused_variant(*args, variant, n_em_cap=1)
           if variant in pg.VARIANTS else None)
-    assert launches == (rg.render_fused.launches, pg.render_physical_fused.launches)
+    grew = tracing.counters() - launches
+    assert grew["launch.render_fused"] == grew["launch.render_phys_fused"] == 0
     for got, out in ((b2, rg.render_fused(*args, jitter=True)),
                      (b4, pg.render_physical_fused(*args, n_em_cap=1))):
         if got is None:
@@ -587,12 +646,12 @@ def test_fused_physical_policies_match_the_kernel(cuda_device, variant, name, h,
     scene, cam = physical_scene(name, cuda_device), P.Camera.reference(cuda_device)
     args = (scene, cam, h, w, spp, bounces, 7)
     out = pg.render_physical_fused(*args, **kw)
-    launches = pg.render_physical_fused.launches
+    launches = tracing.counters()
     budgets = (16, 32, 48) if pg.policy(variant)["planes"] != "device" else (None,)
     for floats in budgets:
         got = pg.render_physical_fused_variant(*args, variant, chip_floats=floats, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, out)), (variant, floats)
-    assert pg.render_physical_fused.launches == launches
+    assert (tracing.counters() - launches)["launch.render_phys_fused"] == 0
 
 
 # -- the forward kernels' schedules and table placements -----------------------
@@ -646,7 +705,7 @@ def test_forward_instantiations_equal_the_twins(cuda_device, variant):
     fwd = _variant_or_kernel(rk.render_kernel, rk.render_kernel_variant, variant)
     phys = _variant_or_kernel(rp.render_physical_kernel, rp.render_physical_kernel_variant,
                               variant)
-    launches = (rk.render_kernel.launches, rp.render_physical_kernel.launches)
+    launches = tracing.counters()
     n = 0
     for h, w, spp, bounces, kw in FORWARD_CASES:
         args = (glossy, cam, h, w, spp, bounces, 7)
@@ -658,8 +717,8 @@ def test_forward_instantiations_equal_the_twins(cuda_device, variant):
                  else physical_scene(name, cuda_device))
         args = (scene, cam, 100, 160, 4, 8, 7)
         assert torch.equal(phys(*args, **kw), rp.render_physical_kernel_reference(*args, **kw))
-    grew = (rk.render_kernel.launches - launches[0], rp.render_physical_kernel.launches
-            - launches[1])
+    grew = tracing.counters() - launches
+    grew = (grew["launch.render_fwd"], grew["launch.render_phys"])
     assert grew == ((n, n + len(PHYSICAL_FORWARD_CASES)) if variant is None else (0, 0))
 
 
@@ -748,9 +807,9 @@ def test_resumed_render_equals_uninterrupted_on_the_card(cuda_device, tmp_path, 
     from path_tracer_c_tpu_torch.utils import checkpoint as ck
 
     ref, out, path = tmp_path / "ref.bmp", tmp_path / "out.bmp", tmp_path / "r.npz"
-    launches = kernel.launches
+    launches = tracing.counters()
     app.main(_render_argv(ref, engine))
-    assert kernel.launches == launches + 4
+    assert (tracing.counters() - launches)[LAUNCH[kernel]] == 4
     real_save = ck.save_render
     saves = []
 
@@ -766,7 +825,7 @@ def test_resumed_render_equals_uninterrupted_on_the_card(cuda_device, tmp_path, 
     monkeypatch.setattr(ck, "save_render", real_save)
     app.main(_render_argv(out, engine, path))
     assert out.read_bytes() == ref.read_bytes()
-    assert kernel.launches == launches + 8
+    assert (tracing.counters() - launches)[LAUNCH[kernel]] == 8
 
 
 @pytest.mark.parametrize("spp, offset", [(1, 0), (1, 5), (1, 2**31 - 2), (3, 2**31 - 4)])
@@ -792,12 +851,12 @@ def test_debug_nans_through_the_kernel(cuda_device, tmp_path):
         scene.materials, emission_strength=torch.full_like(scene.materials.emission_strength,
                                                             float("nan"))))
     save_scene(tmp_path / "nan.json", bad)
-    launches = rk.render_kernel.launches
+    launches = tracing.counters()
     with pytest.raises(FloatingPointError, match="engine cuda"):
         app.main(["render", "--scene", str(tmp_path / "nan.json"), "--width", "32", "--height",
                   "16", "--spp", "1", "--max-bounces", "1", "--debug-nans",
                   "--out", str(tmp_path / "nan.bmp")])
-    assert rk.render_kernel.launches == launches + 1
+    assert (tracing.counters() - launches)["launch.render_fwd"] == 1
 
 
 def test_animate_on_the_card(cuda_device, tmp_path):
@@ -809,13 +868,14 @@ def test_animate_on_the_card(cuda_device, tmp_path):
     from path_tracer_c_tpu_torch.utils import bitmap, native
     from path_tracer_c_tpu_torch.utils.config import AnimationConfig
 
-    launches = rk.render_kernel.launches
+    launches = tracing.counters()
     app.main(["animate", "--scene", "demo", "--width", "48", "--height", "32", "--spp", "4",
               "--max-bounces", "3", "--frames", "3", "--out-dir", str(tmp_path / "fr"),
               "--metrics", str(tmp_path / "m.jsonl")])
-    assert rk.render_kernel.launches == launches + 3
-    recs = [json.loads(line) for line in (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert (tracing.counters() - launches)["launch.render_fwd"] == 3
+    *recs, spans = [json.loads(line) for line in (tmp_path / "m.jsonl").read_text().splitlines()]
     assert recs[-1]["writer"] == ("native" if native.available() else "numpy")
+    assert spans["kind"] == "spans" and spans["counters"]["launch.render_fwd"] == 3
     scene = pdemo.demo_scene(cuda_device)
     for f, cam in enumerate(app._orbit_cameras(AnimationConfig(frames=3), cuda_device)):
         img = rk.render_kernel(scene, cam, 32, 48, 4, 3, f)
@@ -852,11 +912,11 @@ def test_resumed_fit_equals_uninterrupted_on_the_card(cuda_device, tmp_path, kin
     """2 steps, then a resume to 4, through the fused kernel: parameters and
     losses bit for bit those of 4 uninterrupted steps."""
     fit = _fit_case(kind, cuda_device)
-    launches = kernel.launches
+    launches = tracing.counters()
     ref, ref_losses = fit(4, None)
     fit(2, tmp_path / "f.npz")
     got, losses = fit(4, tmp_path / "f.npz")
-    assert kernel.launches == launches + 8
+    assert (tracing.counters() - launches)[LAUNCH[kernel]] == 8
     assert losses == ref_losses
     for table in ("materials", "spheres"):
         for a, b in zip(dataclasses.astuple(getattr(got, table)),
@@ -1076,9 +1136,9 @@ def test_render_sharded_on_cuda0_repeated(cuda_device, engine, fn):
     whole = fn(scene, cam, 64, 96, 8, 4, 3, jitter=False)
     for tile, spp_ax in ((4, 1), (2, 2)):
         mesh = parallel.make_mesh(tile=tile, spp=spp_ax, devices=[cuda_device] * (tile * spp_ax))
-        before = fn.launches
+        before = tracing.counters()
         img = parallel.render_sharded(scene, cam, 64, 96, 8, 4, 3, mesh, engine=engine)
-        assert fn.launches == before + tile * spp_ax
+        assert (tracing.counters() - before)[LAUNCH[fn]] == tile * spp_ax
         if spp_ax == 1:
             assert torch.equal(img, whole)
         else:

@@ -15,6 +15,7 @@ import torch
 import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
 from path_tracer_c_tpu_torch.ops import render_physical as rp
+from path_tracer_c_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -167,15 +168,15 @@ def test_variants_are_for_the_card_only():
     each the timed kernel (path regeneration, tables in shared memory) under
     one other policy."""
     scene = P.demo.glossy_scene("cpu")
-    launches = (rk.render_kernel_variant.launches, rp.render_physical_kernel_variant.launches)
+    launches = tracing.counters()
     for fn in (rk.render_kernel_variant, rp.render_physical_kernel_variant):
         for variant in rk.VARIANTS:
             with pytest.raises(ValueError, match="CUDA"):
                 fn(scene, CAM, 4, 4, 1, 2, 0, variant)
         with pytest.raises(ValueError, match="unknown variant"):
             fn(scene, CAM, 4, 4, 1, 2, 0, "lanes")
-    assert launches == (rk.render_kernel_variant.launches,
-                        rp.render_physical_kernel_variant.launches)
+    grew = tracing.counters() - launches
+    assert grew["launch.render_fwd.variant"] == grew["launch.render_phys.variant"] == 0
     assert rk.VARIANTS == {"per_sample": 0, "global_tables": 1}
     assert rk.policy() == rk.KERNEL_POLICY == {"schedule": "regen", "tables": "shared"}
     assert rk.policy("per_sample") == {"schedule": "per_sample", "tables": "shared"}

@@ -15,6 +15,7 @@ import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.ops import render_grad as rg
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
 from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
+from path_tracer_c_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -128,7 +129,7 @@ def test_variants_are_for_the_card_only():
     them in; B4 also the instantiations of its own policies, each one
     policy away from the kernel."""
     scene = P.demo.glossy_scene("cpu")
-    launches = (rg.render_fused_variant.launches, pg.render_physical_fused_variant.launches)
+    launches = tracing.counters()
     for fn in (rg.render_fused_variant, pg.render_physical_fused_variant):
         with pytest.raises(ValueError, match="CUDA"):
             fn(scene, CAM, 4, 4, 1, 2, 0, "sink")
@@ -136,8 +137,8 @@ def test_variants_are_for_the_card_only():
             fn(scene, CAM, 4, 4, 1, 2, 0, "regen")
         with pytest.raises(ValueError, match="cap"):
             fn(scene, CAM, 4, 4, 1, rg.REGISTER_ROUNDS, 0, "registers")
-    assert launches == (rg.render_fused_variant.launches,
-                        pg.render_physical_fused_variant.launches)
+    grew = tracing.counters() - launches
+    assert grew["launch.render_fused.variant"] == grew["launch.render_phys_fused.variant"] == 0
     assert rg.VARIANTS == {"sink": 0, "registers": 1, "local_records": 2}
     assert {k: v for k, v in pg.VARIANTS.items() if v < 3} == {
         "sink": 0, "registers": 1, "shared_records": 2}

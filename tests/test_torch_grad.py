@@ -182,7 +182,8 @@ def test_fit_cli_on_cpu(tmp_path, capsys, monkeypatch, engine):
     assert line.startswith("fit: 4 steps in ") and "max albedo err" in line
     first, last = (float(x) for x in line.split("loss ")[1].split(",")[0].split(" -> "))
     assert np.isfinite(first) and np.isfinite(last)
-    recs = [json.loads(l) for l in metrics.read_text().splitlines()]
+    *recs, spans = [json.loads(l) for l in metrics.read_text().splitlines()]
+    assert spans["kind"] == "spans" and spans["counters"]["wait.loss"] == 4
     assert [r["step"] for r in recs] == [0, 1, 2, 3]
     assert all(r["engine"] == (engine or "cuda") for r in recs)
 

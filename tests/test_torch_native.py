@@ -163,7 +163,7 @@ def test_render_names_its_writer(lib, tmp_path, monkeypatch, capsys):
         out, metrics = tmp_path / f"{built}.bmp", tmp_path / f"{built}.jsonl"
         app.main(argv + ["--out", str(out), "--metrics", str(metrics)])
         assert capsys.readouterr().out.strip().endswith("writer numpy)")
-        assert json.loads(metrics.read_text().splitlines()[-1])["writer"] == "numpy"
+        assert json.loads(metrics.read_text().splitlines()[-2])["writer"] == "numpy"
         assert [p for p, _ in writes].count(str(out)) == 1
         outs[built] = out.read_bytes()
     lib.write_bitmap(tmp_path / "native.bmp", writes[0][1], True)

@@ -23,6 +23,7 @@ from path_tracer_c_tpu_torch.models import physical as pphys
 from path_tracer_c_tpu_torch.ops import render_physical as rp
 from path_tracer_c_tpu_torch.ops import render_physical_grad as pg
 from path_tracer_c_tpu_torch.ops import rng as prng
+from path_tracer_c_tpu_torch.utils import tracing
 import torch_physical_scenes as S
 from torch_physical_scenes import JCAM, PCAM
 
@@ -202,7 +203,7 @@ def test_tri_adjoint_matches_autograd_and_jax_vjp(floors):
 
 def test_cpu_tensors_take_the_twins():
     pscene = S.carry(S.nee_light_scene())
-    launches = (pg.render_physical_fused.launches, pg.render_physical_bwd.launches)
+    launches = tracing.counters()
     kw = dict(jitter=False, n_em_cap=1)
     a = pg.render_physical_fused(pscene, PCAM, 8, 12, 2, 2, 6, **kw)
     b = pg.render_physical_fused_reference(pscene, PCAM, 8, 12, 2, 2, 6, **kw)
@@ -213,7 +214,8 @@ def test_cpu_tensors_take_the_twins():
     assert torch.equal(da.materials.albedo, db.materials.albedo)
     assert torch.equal(da.spheres.center, db.spheres.center)
     # 0 on a machine without a card: the counts grow where a kernel launches
-    assert (pg.render_physical_fused.launches, pg.render_physical_bwd.launches) == launches
+    grew = tracing.counters() - launches
+    assert grew["launch.render_phys_fused"] == grew["launch.render_phys_bwd"] == 0
     for fn, source, line in ((pg.render_physical_fused, "render_phys_fused.cu", 1348),
                              (pg.render_physical_bwd, "render_phys_bwd.cu", 931)):
         assert (S.REPO / fn.SOURCE).name == source and (S.REPO / fn.SOURCE).exists()

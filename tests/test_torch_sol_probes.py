@@ -16,6 +16,7 @@ import torch
 import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.ops import render_kernel as rk
 from path_tracer_c_tpu_torch.ops import sol_probes as sp
+from path_tracer_c_tpu_torch.utils import tracing
 from path_tracer_c_tpu_torch.utils.sol_decompose import sol_decompose, table_loads_per_round
 
 torch.set_num_threads(1)
@@ -46,9 +47,9 @@ def numpy_micro(table, seed, th, tw, reps=200, hoisted=False):
 @pytest.mark.parametrize("name", ["glossy_scene", "demo_scene", "cornell_spheres_scene"])
 def test_null_twin_matches_the_transcription(name):
     scene = getattr(P.demo, name)("cpu")
-    launches = sp.sol_null.launches
+    launches = tracing.counters()
     got = sp.sol_null(scene, CAM, 19, 45)
-    assert sp.sol_null.launches == launches  # the twin ran on the CPU
+    assert (tracing.counters() - launches)["launch.sol_null"] == 0  # the twin ran
     tables0 = scene.spheres.center.numpy()  # the TPU kernel's first SMEM operand
     np.testing.assert_array_equal(got.numpy(), numpy_null(tables0, 19, 45))
     assert got.dtype == torch.float32 and got.shape == (19, 45, 3)
@@ -62,11 +63,11 @@ def test_micro_twin_matches_the_transcription(seed, reps):
     seed_t = torch.tensor([[seed]], dtype=torch.int32)
     want = numpy_micro(table_np, seed, 3, 5, reps)
     np.testing.assert_array_equal(want, numpy_micro(table_np, seed, 3, 5, reps, hoisted=True))
-    launches = sp.sol_micro.launches
+    launches = tracing.counters()
     for hoisted in (False, True):
         got = sp.sol_micro(table, seed_t, 3, 5, hoisted, reps=reps)
         np.testing.assert_array_equal(got.numpy(), want)
-    assert sp.sol_micro.launches == launches
+    assert (tracing.counters() - launches)["launch.sol_micro"] == 0
     assert np.isfinite(want).all()
 
 

@@ -302,6 +302,19 @@ def test_sweep_script_parses_and_refuses_the_cpu():
     assert res.returncode != 0 and "no CUDA device" in res.stderr
 
 
+def test_the_sweep_loads_the_build_parsers_by_their_path():
+    """``utils/tile_sweep._tools`` loads ``ops/build.py`` by its path,
+    outside the package (a ``--tree`` may lack the parsers); there its
+    parsers run, and nothing it imports needs the package."""
+    from path_tracer_c_tpu_torch.utils import tile_sweep
+
+    tools = tile_sweep._tools()
+    text = ("ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+            "ptxas info    : Used 40 registers, 8 bytes spill stores, 4 bytes spill loads\n")
+    assert tools.ptxas_entries(text) == {
+        "_Z3fooPf": {"registers": 40, "spill_stores": 8, "spill_loads": 4}}
+
+
 def test_sol_report_names_the_launch_shape():
     from path_tracer_c_tpu_torch.utils import flops
 
