@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import pack_cache as _pc
 from . import rng as _rng
 from .camera import Camera, check_rows, pixel_indices
 from .rng import _f32, sqrt_rn
@@ -264,6 +265,14 @@ _FLOAT_FIELDS = {
     "spheres": ("center", "radius"),
     "triangles": ("v0", "v1", "v2"),
 }
+# Every field of the scene's tables, (table, name, dtype): the float fields,
+# then each object table's material index and mask. The kernels' tables are
+# packed from these (``_scene_operands``, ``render_physical._phys_operands``).
+_TABLE_FIELDS = (tuple((table, name, torch.float32)
+                       for table, names in _FLOAT_FIELDS.items() for name in names)
+                 + tuple((table, name, dtype) for table in ("spheres", "triangles")
+                         for name, dtype in (("material", torch.int32), ("active", torch.bool))))
+_CAMERA_FIELDS = ("origin", "right", "up", "forward", "fov")
 
 
 def _check_inputs(scene: Scene, camera: Camera, height, width, spp,
@@ -272,15 +281,10 @@ def _check_inputs(scene: Scene, camera: Camera, height, width, spp,
     block of ``rows`` rows (None: the whole image) from ``row_start``."""
     device = scene.device
     tensors = [("sky_color", scene.sky_color, torch.float32)]
-    for table, names in _FLOAT_FIELDS.items():
-        for name in names:
-            t = getattr(getattr(scene, table), name)
-            tensors.append((f"{table}.{name}", t, torch.float32))
-    for table in ("spheres", "triangles"):
-        tensors.append((f"{table}.material", getattr(scene, table).material, torch.int32))
-        tensors.append((f"{table}.active", getattr(scene, table).active, torch.bool))
-    for name in ("origin", "right", "up", "forward", "fov"):
-        tensors.append((f"camera.{name}", getattr(camera, name), torch.float32))
+    tensors += [(f"{table}.{name}", getattr(getattr(scene, table), name), dtype)
+                for table, name, dtype in _TABLE_FIELDS]
+    tensors += [(f"camera.{name}", getattr(camera, name), torch.float32)
+                for name in _CAMERA_FIELDS]
     for name, t, dtype in tensors:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, the scene on {device}")
@@ -409,6 +413,47 @@ def _camera_params(camera: Camera, scene: Scene, height: int, width: int):
     ).contiguous()
 
 
+def _table_key(scene: Scene, *extra):
+    """The ``pack_cache.Key`` of the scene's tables: every field of
+    ``_TABLE_FIELDS``, and ``extra``."""
+    return _pc.key([getattr(getattr(scene, table), name) for table, name, _ in _TABLE_FIELDS],
+                   *extra)
+
+
+def _camera_key(camera: Camera, scene: Scene, height: int, width: int, *extra):
+    """The ``pack_cache.Key`` of ``_camera_params``: the camera's fields and
+    the sky's colour, at ``height`` x ``width``, and ``extra``."""
+    return _pc.key([*(getattr(camera, name) for name in _CAMERA_FIELDS), scene.sky_color],
+                   height, width, *extra)
+
+
+def _pack(kind: str, tile, scene: Scene, camera: Camera, height: int, width: int, pack, stream):
+    """A launch's pack phase for the kernel ``kind`` (``KINDS``) at the point
+    ``tile`` names: returns the point, its library (``_library``), the
+    scene's tables as ``pack(scene)`` packs them and the camera's parameters
+    (``_camera_params``). Tables and parameters are reused from an earlier
+    launch on the same ``stream`` while their source tensors are unchanged
+    (``pack_cache``): no copy, no kernel and no wait then. A
+    ``pt.pack.<stem>`` span holds the library's load and both lookups; the
+    tables count in ``pack.hit.<stem>`` or ``pack.miss.<stem>``; the
+    parameters are packed anew under ``wait("camera_params")``."""
+    stem = KINDS[kind]
+    with span("pt.pack." + stem):
+        t = tile_point(tile, kind)
+        lib = _library(stem, t)
+        tables_key = _table_key(scene, stem, stream)
+        tables = _pc.TABLES.get(tables_key)
+        count(("pack.miss." if tables is None else "pack.hit.") + stem)
+        if tables is None:
+            tables = _pc.TABLES.put(tables_key, pack(scene))
+        camera_key = _camera_key(camera, scene, height, width, stream)
+        par = _pc.CAMERAS.get(camera_key)
+    if par is None:
+        with wait("camera_params"):
+            par = _pc.CAMERAS.put(camera_key, _camera_params(camera, scene, height, width))
+    return t, lib, tables, par
+
+
 def _ptr(t):
     """A tensor's device pointer for ctypes; None passes as null."""
     return None if t is None else ctypes.c_void_p(t.data_ptr())
@@ -500,16 +545,13 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     (None: the default), or with ``variant`` an instantiation of
     ``VARIANTS``; with ``count_on``, its counting instantiation, whose two
     counters (thread-rounds, warp lane-rounds of its schedule) come back
-    beside the image."""
+    beside the image. The operands are ``_pack``'s, reused while the scene
+    and the camera are unchanged."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_kernel runs on CUDA or CPU tensors, not {device}")
-    with span("pt.pack.render_fwd"):
-        t = tile_point(tile, "fwd")
-        lib = _library("render_fwd", t)
-        operands = _scene_operands(scene)
-    with wait("camera_params"):
-        par = _camera_params(camera, scene, height, width)
+    t, lib, operands, par = _pack("fwd", tile, scene, camera, height, width, _scene_operands,
+                                  torch.cuda.current_stream(device).cuda_stream)
     with span("pt.launch.render_fwd"):
         rows = height if rows is None else rows
         out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
@@ -563,10 +605,11 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
     """B1 at point ``tile`` (``fit_tile``), or its instantiation ``variant``
     (built at the default point: it takes no ``tile``), on operands packed
     once, on CUDA tensors only: ``launch(seed)`` runs it into one image,
-    which it returns (the same tensor each call), without the packing that
-    ``render_kernel`` does on every call. What the measurement scripts time
-    as the kernel alone; no user path runs it, and its launches count
-    nowhere. Each launch is a ``pt.launch.render_fwd`` span."""
+    which it returns (the same tensor each call), without the checks, the
+    cache's lookups and the allocation that ``render_kernel`` makes on every
+    call. What the measurement scripts time as the kernel alone; no user
+    path runs it, and its launches count nowhere. Each launch is a
+    ``pt.launch.render_fwd`` span."""
     _variant_or_tile(variant, tile)
     t = fit_tile("fwd", scene, height, width, max_bounces, tile)
     _cuda_only(scene, "packed_launcher")

@@ -161,6 +161,13 @@ def _phys_operands(scene: Scene, operands):
     )
 
 
+def _all_operands(scene: Scene):
+    """B3's operands: the reference tier's tables (``_scene_operands``) and
+    ``_phys_operands`` of them."""
+    operands = _rk._scene_operands(scene)
+    return operands, _phys_operands(scene, operands)
+
+
 # -- the wrapper ---------------------------------------------------------------
 
 
@@ -230,17 +237,15 @@ def _launch(scene, camera, height, width, spp, max_bounces, seed, sample_offset,
     (None: the default), or with
     ``variant`` an instantiation of ``render_kernel.VARIANTS``; with
     ``count_on``, its counting instantiation, whose counters (``EVENTS``, then
-    ``WARP_EVENTS`` of its schedule) come back beside the image."""
+    ``WARP_EVENTS`` of its schedule) come back beside the image. The
+    operands are ``render_kernel._pack``'s (``_all_operands``), reused while
+    the scene and the camera are unchanged."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"render_physical_kernel runs on CUDA or CPU tensors, not {device}")
-    with span("pt.pack.render_phys"):
-        t = _rk.tile_point(tile, "phys")
-        lib = _rk._library("render_phys", t)
-        operands = _rk._scene_operands(scene)
-        ph = _phys_operands(scene, operands)
-    with wait("camera_params"):
-        par = _rk._camera_params(camera, scene, height, width)
+    t, lib, (operands, ph), par = _rk._pack("phys", tile, scene, camera, height, width,
+                                            _all_operands,
+                                            torch.cuda.current_stream(device).cuda_stream)
     with span("pt.launch.render_phys"):
         rows = height if rows is None else rows
         out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
@@ -302,10 +307,11 @@ def packed_launcher(scene: Scene, camera: Camera, height: int, width: int, spp: 
     instantiation ``variant`` (built at the default point: it takes no
     ``tile``), on operands packed once, on CUDA tensors only:
     ``launch(seed)`` runs it into one image, which it returns (the same
-    tensor each call), without the packing that ``render_physical_kernel``
-    does on every call. What the measurement scripts time as the kernel
-    alone; no user path runs it, and its launches count nowhere. Each
-    launch is a ``pt.launch.render_phys`` span."""
+    tensor each call), without the checks, the cache's lookups and the
+    allocation that ``render_physical_kernel`` makes on every call. What the
+    measurement scripts time as the kernel alone; no user path runs it, and
+    its launches count nowhere. Each launch is a ``pt.launch.render_phys``
+    span."""
     _rk._variant_or_tile(variant, tile)
     t = _rk.fit_tile("phys", scene, height, width, max_bounces, tile)
     _rk._cuda_only(scene, "packed_launcher")

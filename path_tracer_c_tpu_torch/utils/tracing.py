@@ -17,14 +17,17 @@ Span names are ``pt.<phase>.<stem>``, the stem a kernel's source
 - ``pt.check.<stem>``: the inputs' checks and the launch shape's fit (also
   on the plain twins' path);
 - ``pt.pack.<stem>``: the library loaded (built on its first use), the
-  scene's operands;
+  scene's operands; for B1 and B3 the lookups of the scene's tables and the
+  camera's parameters (``ops/pack_cache.py``) and the tables packed on a
+  miss;
 - ``pt.launch.<stem>``: the outputs and counters allocated, the launch's
   arguments, the entry's lookup, the call into the library and its error
   check;
 - ``pt.contract.<stem>``: an autograd backward, the Jacobian's contraction;
 - ``pt.wait.<site>``: the host waiting for the device (a launch's camera
-  parameters, copied from pageable memory; the fit loop's loss readbacks;
-  a counting launch's counters; a checkpoint's save);
+  parameters, copied from pageable memory, for B1 and B3 on a miss only;
+  the fit loop's loss readbacks; a counting launch's counters; a
+  checkpoint's save);
 - ``pt.build.<library>``: a library compiled (``ops/build.py``,
   ``utils/native.py``).
 
@@ -32,7 +35,10 @@ Span names are ``pt.<phase>.<stem>``, the stem a kernel's source
 on and ``counters()`` reads them: ``launch.<stem>`` (a launch of the timed
 kernel or its counting instantiation), ``launch.<stem>.variant`` (of a
 measurement instantiation), ``launch.<probe>`` (``sol_null``,
-``sol_micro``, ``calib``), ``wait.<site>`` and ``build.<library>``.
+``sol_micro``, ``calib``), ``wait.<site>``, ``build.<library>``, and
+``pack.hit.<stem>`` and ``pack.miss.<stem>`` (a launch of B1 or B3 that
+reused or packed the scene's tables; a camera's miss counts in
+``wait.camera_params``).
 """
 
 from __future__ import annotations

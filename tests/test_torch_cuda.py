@@ -180,8 +180,9 @@ def test_spans_share_the_profiler_clock_with_the_card(cuda_device):
     want = [f"pt.{phase}.{stem}" for phase in ("check", "pack", "launch")
             for stem in ("render_fwd", "render_phys", "render_fused")]
     # B2's forward checks twice (the leaves replaced, then the entry's
-    # checks); each launch waits once for its camera's parameters.
-    want += ["pt.check.render_fused", "pt.contract.render_fused"] + ["pt.wait.camera_params"] * 3
+    # checks) and waits for its camera's parameters; B1 and B3 reuse those
+    # the warm-up call packed (``ops/pack_cache.py``), so they wait for none.
+    want += ["pt.check.render_fused", "pt.contract.render_fused", "pt.wait.camera_params"]
     assert sorted(n for _, _, n in spans) == sorted(want)
     assert not [e.name for e in prof.events()
                 if e.device_type == DeviceType.CUDA and e.name.startswith("pt.")]
@@ -190,6 +191,66 @@ def test_spans_share_the_profiler_clock_with_the_card(cuda_device):
     trace = bench.Trace(prof)
     assert trace.device and not [n for _, _, n in trace.device if "pt." in n]
     assert {n for _, _, n in trace.host if n.startswith("pt.")} == {n for _, _, n in spans}
+
+
+# -- B1's and B3's operands packed once (ops/pack_cache.py) ----------------------
+
+RENDERS = {"render_fwd": rk.render_kernel, "render_phys": rp.render_physical_kernel}
+
+
+@pytest.mark.parametrize("stem", list(RENDERS))
+def test_a_reused_pack_renders_as_a_fresh_one(cuda_device, stem):
+    """A launch on the operands an earlier launch packed gives, seed for
+    seed, the image of a launch that packs a newly built scene and camera."""
+    render = RENDERS[stem]
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    render(scene, cam, 48, 64, 2, 4, 0)
+    before = tracing.counters()
+    for seed in (1, 7, 2**31 + 5):
+        reused = render(scene, cam, 48, 64, 2, 4, seed)
+        fresh = render(pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device),
+                       48, 64, 2, 4, seed)
+        assert torch.equal(reused, fresh)
+    moved = tracing.counters() - before
+    assert moved[f"pack.hit.{stem}"] == 3 and moved[f"pack.miss.{stem}"] == 3
+    assert moved["wait.camera_params"] == 3  # each new camera's parameters, once
+
+
+@pytest.mark.parametrize("stem", list(RENDERS))
+def test_an_in_place_edit_between_launches_is_rendered(cuda_device, stem):
+    render = RENDERS[stem]
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    before = render(scene, cam, 48, 64, 2, 4, 3)
+    scene.materials.albedo.mul_(0.5)
+    edited = render(scene, cam, 48, 64, 2, 4, 3)
+    fresh = pdemo.glossy_scene(cuda_device)
+    fresh.materials.albedo.mul_(0.5)
+    assert not torch.equal(edited, before)
+    assert torch.equal(edited, render(fresh, P.Camera.reference(cuda_device), 48, 64, 2, 4, 3))
+
+
+@pytest.mark.parametrize("stem", list(RENDERS))
+def test_a_reused_pack_queues_nothing_before_the_kernel(cuda_device, stem):
+    """Under the profiler, a launch whose operands are reused puts its
+    kernel alone on the card: no copy, no fill and no small kernel of the
+    packing. A launch that packs puts them there."""
+    from torch.autograd import DeviceType
+
+    render = RENDERS[stem]
+    scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
+    render(scene, cam, 48, 64, 2, 4, 0)
+    torch.cuda.synchronize()
+
+    def on_card(s, c):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            render(s, c, 48, 64, 2, 4, 1)
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    ops = on_card(scene, cam)
+    assert len(ops) == 1 and f"{stem}_kernel" in ops[0], ops
+    assert len(on_card(pdemo.glossy_scene(cuda_device), cam)) > 1
 
 
 def test_fused_kernel_rejects_bad_inputs(cuda_device):
