@@ -3,25 +3,29 @@
 B1's and B3's wrappers (``render_kernel._launch``, ``render_physical._launch``)
 pack the scene into the kernels' tables and the camera into 17 floats before
 every launch, though a frame loop, a chunked render or a camera sweep hands
-them the same tensors again. A ``PackCache`` keeps what a call packed, under
-a ``Key`` of the tensors it was packed from, and gives it back to a later
-call whose sources are the very same tensors in the same state:
+them the same tensors again. A ``PackCache`` keeps, in each of its slots,
+the value the slot's last miss packed, under a ``Key`` of the tensors it was
+packed from, and gives it back to a later call whose sources are the very
+same tensors in the same state:
 
 - identity by a weak reference to each source: an address or ``id()``
-  alone comes back on the next tensor the allocator builds, so they only
-  index an entry, and a dead reference is a miss;
+  comes back on the next tensor the allocator builds, so a reference proves
+  it; and when any source dies, its reference's callback drops the entry, so
+  no packed value outlives its scene;
 - state by each source's version counter (``_version``, which every
   in-place edit through PyTorch bumps), storage address, shape, strides and
-  device, and by the key's extra values (the image's size, the stream).
+  device, and by the key's extra values (the image's size).
 
 An inference tensor counts no versions: its key is None, which never hits
 and is never stored, so such a call packs every time. An edit that PyTorch
 does not count, through ``.data`` or a raw pointer, is not seen.
 
-A stored value holds none of its sources: its tensors are detached from
-autograd, and one that shares memory with a source is copied. The cache
-keeps a few entries, the least recently used dropped first, and no stored
-tensor is ever written. Nothing here is specific to a device: the wrappers
+A stored value is detached from autograd, so it holds no graph, and is never
+written; a tensor of it may share memory with a source (a contiguous index
+passes through the packing as it is), which that source's version covers. A
+slot holds one entry, replaced by the next miss: the callers name a slot by
+the kernel and the stream, and every user of the wrappers reuses its most
+recent scene and camera. Nothing here is specific to a device: the wrappers
 use it for CUDA launches, and the tests run it on CPU tensors.
 """
 
@@ -29,20 +33,17 @@ from __future__ import annotations
 
 import threading
 import weakref
-from collections import OrderedDict
 
 __all__ = ["Key", "PackCache", "key", "TABLES", "CAMERAS"]
 
 
 class Key:
-    """The sources of a packed value and their state at lookup: ``index``
-    (their ``id()``s and the extra values) finds an entry, and the
-    sources' weak references and ``state`` prove it."""
+    """The sources of a packed value and their ``state`` at lookup."""
 
-    __slots__ = ("index", "sources", "state")
+    __slots__ = ("sources", "state")
 
-    def __init__(self, index: tuple, sources: tuple, state: tuple):
-        self.index, self.sources, self.state = index, sources, state
+    def __init__(self, sources: tuple, state: tuple):
+        self.sources, self.state = sources, state
 
 
 def key(sources, *extra) -> Key | None:
@@ -53,75 +54,69 @@ def key(sources, *extra) -> Key | None:
         state = tuple((t._version, t.data_ptr(), t.shape, t.stride(), t.device) for t in sources)
     except RuntimeError:  # an inference tensor tracks no version
         return None
-    return Key((tuple(map(id, sources)), extra), sources, state)
+    return Key(sources, (state, extra))
 
 
-def _own(value, sources):
-    """``value`` (a tensor, or a tuple or dict of values) detached, with
-    each tensor that shares memory with a source replaced by a copy, the
-    same copy wherever the tensor recurs."""
-    shared = {s.untyped_storage().data_ptr() for s in sources}
-    copies: dict = {}
-
-    def own(v):
-        if isinstance(v, dict):
-            return {k: own(x) for k, x in v.items()}
-        if isinstance(v, tuple):
-            return tuple(own(x) for x in v)
-        if id(v) not in copies:
-            d = v.detach()
-            copies[id(v)] = (v, d.clone() if d.untyped_storage().data_ptr() in shared else d)
-        return copies[id(v)][1]
-
-    return own(value)
+def _detached(value):
+    """``value`` (a tensor, or a tuple or dict of values) detached."""
+    if isinstance(value, dict):
+        return {k: _detached(x) for k, x in value.items()}
+    if isinstance(value, tuple):
+        return tuple(_detached(x) for x in value)
+    return value.detach()
 
 
 class PackCache:
-    """At most ``size`` packed values, each under the ``Key`` of its
-    sources; ``get`` gives back a value only for the same sources in the
-    same state, ``put`` stores one. Safe across threads."""
+    """One packed value a slot (any hashable name), under the ``Key`` of
+    its sources; ``get`` gives it back only for the same sources in the same
+    state, ``put`` stores one in place of the slot's last. Safe across
+    threads."""
 
-    def __init__(self, size: int):
-        self.size = size
-        self._entries: OrderedDict = OrderedDict()  # index -> (weakrefs, state, value)
-        self._lock = threading.Lock()
+    def __init__(self):
+        self._slots: dict = {}  # slot -> (token, weakrefs, state, value)
+        # Reentrant: a source may die, and its callback run, on a thread
+        # that holds the lock (a garbage collection inside ``put``).
+        self._lock = threading.RLock()
 
     def __len__(self) -> int:
-        return len(self._entries)
+        return len(self._slots)
 
-    def get(self, k: Key | None):
-        """The value stored under ``k``, or None: no entry, a source dead or
-        another tensor, or a state that differs."""
+    def get(self, slot, k: Key | None):
+        """The value stored in ``slot`` under ``k``, or None: no entry,
+        another source, or a state that differs."""
         if k is None:
             return None
         with self._lock:
-            entry = self._entries.get(k.index)
-            if entry is None:
-                return None
-            refs, state, value = entry
-            if state != k.state or any(r() is not t for r, t in zip(refs, k.sources)):
-                return None
-            self._entries.move_to_end(k.index)
-            return value
+            entry = self._slots.get(slot)
+        if entry is None:
+            return None
+        _, refs, state, value = entry
+        if state != k.state or any(r() is not t for r, t in zip(refs, k.sources)):
+            return None
+        return value
 
-    def put(self, k: Key | None, value):
-        """Store ``value``, packed from ``k``'s sources in ``k``'s state, as
-        its own (``_own``), dropping the least recently used entry beyond
-        ``size``; returns what it stored (``value`` itself where ``k`` is
+    def put(self, slot, k: Key | None, value):
+        """Store ``value``, packed from ``k``'s sources in ``k``'s state,
+        detached, in ``slot``, until the next ``put`` there or the death of
+        a source; returns what it stored (``value`` itself where ``k`` is
         None)."""
         if k is None:
             return value
-        value = _own(value, k.sources)
+        value = _detached(value)
+        token = object()  # this entry, for its callbacks; it refers to nothing
+
+        def drop(_, slot=slot, token=token):
+            with self._lock:
+                if self._slots.get(slot, (None,))[0] is token:
+                    del self._slots[slot]
+
+        refs = tuple(weakref.ref(t, drop) for t in k.sources)
         with self._lock:
-            self._entries[k.index] = (tuple(weakref.ref(t) for t in k.sources), k.state, value)
-            self._entries.move_to_end(k.index)
-            while len(self._entries) > self.size:
-                self._entries.popitem(last=False)
+            self._slots[slot] = (token, refs, k.state, value)
         return value
 
 
-# The process's caches: the scene's tables by wrapper, and the camera's
-# parameters. Eight entries: a render sharded over eight cards keeps one a
-# card.
-TABLES = PackCache(8)
-CAMERAS = PackCache(8)
+# The process's caches: the scene's tables, a slot for each kernel and
+# stream, and the camera's parameters, a slot for each stream.
+TABLES = PackCache()
+CAMERAS = PackCache()

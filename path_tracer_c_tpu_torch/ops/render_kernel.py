@@ -413,27 +413,27 @@ def _camera_params(camera: Camera, scene: Scene, height: int, width: int):
     ).contiguous()
 
 
-def _table_key(scene: Scene, *extra):
+def _table_key(scene: Scene):
     """The ``pack_cache.Key`` of the scene's tables: every field of
-    ``_TABLE_FIELDS``, and ``extra``."""
-    return _pc.key([getattr(getattr(scene, table), name) for table, name, _ in _TABLE_FIELDS],
-                   *extra)
+    ``_TABLE_FIELDS``."""
+    return _pc.key([getattr(getattr(scene, table), name) for table, name, _ in _TABLE_FIELDS])
 
 
-def _camera_key(camera: Camera, scene: Scene, height: int, width: int, *extra):
+def _camera_key(camera: Camera, scene: Scene, height: int, width: int):
     """The ``pack_cache.Key`` of ``_camera_params``: the camera's fields and
-    the sky's colour, at ``height`` x ``width``, and ``extra``."""
+    the sky's colour, at ``height`` x ``width``."""
     return _pc.key([*(getattr(camera, name) for name in _CAMERA_FIELDS), scene.sky_color],
-                   height, width, *extra)
+                   height, width)
 
 
 def _pack(kind: str, tile, scene: Scene, camera: Camera, height: int, width: int, pack, stream):
     """A launch's pack phase for the kernel ``kind`` (``KINDS``) at the point
     ``tile`` names: returns the point, its library (``_library``), the
     scene's tables as ``pack(scene)`` packs them and the camera's parameters
-    (``_camera_params``). Tables and parameters are reused from an earlier
-    launch on the same ``stream`` while their source tensors are unchanged
-    (``pack_cache``): no copy, no kernel and no wait then. A
+    (``_camera_params``). Tables and parameters are reused from the last
+    launch that packed them on the same ``stream`` (the tables: of the same
+    kernel) while their source tensors are unchanged (``pack_cache``): no
+    copy, no kernel and no wait then. A
     ``pt.pack.<stem>`` span holds the library's load and both lookups; the
     tables count in ``pack.hit.<stem>`` or ``pack.miss.<stem>``; the
     parameters are packed anew under ``wait("camera_params")``."""
@@ -441,16 +441,17 @@ def _pack(kind: str, tile, scene: Scene, camera: Camera, height: int, width: int
     with span("pt.pack." + stem):
         t = tile_point(tile, kind)
         lib = _library(stem, t)
-        tables_key = _table_key(scene, stem, stream)
-        tables = _pc.TABLES.get(tables_key)
+        tables_key = _table_key(scene)
+        tables = _pc.TABLES.get((stem, stream), tables_key)
         count(("pack.miss." if tables is None else "pack.hit.") + stem)
         if tables is None:
-            tables = _pc.TABLES.put(tables_key, pack(scene))
-        camera_key = _camera_key(camera, scene, height, width, stream)
-        par = _pc.CAMERAS.get(camera_key)
+            tables = _pc.TABLES.put((stem, stream), tables_key, pack(scene))
+        camera_key = _camera_key(camera, scene, height, width)
+        par = _pc.CAMERAS.get(stream, camera_key)
     if par is None:
         with wait("camera_params"):
-            par = _pc.CAMERAS.put(camera_key, _camera_params(camera, scene, height, width))
+            par = _pc.CAMERAS.put(stream, camera_key,
+                                  _camera_params(camera, scene, height, width))
     return t, lib, tables, par
 
 

@@ -205,12 +205,12 @@ def test_a_reused_pack_renders_as_a_fresh_one(cuda_device, stem):
     render = RENDERS[stem]
     scene, cam = pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device)
     render(scene, cam, 48, 64, 2, 4, 0)
+    seeds = (1, 7, 2**31 + 5)
     before = tracing.counters()
-    for seed in (1, 7, 2**31 + 5):
-        reused = render(scene, cam, 48, 64, 2, 4, seed)
-        fresh = render(pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device),
-                       48, 64, 2, 4, seed)
-        assert torch.equal(reused, fresh)
+    reused = [render(scene, cam, 48, 64, 2, 4, seed) for seed in seeds]
+    fresh = [render(pdemo.glossy_scene(cuda_device), P.Camera.reference(cuda_device),
+                    48, 64, 2, 4, seed) for seed in seeds]
+    assert all(torch.equal(r, f) for r, f in zip(reused, fresh))
     moved = tracing.counters() - before
     assert moved[f"pack.hit.{stem}"] == 3 and moved[f"pack.miss.{stem}"] == 3
     assert moved["wait.camera_params"] == 3  # each new camera's parameters, once

@@ -3,8 +3,8 @@
 
 A launch reuses the tables and the camera's parameters an earlier launch
 packed only while every source tensor is the same object in the same state;
-an edit, a new scene or a new image size packs anew, and what the cache
-stores holds none of its sources. The launches themselves run on the card
+an edit, a new scene or a new image size packs anew, a slot keeps only its
+last miss, and an entry goes with its sources. The launches themselves run on the card
 (``test_torch_cuda.py``); here the pack phase runs alone, its library load
 stubbed.
 """
@@ -35,12 +35,13 @@ def pack(monkeypatch):
     returns whether the tables and the camera's parameters were reused, and
     both values."""
     monkeypatch.setattr(rk, "_library", lambda stem, t: None)
-    monkeypatch.setattr(pc, "TABLES", pc.PackCache(8))
-    monkeypatch.setattr(pc, "CAMERAS", pc.PackCache(8))
+    monkeypatch.setattr(pc, "TABLES", pc.PackCache())
+    monkeypatch.setattr(pc, "CAMERAS", pc.PackCache())
 
-    def call(scene, camera, kind="fwd", height=16, width=24):
+    def call(scene, camera, kind="fwd", height=16, width=24, stream=0):
         before = tracing.counters()
-        _, _, tables, par = rk._pack(kind, None, scene, camera, height, width, PACKS[kind], 0)
+        _, _, tables, par = rk._pack(kind, None, scene, camera, height, width, PACKS[kind],
+                                     stream)
         moved = tracing.counters() - before
         stem = rk.KINDS[kind]
         assert moved[f"pack.hit.{stem}"] + moved[f"pack.miss.{stem}"] == 1
@@ -134,30 +135,44 @@ def test_a_new_image_size_misses_the_camera_only(pack):
     hit_tables, hit_camera, again, wide = pack(scene, cam, height=16, width=32)
     assert hit_tables and not hit_camera and again is tables
     assert float(wide[1]) == pytest.approx(2.0) and float(par[1]) == pytest.approx(1.5)
+    # The camera's slot keeps the last size only; the tables stay.
+    assert pack(scene, cam, height=16, width=24)[:2] == (True, False)
     assert pack(scene, cam, height=16, width=24)[:2] == (True, True)
 
 
 def test_a_dead_reference_misses_and_no_source_is_kept():
-    cache = pc.PackCache(8)
+    cache = pc.PackCache()
     t = torch.arange(4, dtype=torch.int32)
     k = pc.key([t], "x")
-    stored = cache.put(k, (t, t + 1))  # the value holds its source, as a contiguous index does
-    assert torch.equal(stored[0], t)
-    assert stored[0].untyped_storage().data_ptr() != t.untyped_storage().data_ptr()
-    assert cache.get(pc.key([t], "x")) is stored
-    index, state, ref = k.index, k.state, weakref.ref(t)
+    stored = cache.put("slot", k, (t, t + 1))  # the value shares a source's memory, as an index may
+    assert cache.get("slot", pc.key([t], "x")) is stored
+    assert cache.get("slot", pc.key([t], "y")) is None  # another extra value
+    state, ref = k.state, weakref.ref(t)
     del t, k
     gc.collect()
-    assert ref() is None  # the entry kept no source alive
-    # A tensor at the dead one's id, address and version: the entry is not its.
-    assert cache.get(pc.Key(index, (torch.arange(4, dtype=torch.int32),), state)) is None
+    assert ref() is None and len(cache) == 0  # the entry kept no source alive, and went with it
+    # A tensor at the dead one's address and version: the entry is not its.
+    assert cache.get("slot", pc.Key((torch.arange(4, dtype=torch.int32),), state)) is None
     assert torch.equal(stored[0], torch.arange(4, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("kind", list(PACKS))
+def test_a_dead_scene_leaves_the_caches_empty(pack, kind):
+    scene, cam = inputs()
+    pack(scene, cam, kind)
+    assert len(pc.TABLES) == 1 and len(pc.CAMERAS) == 1
+    ref = weakref.ref(scene.spheres.center)
+    del scene
+    gc.collect()
+    # The camera's entry goes too: the sky's colour is one of its sources.
+    assert ref() is None and len(pc.TABLES) == 0 and len(pc.CAMERAS) == 0
+    assert pack(pdemo.glossy_scene("cpu"), cam, kind)[:2] == (False, False)
+
+
 def test_a_stored_value_holds_no_graph():
-    cache = pc.PackCache(8)
+    cache = pc.PackCache()
     leaf = torch.ones(3, requires_grad=True)
-    stored = cache.put(pc.key([leaf]), (leaf * 2.0,))
+    stored = cache.put("slot", pc.key([leaf]), (leaf * 2.0,))
     assert stored[0].grad_fn is None and not stored[0].requires_grad
     assert torch.equal(stored[0], torch.full((3,), 2.0))
 
@@ -173,14 +188,19 @@ def test_inference_tensors_always_miss(pack):
     assert_equal(tables, rk._scene_operands(scene))
 
 
-def test_the_size_bound_holds_least_recently_used_out_first():
-    cache = pc.PackCache(3)
-    ts = [torch.full((2,), float(i)) for i in range(5)]
-    for i, t in enumerate(ts[:3]):
-        cache.put(pc.key([t]), (t + i,))
-    assert cache.get(pc.key([ts[0]])) is not None  # 0 is now the most recent
-    for t in ts[3:]:
-        cache.put(pc.key([t]), (t,))
-    assert len(cache) == 3
-    hits = [cache.get(pc.key([t])) is not None for t in ts]
-    assert hits == [True, False, False, True, True]
+def test_the_size_bound_holds_one_entry_a_slot(pack):
+    """The tables' slot is the kernel and the stream, the camera's the
+    stream; each keeps the last miss only."""
+    scene, cam = inputs()
+    pack(scene, cam, "fwd")
+    assert pack(scene, cam, "phys")[:2] == (False, True)  # its own tables, the same camera
+    assert pack(scene, cam, "fwd")[:2] == (True, True)
+    assert pack(scene, cam, "fwd", stream=1)[:2] == (False, False)
+    assert pack(scene, cam, "fwd", stream=0)[:2] == (True, True)
+    assert len(pc.TABLES) == 3 and len(pc.CAMERAS) == 2
+    others = [pdemo.glossy_scene("cpu") for _ in range(3)]
+    for other in others:
+        assert pack(other, cam, "fwd")[:2] == (False, False)
+    assert len(pc.TABLES) == 3 and len(pc.CAMERAS) == 2
+    assert pack(scene, cam, "phys")[:2] == (True, False)  # B3's slot kept it
+    assert pack(scene, cam, "fwd")[:2] == (False, True)
