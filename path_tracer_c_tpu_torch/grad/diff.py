@@ -68,7 +68,7 @@ from ..ops.render_physical import (
 from ..ops.render_physical_grad import render_physical_kernel_vjp
 from ..scene.scene import Scene
 from ..utils import checkpoint as _ckpt
-from ..utils.tracing import wait
+from ..utils.tracing import span, wait
 
 __all__ = [
     "mse_loss",
@@ -396,6 +396,16 @@ def _index_tuple(indices) -> tuple:
     return tuple(int(i) for i in indices)
 
 
+def _index_tensor(indices, device) -> torch.Tensor:
+    """Indices as a long tensor on ``device``; a long tensor already there
+    is returned as it is. Building one from host ints is a copy from
+    pageable memory, which waits for the device's stream, so a fit builds
+    its indices once and not every step."""
+    if isinstance(indices, torch.Tensor):
+        return indices.to(device=device, dtype=torch.long)
+    return torch.tensor(_index_tuple(indices), dtype=torch.long, device=device)
+
+
 def make_geometry_params(scene: Scene, sphere_indices, triangle_indices=()) -> dict:
     """Unconstrained optimization variables of selected geometry, as new
     leaf tensors that require a gradient: ``center`` and ``radius_raw`` (the
@@ -419,17 +429,18 @@ def make_geometry_params(scene: Scene, sphere_indices, triangle_indices=()) -> d
 
 def apply_geometry_params(scene: Scene, params, sphere_indices, triangle_indices=()) -> Scene:
     """Scene with the selected spheres and triangles replaced by the mapping
-    of ``params``."""
+    of ``params``. The indices are ints or long tensors (``_index_tensor``:
+    tensors on the scene's device copy nothing from the host)."""
     dev = scene.device
     if "center" in params:
-        idx = torch.tensor(_index_tuple(sphere_indices), dtype=torch.long, device=dev)
+        idx = _index_tensor(sphere_indices, dev)
         sph = scene.spheres
         scene = dataclasses.replace(scene, spheres=dataclasses.replace(
             sph,
             center=sph.center.index_copy(0, idx, params["center"]),
             radius=sph.radius.index_copy(0, idx, F.softplus(params["radius_raw"]))))
     if "tri_v" in params:
-        tidx = torch.tensor(_index_tuple(triangle_indices), dtype=torch.long, device=dev)
+        tidx = _index_tensor(triangle_indices, dev)
         tri, tv = scene.triangles, params["tri_v"]
         scene = dataclasses.replace(scene, triangles=dataclasses.replace(
             tri, v0=tri.v0.index_copy(0, tidx, tv[:, 0]), v1=tri.v1.index_copy(0, tidx, tv[:, 1]),
@@ -504,9 +515,12 @@ def fit_geometry(
                 "tier) for non-emitter geometry.", stacklevel=2)
     if params is None:
         params = make_geometry_params(scene_init, sphere_indices, triangle_indices)
+    dev = scene_init.device
+    sphere_idx, triangle_idx = (_index_tensor(i, dev) for i in (sphere_indices, triangle_indices))
 
     def loss_fn(seed):
-        scene = apply_geometry_params(scene_init, params, sphere_indices, triangle_indices)
+        with span("pt.apply.geometry"):
+            scene = apply_geometry_params(scene_init, params, sphere_idx, triangle_idx)
         if engine == "physical_pallas":
             img = render_physical_kernel_vjp(
                 scene, camera, height, width, spp, max_bounces, seed, nee=True, jitter=False,

@@ -471,9 +471,10 @@ def render_physical_fused(
 
     CUDA tensors go to the hand kernel, built on first use (``ops.build``);
     the counter ``launch.render_phys_fused`` (``utils/tracing.py``) counts
-    its launches. CPU tensors go to ``render_physical_fused_reference``. Any
-    other device raises, and so does ``max_bounces > MAX_BOUNCES`` on every
-    device.
+    its launches, and ``planes.render_phys_fused`` the geometry planes each
+    call writes, on either device. CPU tensors go to
+    ``render_physical_fused_reference``. Any other device raises, and so
+    does ``max_bounces > MAX_BOUNCES`` on every device.
 
     The planes take ``(mp * M + 3 + 12 * n_em_cap + 27 * tri_em_cap) * H * W
     * 4`` bytes (629 MB at 1024 x 1024 with 15 materials and one tracked
@@ -487,6 +488,7 @@ def render_physical_fused(
         rows = _check_grad_inputs(scene, camera, height, width, spp, max_bounces, seed,
                                   sample_offset, n_em_cap, tri_em_cap, tri_nee, row_start, rows)
         t = phys_fused_tile(scene, rows, width, max_bounces, tile)
+    count("planes.render_phys_fused", 12 * n_em_cap + 27 * tri_em_cap)
     if scene.device.type == "cpu":
         return render_physical_fused_reference(
             scene, camera, height, width, spp, max_bounces, seed, sample_offset=sample_offset,

@@ -24,6 +24,9 @@ Span names are ``pt.<phase>.<stem>``, the stem a kernel's source
   arguments, the entry's lookup, the call into the library and its error
   check;
 - ``pt.contract.<stem>``: an autograd backward, the Jacobian's contraction;
+- ``pt.apply.<variables>``: a fit's variables mapped onto its scene before
+  the render (``geometry``: ``grad/diff.fit_geometry``'s spheres and
+  triangles);
 - ``pt.wait.<site>``: the host waiting for the device (a launch's camera
   parameters, copied from pageable memory, for B1 and B3 on a miss only;
   the fit loop's loss readbacks; a counting launch's counters; a
@@ -38,7 +41,9 @@ measurement instantiation), ``launch.<probe>`` (``sol_null``,
 ``sol_micro``, ``calib``), ``wait.<site>``, ``build.<library>``, and
 ``pack.hit.<stem>`` and ``pack.miss.<stem>`` (a launch of B1 or B3 that
 reused or packed the scene's tables; a camera's miss counts in
-``wait.camera_params``).
+``wait.camera_params``), and ``planes.render_phys_fused`` (the geometry
+planes a call of B4, or of its plain twin, writes: 12 a tracked sphere
+emitter, 27 a tracked triangle emitter).
 """
 
 from __future__ import annotations

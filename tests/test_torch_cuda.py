@@ -985,6 +985,27 @@ def test_resumed_fit_equals_uninterrupted_on_the_card(cuda_device, tmp_path, kin
             assert torch.equal(a, b)
 
 
+def test_a_geometry_step_maps_its_variables_without_a_host_sync(cuda_device):
+    """``apply_geometry_params`` with the index tensors a geometry fit
+    builds once makes no copy that waits for the card; with host ints it
+    does (the sync debug mode raises on the copy from pageable memory)."""
+    from path_tracer_c_tpu_torch.grad import diff
+
+    scene = pdemo.cornell_spheres_scene(cuda_device)
+    li = int(rp.live_emitter_mask(scene).argmax())
+    params = diff.make_geometry_params(scene, (li,))
+    idx, none = diff._index_tensor((li,), cuda_device), diff._index_tensor((), cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        live = diff.apply_geometry_params(scene, params, idx, none)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            diff.apply_geometry_params(scene, params, (li,))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(live.spheres.center, scene.spheres.center)
+
+
 def _eager_fit_case(kind, device):
     """``fit --mode roughness`` or ``--mode geometry`` on its default engine,
     autograd through the eager physical tier, on cornell at 32x32, 4 spp,

@@ -129,6 +129,38 @@ def test_geometry_params_cross_over_and_apply():
     assert all(pp[k].grad is not None and pp[k].grad.any() for k in pp)
 
 
+def test_fit_geometry_builds_its_indices_once(monkeypatch):
+    """A geometry fit maps its variables onto the scene with the same index
+    tensors every step, built once on the scene's device: building them
+    from host ints each step copies from pageable memory, which waits for
+    the device. Tensor indices map as the ints do."""
+    pscene = S.carry(S.tri_light_mixed_scene())
+    seen, sound = [], pdiff.apply_geometry_params
+
+    def spy(scene, params, sphere_indices, triangle_indices=()):
+        seen.append((sphere_indices, triangle_indices))
+        return sound(scene, params, sphere_indices, triangle_indices)
+
+    monkeypatch.setattr(pdiff, "apply_geometry_params", spy)
+    target = torch.zeros((4, 4, 3))
+    pdiff.fit_geometry(pscene, target, PCAM, 4, 4, 1, 1, sphere_indices=(1,),
+                       triangle_indices=(2, 3), steps=3, engine="physical")
+    assert len(seen) == 4  # three steps and the fitted scene
+    sph, tri = seen[0]
+    assert all(s is sph and t is tri for s, t in seen[:3])
+    assert isinstance(sph, torch.Tensor) and sph.dtype == torch.long
+    assert sph.device == tri.device == pscene.device
+    assert sph.tolist() == [1] and tri.tolist() == [2, 3]
+
+    params = {k: v.detach() + 0.25 for k, v in
+              pdiff.make_geometry_params(pscene, (1,), (2, 3)).items()}
+    by_ints = sound(pscene, params, (1,), (2, 3))
+    by_tensors = sound(pscene, params, torch.tensor([1]), torch.tensor([2, 3], dtype=torch.int32))
+    for tb, nm in (("spheres", "center"), ("spheres", "radius"), ("triangles", "v0"),
+                   ("triangles", "v1"), ("triangles", "v2")):
+        assert torch.equal(getattr(getattr(by_ints, tb), nm), getattr(getattr(by_tensors, tb), nm))
+
+
 def test_fit_geometry_warns_for_geometry_that_is_no_emitter():
     pscene = S.carry(S.tri_light_mixed_scene())  # sphere 1 and triangles 2, 3 emit
     target = torch.zeros(8, 8, 3)

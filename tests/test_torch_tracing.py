@@ -21,6 +21,7 @@ import path_tracer_c_tpu_torch as P
 from path_tracer_c_tpu_torch.app import main as app
 from path_tracer_c_tpu_torch.grad import diff
 from path_tracer_c_tpu_torch.ops import render_grad as rg
+from path_tracer_c_tpu_torch.ops import render_physical as rp
 from path_tracer_c_tpu_torch.utils import tracing
 from path_tracer_c_tpu_torch.utils.metrics import MetricsLogger
 
@@ -153,6 +154,28 @@ def test_the_fit_loop_counts_its_waits(small, with_callback):
     waits = {k: v for k, v in (tracing.counters() - before).items() if k.startswith("wait.")}
     assert waits == ({"wait.loss": 3} if with_callback else {"wait.flush": 1})
     assert len(losses) == 3 and seen == ([0, 1, 2] if with_callback else [])
+
+
+def test_a_geometry_step_maps_its_variables_beside_b4():
+    """A geometry fit through B4 (here its plain twin) under the profiler and
+    a recording: one ``pt.apply.geometry`` a step, neither inside a span of
+    B4's wrapper nor holding one; ``planes.render_phys_fused`` counts 12
+    geometry planes a live sphere emitter a call."""
+    scene = P.demo.random_spheres_scene("cpu", n=9, emissive_every=4)
+    cam = P.Camera.reference("cpu")
+    n_em = rp.live_emitter_count(scene)
+    target = P.render_physical_kernel(scene, cam, *SHAPE, 5, jitter=False)
+    before = tracing.counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
+            tracing.recording() as rec:
+        diff.fit_geometry(scene, target, cam, *SHAPE, sphere_indices=(0,), steps=2,
+                          engine="physical_pallas")
+    assert n_em == 3 and rec.spans()["pt.apply.geometry"]["count"] == 2
+    spans = _pt_spans(prof)
+    assert [n for _, _, n in spans].count("pt.apply.geometry") == 2
+    assert any(n.endswith(".render_phys_fused") for _, _, n in spans)
+    assert not [pair for pair in _nested(spans) if "pt.apply.geometry" in pair]
+    assert (tracing.counters() - before)["planes.render_phys_fused"] == 2 * 12 * n_em
 
 
 @pytest.mark.parametrize("command", ["render", "fit"])
